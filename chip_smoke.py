@@ -1,0 +1,350 @@
+"""Drive zippy_tpu_torch's compress path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure ends the run with a
+non-zero exit and no result line):
+
+1. the card (nvidia-smi's name and power limit, torch's device name);
+2. the kernel build (csrc/checksums.cu with nvcc), with its seconds;
+3. kernels K1 (adler_chunks) and K2 (crc_rows) against their plain
+   PyTorch versions on the card and against zlib, at 0 B to 256 MiB + 7,
+   with times and the card's least time for the same work;
+4. the main path: compress() of a seeded 64 MiB mixed text/binary payload
+   to gzip at level 6, from host bytes and from a CUDA tensor, and of
+   8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
+   gzip/zlib; the kernels' launch counts are zeroed before and read after;
+   then one instrumented encode gives seconds per stage, and torch.profiler
+   traces of the encode and of one Kraft build give device operations and
+   the card's idle share;
+5. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9.
+
+A kernel's time ("ms") is device time per launch, from a CUDA graph of
+launches between CUDA events; a plain version's ("plain_ms") and a
+wrapper's ("call_ms") are per call of the Python function.
+
+Then the kernel table (one JSON line), the card's name and power limit,
+and last {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import subprocess
+import sys
+import time
+import zlib
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+# 32-bit integer instructions (add, multiply-add, logic, shift) outside the
+# tensor cores: 64 per clock per SM, 132 SMs, 1.98 GHz boost clock. The data
+# sheet's 67e12 is float32 with a fused multiply-add counted as two.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+SEED = 20261016
+MAIN_BYTES = 64 << 20
+ZLIB_BYTES = 8 << 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok: bool, what) -> None:
+    """A failed check ends the run (no result line, non-zero exit)."""
+    if not ok:
+        raise SystemExit(f"chip_smoke: check failed: {what}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def mixed_text(n: int, seed: int) -> bytes:
+    """Seeded payload: 3/4 Zipf-distributed words with punctuation, 1/8
+    random bytes, 1/8 little-endian integer tables and byte runs, laid out
+    in 64 KiB-scale segments so every block sees a mix."""
+    rng = np.random.default_rng(seed)
+    vocab = [bytes(rng.integers(97, 123, int(k)).astype(np.uint8))
+             for k in rng.integers(1, 11, 20000)]
+    vocab_np = np.array(vocab, dtype=object)
+    seps = np.array([b" ", b" ", b" ", b" ", b", ", b". ", b"\n"],
+                    dtype=object)
+    out, total = [], 0
+    while total < n:
+        kind = rng.integers(0, 8)
+        if kind < 6:
+            idx = (rng.zipf(1.2, 12000) - 1) % len(vocab)
+            sep = seps[rng.integers(0, len(seps), idx.size)]
+            part = b"".join((vocab_np[idx] + sep).tolist())
+        elif kind == 6:
+            part = rng.integers(0, 256, int(rng.integers(4096, 65536)),
+                                dtype=np.uint8).tobytes()
+        else:
+            ints = np.cumsum(rng.integers(0, 300, 8192)).astype("<u4")
+            part = ints.tobytes() + bytes([int(rng.integers(0, 256))]) * int(
+                rng.integers(100, 5000))
+        out.append(part)
+        total += len(part)
+    return b"".join(out)[:n]
+
+
+def call_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of fn() over `reps` back-to-back calls,
+    after one warm-up call, from CUDA events: the host's issue cost of each
+    call counts."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Device milliseconds per launch of fn(), a kernel wrapper: `reps`
+    launches captured in one CUDA graph and replayed between CUDA events,
+    so the wrapper's host work is not timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def device_trace(fn) -> dict:
+    """fn() under torch.profiler's CUDA tracing: wall seconds, the device
+    operations it ran (kernels, copies, fills), their summed seconds, and
+    the share of the wall time in which the card ran none. The device
+    numbers are null where the profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return {"wall_s": wall, "device_ops": None, "kernels": None,
+                "device_busy_s": None, "device_idle_share": None}
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e6
+    return {"wall_s": wall, "device_ops": len(ops),
+            "kernels": sum(1 for e in ops
+                           if not e.name.startswith(("Memcpy", "Memset"))),
+            "device_busy_s": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall)}
+
+
+def adler_work(nchunks: int):
+    """(bytes, operations) K1 must move and do: each byte read once, two
+    int32 words written per chunk; an add and a multiply-add per byte."""
+    return nchunks * 1024 + 8 * nchunks, 2 * nchunks * 1024
+
+
+def crc_work(nrows: int):
+    """(bytes, operations) K2 must move and do: each byte read once, one
+    int32 written per row; one 32-bit operation per input word, the least
+    any formulation needs to fold a word into its row's CRC (K2's own
+    GF(2) products take far more)."""
+    return nrows * 512 + 4 * nrows, nrows * 128
+
+
+def bound(work) -> tuple[float, str]:
+    nbytes, nops = work
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from zippy_tpu_torch import api, common
+    from zippy_tpu_torch.ops import checksum_kernels as ck
+    from zippy_tpu_torch.ops import checksums as tc
+    from zippy_tpu_torch.ops import deflate_device as td
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    # Phase 1: the card.
+    emit({"phase": "card", "nvidia_smi": card, "torch_name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # Phase 2: the kernel build.
+    t0 = time.perf_counter()
+    lib = ck.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": lib.name})
+
+    # Phase 3: K1 and K2 against their plain versions and zlib.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    sizes = [0, 1, 511, 512, 513, 1 << 20, (256 << 20) + 7]
+    for n in sizes:
+        x = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        host = x.cpu().numpy().tobytes()
+        nch = max(1, -(-n // ck.CHUNK))
+        chunks = torch.zeros(nch * ck.CHUNK, dtype=torch.uint8, device=dev)
+        chunks[:n] = x
+        chunks = chunks.view(nch, ck.CHUNK)
+        nr = max(1, -(-n // ck.CRC_ROW_BYTES))
+        rows = torch.zeros(nr * ck.CRC_ROW_BYTES, dtype=torch.uint8,
+                           device=dev)
+        rows[nr * ck.CRC_ROW_BYTES - n:] = x
+        rows = rows.view(nr, ck.CRC_ROW_BYTES)
+        s, w = ck.adler_chunks(chunks)
+        s0, w0 = ck.adler_chunks_plain(chunks)
+        r, r0 = ck.crc_rows(rows), ck.crc_rows_plain(rows)
+        adler, crc = tc.adler32_device(x), tc.crc32_device(x)
+        row = {"phase": "kernels", "bytes": n,
+               "adler_chunks_equal_plain": bool(torch.equal(s, s0)
+                                                and torch.equal(w, w0)),
+               "crc_rows_equal_plain": bool(torch.equal(r, r0)),
+               "adler32_equal_zlib": adler == zlib.adler32(host),
+               "crc32_equal_zlib": crc == zlib.crc32(host)}
+        if n == sizes[-1]:
+            for name, fn, plain, work in (
+                    ("adler_chunks", lambda: ck.adler_chunks(chunks),
+                     lambda: ck.adler_chunks_plain(chunks), adler_work(nch)),
+                    ("crc_rows", lambda: ck.crc_rows(rows),
+                     lambda: ck.crc_rows_plain(rows), crc_work(nr))):
+                row[name + "_ms"] = kernel_ms(fn, 20)
+                row[name + "_call_ms"] = call_ms(fn, 20)
+                row[name + "_plain_ms"] = call_ms(plain, 2)
+                row[name + "_bound_ms"], row[name + "_bound_by"] = bound(work)
+        emit(row)
+        check(all(v for k, v in row.items()
+                  if k.endswith(("_plain", "_zlib"))), row)
+        del x, chunks, rows, s, w, s0, w0, r, r0
+    torch.cuda.empty_cache()
+
+    # Phase 4: the main path.
+    data = mixed_text(MAIN_BYTES, SEED)
+    small = data[:ZLIB_BYTES]
+    x_dev = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    torch.cuda.synchronize()
+    for key in ck.LAUNCHES:
+        ck.LAUNCHES[key] = 0
+    runs = []
+    for label, src, level, fmt, want in (
+            ("gzip L6 host bytes", data, 6, common.dfGzip, data),
+            ("gzip L6 cuda tensor", x_dev, 6, common.dfGzip, data),
+            ("zlib L1 host bytes", small, 1, common.dfZlib, small),
+            ("zlib L9 host bytes", small, 9, common.dfZlib, small)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        blob = api.compress(src, level, fmt)
+        sec = time.perf_counter() - t0
+        back = (gzip.decompress(blob) if fmt is common.dfGzip
+                else zlib.decompress(blob))
+        runs.append({"phase": "main_path", "run": label, "bytes": len(want),
+                     "seconds": sec, "MB_per_s": len(want) / sec / 1e6,
+                     "ratio": len(blob) / len(want),
+                     "peak_device_GiB": torch.cuda.max_memory_allocated()
+                     / 2**30,
+                     "roundtrip": back == want})
+        emit(runs[-1])
+        check(back == want, label)
+    launches = dict(ck.LAUNCHES)
+    emit({"phase": "main_path_launches", **launches})
+    check(launches["adler_chunks"] > 0 and launches["crc_rows"] > 0, launches)
+
+    stages: dict = {}
+    t0 = time.perf_counter()
+    td.deflate_array(x_dev, 6, stages=stages)
+    emit({"phase": "stages", "run": "deflate L6 64 MiB cuda tensor",
+          "seconds": time.perf_counter() - t0,
+          **{k + "_s": v for k, v in stages.items()}})
+
+    # The same encode traced, no stage syncs; then one Kraft build over a
+    # full group of level-6 ll histograms (its launches do not depend on
+    # the data).
+    emit({"phase": "trace", "run": "deflate L6 64 MiB cuda tensor",
+          **device_trace(lambda: td.deflate_array(x_dev, 6))})
+    g = td._group_size(12, td.BLOCK)
+    rng = np.random.default_rng(SEED)
+    freq = torch.from_numpy(rng.zipf(1.3, (g, 286)) % 4096
+                            * (rng.random((g, 286)) < 0.7)).to(dev)
+    td._kraft_lengths(freq, 15)
+    emit({"phase": "trace", "run": f"_kraft_lengths ({g}, 286)",
+          **device_trace(lambda: td._kraft_lengths(freq, 15))})
+
+    # Kernel numbers at the shapes the main path gave each kernel: K1 the
+    # 8 MiB zlib trailer, K2 the 64 MiB gzip trailer.
+    nch = ZLIB_BYTES // ck.CHUNK
+    chunks = x_dev[:ZLIB_BYTES].view(nch, ck.CHUNK)
+    nr = MAIN_BYTES // ck.CRC_ROW_BYTES
+    rows = x_dev.view(nr, ck.CRC_ROW_BYTES)
+    kernels, calls = [], {}
+    for name, replaces, fn, plain, work, err in (
+            ("adler_chunks", "zippy_tpu/ops/pallas_checksums.py:32",
+             lambda: ck.adler_chunks(chunks),
+             lambda: ck.adler_chunks_plain(chunks), adler_work(nch),
+             lambda: max(int((a.long() - b.long()).abs().max())
+                         for a, b in zip(ck.adler_chunks(chunks),
+                                         ck.adler_chunks_plain(chunks)))),
+            ("crc_rows", "zippy_tpu/ops/pallas_checksums.py:139",
+             lambda: ck.crc_rows(rows), lambda: ck.crc_rows_plain(rows),
+             crc_work(nr),
+             lambda: int((ck.crc_rows(rows).long()
+                          - ck.crc_rows_plain(rows).long()).abs().max()))):
+        bound_ms, bound_by = bound(work)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "zippy_tpu_torch/csrc/checksums.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err(), "ms": kernel_ms(fn, 100),
+            "plain_ms": call_ms(plain, 3), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+        calls[name + "_call_ms"] = call_ms(fn, 100)
+    emit({"phase": "kernel_calls", **calls})
+    check(all(k["max_abs_err"] == 0 for k in kernels), kernels)
+    del x_dev, chunks, rows
+
+    # Phase 5: CPU and CUDA bytes.
+    piece = data[:256 << 10]
+    same = {}
+    for level in (1, 6, 9):
+        a = td.deflate(piece, level, device="cpu")
+        b = td.deflate(piece, level)
+        same[str(level)] = a == b
+        check(zlib.decompress(b, wbits=-15) == piece, f"raw L{level}")
+    emit({"phase": "cpu_vs_cuda", "bytes": len(piece), "identical": same})
+    check(all(same.values()), same)
+
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

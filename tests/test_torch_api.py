@@ -1,0 +1,124 @@
+"""zippy_tpu_torch's public compress() on the CPU, checked by CPython's gzip
+and zlib and against zippy_tpu's framing."""
+
+import gzip
+import os
+import pathlib
+import subprocess
+import sys
+import zlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import zippy_tpu  # noqa: E402
+import zippy_tpu_torch as zt  # noqa: E402
+from zippy_tpu_torch import gzip_format  # noqa: E402
+from _torch_parity import mixed_payload  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("level", [-2, -1, 0, 1, 6, 9])
+def test_compress_formats_decode(level):
+    data = mixed_payload(3 * 4096 + 77, seed=31)
+    g = zt.compress(data, level, zt.dfGzip, device="cpu")
+    z = zt.compress(data, level, zt.dfZlib, device="cpu")
+    r = zt.compress(data, level, zt.dfDeflate, device="cpu")
+    assert gzip.decompress(g) == data
+    assert zlib.decompress(z) == data
+    assert zlib.decompress(r, wbits=-15) == data
+    # Trailers equal zlib's checksums.
+    assert int.from_bytes(g[-8:-4], "little") == zlib.crc32(data)
+    assert int.from_bytes(g[-4:], "little") == len(data)
+    assert int.from_bytes(z[-4:], "big") == zlib.adler32(data)
+    assert z[:2] == b"\x78\x01"    # CINFO 7, CM 8, FLEVEL 0: the reference's
+
+
+def test_gzip_member_framing_matches_reference():
+    data = mixed_payload(5000, seed=37)
+    got = gzip_format.write_member(data, 6, random_name_padding=False,
+                                   device="cpu")
+    ref = zippy_tpu.gzip_format.write_member(data, 6,
+                                             random_name_padding=False,
+                                             engine_name="device")
+    assert got[:10] == ref[:10]
+    assert got[-8:] == ref[-8:]
+    assert gzip.decompress(got) == data
+    padded = zt.compress(data, 6, zt.dfGzip, device="cpu")
+    assert padded[3] & 0x08 and gzip.decompress(padded) == data   # FNAME
+
+
+def test_compress_inputs():
+    data = "zippy torch text " * 300
+    raw = data.encode()
+    x = torch.from_numpy(np.frombuffer(raw, np.uint8).copy())
+    want = zt.compress(raw, 6, zt.dfDeflate, device="cpu")
+    assert zt.compress(data, 6, zt.dfDeflate, device="cpu") == want
+    assert zt.compress(bytearray(raw), 6, zt.dfDeflate, device="cpu") == want
+    assert zt.compress(x, 6, zt.dfDeflate) == want        # a tensor stays put
+    assert zt.compress(b"", 6, zt.dfDeflate, device="cpu") == b"\x03\x00"
+    assert gzip.decompress(zt.compress(b"", 6, device="cpu")) == b""
+    with pytest.raises(TypeError):
+        zt.compress(12345, device="cpu")
+
+
+def test_compress_rejects_what_the_port_lacks():
+    with pytest.raises(zt.ZippyError):
+        zt.compress(b"abc", 6, zt.dfGzip, engine_name="native", device="cpu")
+    with pytest.raises(zt.ZippyError):
+        zt.compress(b"abc", 6, zt.dfGzip, engine_name="devcie", device="cpu")
+    with pytest.raises(zt.ZippyError):
+        zt.compress(b"abc", 6, zt.dfDetect, device="cpu")
+    with pytest.raises(zt.ZippyError):
+        zt.compress(b"abc", 11, device="cpu")
+    for engine_name in ("auto", "device"):
+        assert zlib.decompress(zt.compress(b"abc", 6, zt.dfZlib,
+                                           engine_name=engine_name,
+                                           device="cpu")) == b"abc"
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(zt.ZippyError):
+        zt.compress(b"abc")
+    with pytest.raises(zt.ZippyError):
+        zt.compress(b"abc", 6, zt.dfZlib)
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """In a fresh interpreter (this one has jax loaded by conftest), the
+    port and chip_smoke.py leave jax and zippy_tpu out of sys.modules."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "import zippy_tpu_torch\n"
+        "for m in pkgutil.walk_packages(zippy_tpu_torch.__path__, "
+        "'zippy_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'zippy_tpu' or m.startswith('zippy_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card, and alone in a directory, chip_smoke.py exits
+    non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    (tmp_path / "chip_smoke.py").write_bytes(
+        (REPO / "chip_smoke.py").read_bytes())
+    for cwd in (REPO, tmp_path):
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

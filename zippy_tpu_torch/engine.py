@@ -1,0 +1,50 @@
+"""Codec engine selection for the port: the device routes of zippy_tpu.engine.
+
+"auto" and "device" both run the device pipeline. "native" (the reference's
+host C++ codec) is not part of the port and raises ZippyError. A tensor runs
+on its own device; host bytes go to the CUDA card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .common import ZippyError
+
+_ENGINES = ("auto", "native", "device")
+
+
+def check_engine(engine: str) -> None:
+    """Reject typo'd engine names and the host codec, which the port lacks."""
+    if engine not in _ENGINES:
+        raise ZippyError(f"unknown engine {engine!r}; expected one of "
+                         f"{_ENGINES}")
+    if engine == "native":
+        raise ZippyError("the native host codec is not part of "
+                         "zippy_tpu_torch; use engine 'auto' or 'device'")
+
+
+def deflate(data, level: int, engine: str = "auto") -> bytes:
+    """Raw DEFLATE encode on the device pipeline."""
+    from .ops import deflate_device
+
+    check_engine(engine)
+    if isinstance(data, torch.Tensor):
+        return deflate_device.deflate_array(data, level)
+    return deflate_device.deflate(data, level)
+
+
+def crc32(data, engine: str = "auto") -> int:
+    """CRC-32 on the device (kernel K2 on a CUDA tensor)."""
+    from .ops import checksums
+
+    check_engine(engine)
+    return checksums.crc32_device(data)
+
+
+def adler32(data, engine: str = "auto") -> int:
+    """Adler-32 on the device (kernel K1 on a CUDA tensor)."""
+    from .ops import checksums
+
+    check_engine(engine)
+    return checksums.adler32_device(data)

@@ -1,0 +1,188 @@
+"""Device checksums: adler32 and crc32 as parallel reductions on the card.
+
+Port of zippy_tpu/ops/checksums.py. The host GF(2) helpers are copied as
+they are (numpy and Python ints). The device side is the two hand-written
+CUDA kernels of ops/checksum_kernels.py:
+
+* adler32 — each 1024-byte chunk contributes (S, W) = (sum d_i,
+  sum (1024 - i) d_i) mod 65521 (kernel K1); the chunks combine
+  associatively in a few torch ops.
+* crc32 — CRC is GF(2)-linear: the register after message M with init I is
+  shift8^n(I) XOR raw(M). Kernel K2 gives the raw CRC of every 512-byte row;
+  the rows fold in a log tree of constant shift matrices. Leading zero bytes
+  are free in raw space, so the input is padded at the FRONT.
+
+A CUDA tensor stays on the card: only the 4-byte result comes back.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..common import as_u8_tensor
+
+ADLER_MOD = 65521
+CRC32_POLY = 0xEDB88320  # reflected polynomial
+
+# ---------------------------------------------------------------------------
+# Host-side GF(2) linear algebra (32x32 matrices as 32 uint32 columns)
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _crc_byte_table() -> np.ndarray:
+    """T0[b] = CRC register after one byte b with init 0 (standard table)."""
+    table = np.zeros(256, dtype=np.uint64)
+    for b in range(256):
+        c = b
+        for _ in range(8):
+            c = (c >> 1) ^ (CRC32_POLY if (c & 1) else 0)
+        table[b] = c
+    return table.astype(np.uint32)
+
+
+def gf2_matvec(mat: np.ndarray, vec: int) -> int:
+    """Apply 32x32 GF(2) matrix (columns as uint32) to a 32-bit vector."""
+    out = 0
+    v = int(vec)
+    for j in range(32):
+        if (v >> j) & 1:
+            out ^= int(mat[j])
+    return out
+
+
+def gf2_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.array([gf2_matvec(a, int(col)) for col in b], dtype=np.uint32)
+
+
+@functools.cache
+def _shift8_matrix() -> bytes:
+    """Matrix for one-byte CRC register advance: c -> (c>>8) ^ T0[c & 0xFF]."""
+    t0 = _crc_byte_table()
+    cols = np.zeros(32, dtype=np.uint32)
+    for j in range(32):
+        e = np.uint32(1 << j)
+        cols[j] = (e >> np.uint32(8)) ^ t0[int(e) & 0xFF]
+    return cols.tobytes()
+
+
+@functools.cache
+def _shift_matrix_pow(k: int) -> bytes:
+    """shift8^(2^k) as a GF(2) matrix (advance register by 2^k bytes)."""
+    if k == 0:
+        return _shift8_matrix()
+    m = np.frombuffer(_shift_matrix_pow(k - 1), dtype=np.uint32)
+    return gf2_matmul(m, m).tobytes()
+
+
+def crc_shift_register(value: int, nbytes: int) -> int:
+    """Advance a CRC register by nbytes of (implicit) processing: shift8^n."""
+    v = int(value)
+    k = 0
+    n = int(nbytes)
+    while n:
+        if n & 1:
+            v = gf2_matvec(np.frombuffer(_shift_matrix_pow(k), dtype=np.uint32), v)
+        n >>= 1
+        k += 1
+    return v
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """crc32(A || B) from crc32(A), crc32(B), len(B).
+
+    Register after A||B = shift^len2(reg_A) ^ raw(B); linearity cancels the
+    init terms, leaving shift^len2(crc1) ^ crc2 (the zlib form)."""
+    if len2 == 0:
+        return crc1 & 0xFFFFFFFF
+    return (crc_shift_register(crc1, len2) ^ crc2) & 0xFFFFFFFF
+
+
+def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
+    """adler32(A || B) from the two part checksums (zlib adler32_combine)."""
+    m = ADLER_MOD
+    rem = len2 % m
+    s1a, s2a = adler1 & 0xFFFF, (adler1 >> 16) & 0xFFFF
+    s1b, s2b = adler2 & 0xFFFF, (adler2 >> 16) & 0xFFFF
+    s1 = (s1a + s1b - 1) % m
+    s2 = (s2a + s2b + rem * (s1a - 1)) % m  # s2b already counts len2 * 1 init
+    return ((s2 << 16) | s1) & 0xFFFFFFFF
+
+
+@functools.cache
+def _crc_word_tables() -> np.ndarray:
+    """Tk[b] = raw CRC of byte b followed by k zero bytes, k = 0..3."""
+    t0 = _crc_byte_table()
+    shift8 = np.frombuffer(_shift8_matrix(), dtype=np.uint32)
+    tabs = [t0]
+    for _ in range(3):
+        prev = tabs[-1]
+        tabs.append(np.array([gf2_matvec(shift8, int(v)) for v in prev],
+                             dtype=np.uint32))
+    return np.stack(tabs)  # (4, 256)
+
+
+@functools.cache
+def _tree_matrices(max_levels: int = 28) -> np.ndarray:
+    """Level-k pair combine uses shift by 4*2^k bytes (word-level tree)."""
+    mats = []
+    m = np.frombuffer(_shift_matrix_pow(1), dtype=np.uint32)  # 2 bytes
+    m = gf2_matmul(m, m)  # 4 bytes
+    for _ in range(max_levels):
+        mats.append(m)
+        m = gf2_matmul(m, m)
+    return np.stack(mats)  # (levels, 32)
+
+
+@functools.cache
+def _word_bit_columns() -> np.ndarray:
+    """C[b] = raw CRC of a 4-byte word with only bit b set (b indexes the
+    word's little-endian uint32 value). The per-word raw CRC is GF(2)-
+    LINEAR in the word's bits: raw(w) = XOR over set bits of C[b]."""
+    tabs = _crc_word_tables()
+    cols = np.zeros(32, dtype=np.uint32)
+    for b in range(32):
+        byte_i = b // 8          # which byte of the LE word
+        cols[b] = tabs[3 - byte_i][1 << (b % 8)]
+    return cols
+
+
+# ---------------------------------------------------------------------------
+# Device checksums
+# ---------------------------------------------------------------------------
+
+
+def adler32_device(data, device=None) -> int:
+    """Adler-32 on the card (bytes or a 1-D uint8 tensor). A tensor runs on
+    its own device; bytes go to `device` (None: CUDA)."""
+    from . import checksum_kernels as ck
+
+    x = as_u8_tensor(data, device)
+    n = x.shape[0]
+    if n == 0:
+        return 1
+    nchunks = -(-n // ck.CHUNK)
+    padded = torch.zeros(nchunks * ck.CHUNK, dtype=torch.uint8, device=x.device)
+    padded[:n] = x
+    s_c, w_c = ck.adler_chunks(padded.view(nchunks, ck.CHUNK))
+    return ck.combine_chunks(s_c, w_c, n, nchunks * ck.CHUNK)
+
+
+def crc32_device(data, device=None) -> int:
+    """CRC-32 on the card (bytes or a 1-D uint8 tensor). A tensor runs on
+    its own device; bytes go to `device` (None: CUDA)."""
+    from . import checksum_kernels as ck
+
+    x = as_u8_tensor(data, device)
+    n = x.shape[0]
+    if n == 0:
+        return 0
+    nrows = -(-n // ck.CRC_ROW_BYTES)
+    total = nrows * ck.CRC_ROW_BYTES
+    padded = torch.zeros(total, dtype=torch.uint8, device=x.device)
+    padded[total - n:] = x
+    rows = ck.crc_rows(padded.view(nrows, ck.CRC_ROW_BYTES))
+    return ck.combine_rows(rows, crc_shift_register(0xFFFFFFFF, n))

@@ -1,0 +1,953 @@
+"""DEFLATE encoder on the card: the port of zippy_tpu/ops/deflate_device.py.
+
+Every stage is data-parallel tensor work over a group of blocks (the
+reference's vmap, written out as a leading group dimension G):
+
+1. `find_tokens` — sort-based match candidates: positions sorted by
+   (hash4, pos), the k bucket predecessors are the k most recent previous
+   occurrences; match lengths from word-window XOR compares; one-step lazy
+   demotion; the token cover by pointer doubling; symbol histograms.
+2. `_kraft_lengths`, `_header_stats_device`, `_rev_codes_device` —
+   length-limited Huffman code lengths, the exact dynamic-header cost, the
+   stored/fixed/dynamic choice and the canonical codes.
+3. `pack_tokens` — per-token bit lengths, their prefix sum, and a
+   scatter-add of the shifted code words.
+4. The host splice (`_assemble_block`) of headers and payload bits.
+
+The stages are torch ops on the tensor's device; their Hopper kernels are
+queued (ROADMAP.md, B3-B9). The output bytes are those of the reference bit
+for bit, given the same ideal depths (`_ideal_depth`). Torch has no uint32
+arithmetic on the CPU, so 32-bit words travel as int64 masked to 32 bits,
+or as int32 bit patterns where only XOR and bit tests touch them.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+
+import numpy as np
+import torch
+
+from .. import tables
+from ..common import ZippyError, check_level, resolve_device
+
+BLOCK = 1 << 16                 # device block size
+HIST = 32768                    # cross-block history window (read-only prefix)
+L_CMP = 64                      # match length scored during candidate ranking
+L_EXT = 194                     # second-phase extension (to the 258 cap)
+PAD = 264                       # input padding past the block (>= L_CMP+L_EXT)
+HASH_BITS = 15
+
+NWIN = L_CMP // 4 + 1           # 64-byte cap + slack word
+NRANK = 8                       # words ranked per candidate when k >= 4
+EXTW = L_EXT // 4 + 2           # 194 bytes + slack
+
+_M32 = 0xFFFFFFFF
+_HASH_MUL = 0x9E3779B1
+_FKEY_MAX = (1 << 20) - 1
+
+_CL_EXTRA = np.zeros(19, np.int32)
+_CL_EXTRA[16:19] = (2, 3, 7)
+
+_CONSTS = {
+    "len_idx": tables.LENGTH_TO_CODE_INDEX,
+    "dist_lut": tables.DISTANCE_CODE_LUT,
+    "base_len": tables.BASE_LENGTHS,
+    "len_extra": tables.LENGTH_EXTRA_BITS,
+    "base_dist": tables.BASE_DISTANCES,
+    "dist_extra": tables.DISTANCE_EXTRA_BITS,
+    "fixed_ll": tables.FIXED_LITLEN_LENGTHS[:286],
+    "fixed_d": tables.FIXED_DISTANCE_LENGTHS,
+    "fixed_ll_codes": tables.FIXED_LITLEN_CODES[:286],
+    "fixed_d_codes": tables.FIXED_DISTANCE_CODES,
+    "clcl_order": tables.CLCL_ORDER,
+    "cl_extra": _CL_EXTRA,
+}
+
+
+@functools.cache
+def _const(name: str, device: torch.device) -> torch.Tensor:
+    """A constant table as an int64 tensor on `device`."""
+    return torch.from_numpy(_CONSTS[name].astype(np.int64)).to(device)
+
+
+def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
+    """(v * c) mod 2^32 for int64 v in [0, 2^32), without int64 overflow:
+    the constant is split in 16-bit halves."""
+    return (v * (c & 0xFFFF) + (((v * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding 32-bit values -> int32 with the same bit pattern."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def _windows(flat: torch.Tensor, nwords: int) -> torch.Tensor:
+    """View V[p, t] = flat[p + 4t], t < nwords (no copy)."""
+    return flat.unfold(0, 4 * (nwords - 1) + 1, 1)[:, ::4]
+
+
+def _first_diff(xi: torch.Tensor, xj: torch.Tensor, nwords: int,
+                cap: int) -> torch.Tensor:
+    """Byte index of the first mismatch between two int32 word windows
+    (exactly the byte loop's answer), capped at `cap`. Count-trailing-zeros
+    of the first differing word comes from bit tests on its lowest set bit:
+    torch has no popcount, and a float log2 would round."""
+    x = xi ^ xj
+    nz = x != 0
+    anyx = nz.any(dim=-1)
+    fw = torch.argmax(nz.to(torch.uint8), dim=-1)       # first differing word
+    xw = x.gather(-1, fw.unsqueeze(-1)).squeeze(-1)
+    low = xw & -xw
+    inner = (((low & -(1 << 8)) != 0).long() + ((low & -(1 << 16)) != 0).long()
+             + ((low & -(1 << 24)) != 0).long())
+    return torch.where(anyx, 4 * fw + inner, 4 * nwords).clamp(max=cap)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: match finding + token selection + symbol histograms
+# ---------------------------------------------------------------------------
+
+
+def find_tokens(data_pad: torch.Tensor, n, hist_len=0, *, k: int = 4,
+                lazy: bool = True, hist: int = 0, min3: bool = False,
+                lits_only: bool = False) -> dict:
+    """Token cover of a group of blocks.
+
+    data_pad: (G, hist + N + PAD) uint8 — per row an optional read-only
+    `hist`-byte prefix (the raw bytes before the block), then the block,
+    zero padded past `n`. `n` and `hist_len` (how many prefix bytes are
+    real) are per row. Returns a dict of (G, N) tensors: is_tok, is_match,
+    length, dist, sym, len_idx, dist_idx; and the (G, 286) litlen and
+    (G, 30) dist histograms."""
+    G, D = data_pad.shape
+    N = D - PAD - hist
+    NA = hist + N                   # all hashable positions (sources)
+    if NA > (1 << 17):              # pos fits 17 bits of the sort key
+        raise ZippyError(f"hist + block of {NA} bytes exceeds 2^17")
+    dev = data_pad.device
+    i64 = torch.int64
+    n = torch.as_tensor(n, dtype=i64, device=dev).reshape(-1, 1).expand(G, 1)
+    hist_len = torch.as_tensor(hist_len, dtype=i64,
+                               device=dev).reshape(-1, 1).expand(G, 1)
+    i_rel = torch.arange(N, dtype=i64, device=dev)
+    lit_sym = data_pad[:, hist:hist + N].long()
+    if lits_only:
+        # HuffmanOnly (level -2): every byte a literal token.
+        is_tok = i_rel < n
+        zeros = torch.zeros(G, N, dtype=i64, device=dev)
+        ll_hist = torch.zeros(G, 286, dtype=i64, device=dev).scatter_add_(
+            1, lit_sym, is_tok.long())
+        ll_hist[:, 256] += 1
+        return {
+            "is_tok": is_tok,
+            "is_match": torch.zeros(G, N, dtype=torch.bool, device=dev),
+            "length": zeros,
+            "dist": zeros + 1,
+            "sym": lit_sym,
+            "len_idx": zeros,
+            "dist_idx": zeros,
+            "ll_hist": ll_hist,
+            "dist_hist": torch.zeros(G, 30, dtype=i64, device=dev),
+        }
+
+    b = data_pad.long()
+    v = (b[:, :NA] | (b[:, 1:NA + 1] << 8) | (b[:, 2:NA + 2] << 16)
+         | (b[:, 3:NA + 3] << 24))
+    h = _mul32(v, _HASH_MUL) >> (32 - HASH_BITS)
+    pos = torch.arange(NA, dtype=i64, device=dev)
+
+    # Sort positions by (hash, pos): bucket predecessors = recent occurrences.
+    order = torch.argsort((h << 17) | pos, dim=1)
+    h_sorted = h.gather(1, order)
+    cands = []
+    for back in range(1, k + 1):
+        prev_pos = torch.roll(order, back, dims=1)
+        same_bucket = torch.roll(h_sorted, back, dims=1) == h_sorted
+        valid = (pos >= back) & same_bucket
+        cands.append(torch.where(valid, prev_pos, -1))
+    cands_sorted = torch.stack(cands, dim=2)                   # (G, NA, k)
+    cands_pos = torch.zeros_like(cands_sorted).scatter_(
+        1, order.unsqueeze(2).expand(G, NA, k), cands_sorted)[:, hist:]
+
+    i_abs = i_rel + hist            # data_pad index (reads)
+
+    # Word windows: W[p] = LE word at byte p, as int32 bit patterns. The
+    # i-side windows are strided views; the candidate side gathers rows of
+    # a strided view of the flattened group, offset by each row's base.
+    DW = D - 3
+    W = _to_i32(b[:, :DW] | (b[:, 1:DW + 1] << 8) | (b[:, 2:DW + 2] << 16)
+                | (b[:, 3:DW + 3] << 24))
+    Wf = W.reshape(-1)
+    base = (torch.arange(G, dtype=i64, device=dev) * DW).view(G, 1, 1)
+    wiw = W[:, hist:].unfold(1, 4 * (NWIN - 1) + 1, 1)[:, :N, ::4]
+
+    def gather_windows(start, nwords):
+        # Explicit clamp: every start lies in its own row (largest window
+        # end is hist + N + 259 of DW = hist + N + 261 words).
+        start = start.clamp(0, DW - 4 * (nwords - 1) - 1)
+        return _windows(Wf, nwords)[base.view((G,) + (1,) * (start.dim() - 1))
+                                    + start]
+
+    cj = cands_pos.clamp(min=0)
+    dist = i_abs.view(1, N, 1) - cands_pos                     # (G, N, k)
+    # Candidates inside the unreal part of the prefix (< hist - hist_len)
+    # would match padding zeros; exclude them along with -1 sentinels.
+    ok = ((cands_pos >= hist - hist_len.view(G, 1, 1)) & (cands_pos >= 0)
+          & (dist <= tables.MAX_WINDOW_SIZE))
+    nrem = (n - i_rel).clamp(min=0)                            # (G, N)
+
+    if k >= 4:
+        # Rank all k on 32 bytes, rescore the top three at the 64-byte cap.
+        ar = torch.arange(k, dtype=i64, device=dev)
+        mlen_r = _first_diff(wiw[:, :, None, :NRANK],
+                             gather_windows(cj, NRANK), NRANK, 4 * NRANK)
+        mlen_r = torch.where(ok, mlen_r, 0)
+        score_r = (mlen_r << 17) + cands_pos
+        b1 = score_r.argmax(dim=2)
+        score_r2 = torch.where(b1.unsqueeze(2) == ar, -1, score_r)
+        b2 = score_r2.argmax(dim=2)
+        score_r3 = torch.where(b2.unsqueeze(2) == ar, -1, score_r2)
+        b3 = score_r3.argmax(dim=2)
+        pick = torch.stack([b1, b2, b3], dim=2)                # (G, N, 3)
+        cand2 = cands_pos.gather(2, pick)
+        ok2 = ok.gather(2, pick)
+        mlen2 = _first_diff(wiw[:, :, None, :],
+                            gather_windows(cand2.clamp(min=0), NWIN),
+                            NWIN, L_CMP)
+        mlen2 = torch.where(ok2, mlen2, 0)
+        mlen2 = torch.minimum(mlen2, nrem.unsqueeze(2))
+        score2 = (mlen2 << 17) + cand2
+        bb = score2.argmax(dim=2, keepdim=True)
+        l_best = mlen2.gather(2, bb).squeeze(2)
+        d_best = i_abs - cand2.gather(2, bb).squeeze(2)
+    else:
+        mlen = _first_diff(wiw[:, :, None, :], gather_windows(cj, NWIN),
+                           NWIN, L_CMP)                        # (G, N, k)
+        mlen = torch.where(ok, mlen, 0)
+        # Don't run past the real end of the block.
+        mlen = torch.minimum(mlen, nrem.unsqueeze(2))
+        # Best candidate: longest match, then nearest (larger j).
+        score = (mlen << 17) + cands_pos
+        best = score.argmax(dim=2, keepdim=True)
+        l_best = mlen.gather(2, best).squeeze(2)
+        d_best = dist.gather(2, best).squeeze(2)
+
+    # Second phase: matches that hit the L_CMP cap extend toward 258.
+    j_best = i_abs - d_best
+    we_i = W[:, hist + L_CMP:].unfold(1, 4 * (EXTW - 1) + 1, 1)[:, :N, ::4]
+    we_j = gather_windows(j_best.clamp(min=0) + L_CMP, EXTW)
+    ext = _first_diff(we_i, we_j, EXTW, L_EXT)
+    l_best = torch.where(l_best == L_CMP, l_best + ext, l_best)
+    l_best = torch.minimum(l_best, nrem.clamp(max=tables.MAX_MATCH_LEN))
+
+    is_m = l_best >= 4
+    if min3:
+        # Length-3 matches at short distance (zlib's TOO_FAR = 4096 rule):
+        # one recency candidate from a 3-gram sort.
+        h3 = _mul32(v & 0xFFFFFF, _HASH_MUL) >> (32 - HASH_BITS)
+        order3 = torch.argsort((h3 << 17) | pos, dim=1)
+        h3s = h3.gather(1, order3)
+        prev3 = torch.roll(order3, 1, dims=1)
+        same3 = (torch.roll(h3s, 1, dims=1) == h3s) & (pos >= 1)
+        c3 = torch.zeros_like(order3).scatter_(
+            1, order3, torch.where(same3, prev3, -1))[:, hist:]
+        cj3 = c3.clamp(min=0)
+        d3 = i_abs - c3
+        eq3 = ((data_pad[:, hist:hist + N] == data_pad.gather(1, cj3))
+               & (data_pad[:, hist + 1:hist + N + 1]
+                  == data_pad.gather(1, cj3 + 1))
+               & (data_pad[:, hist + 2:hist + N + 2]
+                  == data_pad.gather(1, cj3 + 2)))
+        ok3 = (eq3 & (c3 >= hist - hist_len) & (c3 >= 0) & (d3 <= 4096)
+               & ((n - i_rel) >= 3))
+        # If position i+2 starts a real (>= 4) match, three literals and
+        # that match beat the 3-match: demote those up front.
+        l_at_2 = torch.roll(l_best, -2, dims=1)
+        l_at_2[:, -2:] = 0
+        take3 = ok3 & ~is_m & ~(l_at_2 >= 4)
+        l_best = torch.where(take3, 3, l_best)
+        d_best = torch.where(take3, d3, d_best)
+        is_m = is_m | take3
+    if lazy:
+        nxt_l = torch.roll(l_best, -1, dims=1)
+        nxt_l[:, -1] = 0
+        is_m = is_m & ~(nxt_l > l_best)
+
+    # Pointer-doubling reachability from position 0.
+    step = torch.where(is_m, l_best, 1)
+    nxt = (i_rel + step).clamp(max=N)
+    nxt = torch.where(i_rel >= n, N, nxt)
+    J = torch.cat([nxt, torch.full((G, 1), N, dtype=i64, device=dev)], dim=1)
+    reach = torch.zeros(G, N + 1, dtype=torch.bool, device=dev)
+    reach[:, 0] = True
+    for _ in range(int(np.ceil(np.log2(N))) + 1):
+        reach = reach.scatter(1, torch.where(reach, J, N), True)
+        J = J.gather(1, J)
+
+    is_tok = reach[:, :N] & (i_rel < n)
+    is_match = is_tok & is_m
+    length = torch.where(is_match, l_best, 0)
+    dist_b = torch.where(is_match, d_best, 1)
+
+    # Symbols + histograms.
+    len_idx = _const("len_idx", dev)[(length - 3).clamp(0, 255)]
+    d1 = dist_b - 1
+    lut = _const("dist_lut", dev)
+    dist_idx = torch.where(dist_b <= 256, lut[d1.clamp(0, 255)],
+                           lut[(256 + (d1 >> 7)).clamp(0, 511)])
+    sym = torch.where(is_match, 257 + len_idx, lit_sym)
+    ll_hist = torch.zeros(G, 286, dtype=i64, device=dev).scatter_add_(
+        1, sym, is_tok.long())
+    ll_hist[:, 256] += 1            # end-of-block symbol
+    dist_hist = torch.zeros(G, 30, dtype=i64, device=dev).scatter_add_(
+        1, dist_idx, is_match.long())
+    return {
+        "is_tok": is_tok,
+        "is_match": is_match,
+        "length": length,
+        "dist": dist_b,
+        "sym": sym,
+        "len_idx": len_idx,
+        "dist_idx": dist_idx,
+        "ll_hist": ll_hist,
+        "dist_hist": dist_hist,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: bit packing with arbitrary code tables
+# ---------------------------------------------------------------------------
+
+
+def pack_tokens(tok: dict, ll_lens: torch.Tensor, ll_codes: torch.Tensor,
+                dist_lens: torch.Tensor, dist_codes: torch.Tensor):
+    """Serialize each row's token cover to a DEFLATE bit stream (no 3-bit
+    block header). Tables are (G, 286) and (G, 30).
+
+    Returns (words (G, N // 2 + 8) int64 holding uint32 values, total_bits
+    (G,)). Bit k of a row's stream is bit (k % 32) of word (k // 32)."""
+    is_tok, m = tok["is_tok"], tok["is_match"]
+    sym, len_idx, dist_idx = tok["sym"], tok["len_idx"], tok["dist_idx"]
+    dev = is_tok.device
+    G, N = is_tok.shape
+    # Four components per token (a literal uses only c0).
+    c_bits = [
+        torch.where(is_tok, ll_lens.gather(1, sym), 0),
+        torch.where(m, _const("len_extra", dev)[len_idx], 0),
+        torch.where(m, dist_lens.gather(1, dist_idx), 0),
+        torch.where(m, _const("dist_extra", dev)[dist_idx], 0),
+    ]
+    c_vals = [
+        torch.where(is_tok, ll_codes.gather(1, sym), 0),
+        torch.where(m, tok["length"] - _const("base_len", dev)[len_idx], 0),
+        torch.where(m, dist_codes.gather(1, dist_idx), 0),
+        torch.where(m, tok["dist"] - _const("base_dist", dev)[dist_idx], 0),
+    ]
+    nbits = c_bits[0] + c_bits[1] + c_bits[2] + c_bits[3]
+    off0 = torch.cumsum(nbits, dim=1) - nbits
+    body_bits = off0[:, -1:] + nbits[:, -1:]                   # (G, 1)
+
+    # Append the end-of-block code (symbol 256) at the tail.
+    eob_bits = ll_lens[:, 256:257]
+    eob_val = ll_codes[:, 256:257]
+    total_bits = (body_bits + eob_bits).squeeze(1)
+    offs = [off0]
+    for c in range(1, 4):
+        offs.append(offs[-1] + c_bits[c - 1])
+
+    Wn = N // 2 + 8
+    zero = torch.zeros(G, 1, dtype=torch.int64, device=dev)
+    all_lo, all_hi, all_w = [], [], []
+    for c in range(4):
+        bo = torch.cat([offs[c], body_bits], dim=1)
+        bits_c = torch.cat([c_bits[c], eob_bits if c == 0 else zero], dim=1)
+        val_c = torch.cat([c_vals[c], eob_val if c == 0 else zero], dim=1)
+        val_c = torch.where(bits_c > 0, val_c, 0)
+        sh = bo & 31
+        all_lo.append((val_c << sh) & _M32)
+        all_hi.append(torch.where(sh == 0, 0, val_c >> (32 - sh)))
+        all_w.append(bo >> 5)
+    vals = torch.cat(all_lo + all_hi, dim=1)
+    segs = torch.cat(all_w + [w + 1 for w in all_w], dim=1).clamp(0, Wn - 1)
+    # Codes never overlap, so the integer sum is the bitwise OR (a clipped
+    # tail wraps mod 2^32, as the reference's uint32 sum does).
+    words = torch.zeros(G, Wn, dtype=torch.int64, device=dev).scatter_add_(
+        1, segs, vals) & _M32
+    return words, total_bits
+
+
+# ---------------------------------------------------------------------------
+# Huffman construction on the card
+#
+# Length-limited code lengths as vector work, Kraft-complete (zlib's
+# inflate rejects incomplete litlen codes). See the reference's
+# _kraft_lengths for the algorithm; every step after the ideal depths is
+# exact IEEE and integer work and matches the reference bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _ideal_depth(ratio: torch.Tensor) -> torch.Tensor:
+    """Ideal code depth -log2(p) = log2(total / freq), float32.
+
+    Computed in float64 and rounded to float32, which gives the same value
+    on the CPU and on CUDA; a float32 log2 differs between backends in the
+    last ulp, and the depths' ceil/floor turn that ulp into other bytes."""
+    return torch.log2(ratio.double()).float()
+
+
+def _kraft_lengths(freq: torch.Tensor, limit: int) -> torch.Tensor:
+    """Valid length-limited canonical-code lengths from (G, S) histograms.
+    Guarantees: l = 0 iff freq = 0; 1 <= l <= limit otherwise; Kraft sum
+    exactly 1 when >= 2 symbols are active, a single length-1 code when 1
+    is. Two depth profiles (water-filled ceil with a bisected offset, and
+    nearest rounding) are repaired to Kraft-complete, the cheaper wins, and
+    its multiset is reassigned by frequency rank."""
+    G, S = freq.shape
+    dev = freq.device
+    freq = freq.long()
+    active = freq > 0
+    idx = torch.arange(S, dtype=torch.int64, device=dev)
+    total = freq.sum(dim=1, keepdim=True).clamp(min=1)
+    nll = _ideal_depth(total.float() / freq.clamp(min=1).float())
+    budget = 1 << limit
+    fkey = freq.clamp(max=_FKEY_MAX)
+
+    def deficit(l):
+        return torch.where(active, 1 << (limit - l), 0).sum(
+            dim=1, keepdim=True) - budget
+
+    def lengthen(l):
+        # Over-subscribed: lengthen the cheapest (least frequent) symbols.
+        need = deficit(l)
+        cand = active & (l < limit)
+        gain = torch.where(cand, 1 << (limit - l - 1).clamp(min=0), 0)
+        order = torch.argsort(torch.where(cand, fkey, 1 << 20) * 512 + idx,
+                              dim=1)
+        gain_s = gain.gather(1, order)
+        sel_s = (torch.cumsum(gain_s, dim=1) - gain_s < need) & (gain_s > 0)
+        sel = torch.zeros_like(active).scatter(1, order, sel_s)
+        return torch.where(sel & (need > 0), l + 1, l)
+
+    def bulk_shorten(l):
+        # Spend the Kraft slack wholesale, best benefit density first.
+        slack = -deficit(l)
+        cand = active & (l >= 2)
+        cost = torch.where(cand, 1 << (limit - l), 0)
+        density = torch.where(cand, (freq >> (limit - l)).clamp(max=_FKEY_MAX),
+                              -1)
+        order = torch.argsort(-(density * 512 - idx), dim=1)
+        cost_s = cost.gather(1, order)
+        sel_s = (torch.cumsum(cost_s, dim=1) <= slack) & (cost_s > 0)
+        sel = torch.zeros_like(active).scatter(1, order, sel_s)
+        return torch.where(sel & (slack > 0), l - 1, l)
+
+    def consume(l):
+        # Exact completion: shorten the most frequent symbol of the largest
+        # cost that still fits (argmax takes the first of tied maxima).
+        slack = -deficit(l)
+        cand = active & (l >= 2)
+        cost = torch.where(cand, 1 << (limit - l), 1 << 28)
+        fits = cost <= slack
+        maxcost = torch.where(fits, cost, -1).amax(dim=1, keepdim=True)
+        pick = torch.where(fits & (cost == maxcost), freq, -1).argmax(
+            dim=1, keepdim=True)
+        do = (slack > 0) & fits.any(dim=1, keepdim=True)
+        return l.scatter_add(1, pick, torch.where(do, -1, 0))
+
+    def refine(lens0):
+        l = torch.where(active, lens0.clamp(1, limit), 0)
+        for _ in range(limit):
+            l = lengthen(l)
+        for _ in range(limit):
+            l = bulk_shorten(l)
+        for _ in range(2 * limit + 4):
+            l = consume(l)
+        return l
+
+    # Candidate (a): water-filled ceil with a bisected offset t.
+    def ksum(t):
+        l = torch.clamp(torch.ceil(nll + t), 1, limit).long()
+        return torch.where(active, 1 << (limit - l), 0).sum(dim=1,
+                                                            keepdim=True)
+
+    lo = torch.full((G, 1), -float(limit), dtype=torch.float32, device=dev)
+    hi = torch.full((G, 1), float(limit), dtype=torch.float32, device=dev)
+    for _ in range(30):
+        mid = 0.5 * (lo + hi)
+        ok = ksum(mid) <= budget
+        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+    lens_a = refine(torch.ceil(nll + hi).long())
+    # Candidate (b): nearest rounding (dyadic-exact).
+    lens_b = refine(torch.floor(nll + 0.5).long())
+
+    bits_a = (freq * lens_a).sum(dim=1, keepdim=True)
+    bits_b = (freq * lens_b).sum(dim=1, keepdim=True)
+    lens = torch.where(bits_a <= bits_b, lens_a, lens_b)
+
+    # Reassign the winning multiset by frequency rank.
+    lens_asc = torch.sort(torch.where(active, lens, 99), dim=1).values
+    order_f = torch.argsort(((1 << 20) - fkey) * 512 + idx, dim=1)
+    rank = torch.zeros_like(order_f).scatter(1, order_f, idx.expand(G, S))
+    return torch.where(active, lens_asc.gather(1, rank), 0)
+
+
+def _rev15(x: torch.Tensor) -> torch.Tensor:
+    """Bit-reverse the low 15 bits (reverse 16, shift right one)."""
+    x = ((x & 0x5555) << 1) | ((x >> 1) & 0x5555)
+    x = ((x & 0x3333) << 2) | ((x >> 2) & 0x3333)
+    x = ((x & 0x0F0F) << 4) | ((x >> 4) & 0x0F0F)
+    x = ((x & 0x00FF) << 8) | ((x >> 8) & 0x00FF)
+    return x >> 1
+
+
+def _canonical_device(lens: torch.Tensor) -> torch.Tensor:
+    """Canonical MSB-first codes (RFC 1951 3.2.2) for (G, S) code lengths."""
+    oh = (lens.unsqueeze(2) == torch.arange(16, device=lens.device)).long()
+    count = oh.sum(dim=1)                                      # (G, 16)
+    zero = torch.zeros_like(count[:, 0])
+    firsts = [zero, zero]            # first_code for lengths 0, 1
+    for bits in range(2, 16):
+        firsts.append((firsts[bits - 1] + count[:, bits - 1]) << 1)
+    first = torch.stack(firsts, dim=1)                         # (G, 16)
+    rank = torch.cumsum(oh, dim=1) - oh
+    rank_s = rank.gather(2, lens.unsqueeze(2)).squeeze(2)
+    return first.gather(1, lens) + rank_s
+
+
+def _rev_codes_device(lens: torch.Tensor) -> torch.Tensor:
+    """Canonical codes, bit-reversed for LSB-first emission."""
+    rev = _rev15(_canonical_device(lens)) >> (15 - lens).clamp(min=0)
+    return torch.where(lens > 0, rev, 0)
+
+
+def _header_stats_device(ll_lens: torch.Tensor, d_lens: torch.Tensor):
+    """EXACT dynamic-header cost + code-length-code lengths per row.
+
+    The host RLE greedy (_rle_code_lengths) in closed form per run. Returns
+    (header_bits, cl_lens, hlit, hdist); the host emitter reuses cl_lens so
+    the emitted header is the size costed here."""
+    G = ll_lens.shape[0]
+    dev = ll_lens.device
+    i64 = torch.int64
+    last_ll = torch.where(ll_lens > 0, torch.arange(286, device=dev),
+                          -1).amax(dim=1)
+    hlit = (last_ll + 1).clamp(min=257).unsqueeze(1)
+    last_d = torch.where(d_lens > 0, torch.arange(30, device=dev),
+                         -1).amax(dim=1)
+    hdist = (last_d + 1).clamp(min=1).unsqueeze(1)
+    total = hlit + hdist
+
+    j = torch.arange(316, dtype=i64, device=dev).expand(G, 316)
+    vals = torch.where(j < hlit, ll_lens.gather(1, j.clamp(0, 285)),
+                       d_lens.gather(1, (j - hlit).clamp(0, 29)))
+    vals = torch.where(j < total, vals, -1)
+    prev = torch.cat([torch.full((G, 1), -2, dtype=i64, device=dev),
+                      vals[:, :-1]], dim=1)
+    is_start = vals != prev
+    run_id = torch.cumsum(is_start.long(), dim=1) - 1
+    run_len = torch.zeros(G, 316, dtype=i64, device=dev).scatter_add_(
+        1, run_id, torch.ones_like(run_id))
+    run_val = torch.zeros(G, 316, dtype=i64, device=dev).scatter_add_(
+        1, run_id, torch.where(is_start, vals, 0))
+    valid = (run_len > 0) & (run_val >= 0)
+
+    r = run_len
+    # v == 0 runs: 138-cap greedy.
+    z = valid & (run_val == 0)
+    q138, s138 = r // 138, r % 138
+    n18 = torch.where(z, q138 + (s138 > 10).long(), 0)
+    n17 = torch.where(z & (s138 >= 3) & (s138 <= 10), 1, 0)
+    sing0 = torch.where(z & (s138 < 3), s138, 0)
+    # v > 0 runs: leading literal + 6-cap sym16 greedy over r-1.
+    pv = valid & (run_val > 0)
+    r1 = (r - 1).clamp(min=0)
+    q6, s6 = r1 // 6, r1 % 6
+    n16 = torch.where(pv, q6 + (s6 >= 3).long(), 0)
+    singv = torch.where(pv, 1 + torch.where(s6 < 3, s6, 0), 0)
+
+    cl_freq = torch.zeros(G, 19, dtype=i64, device=dev).scatter_add_(
+        1, run_val.clamp(0, 15), sing0 + singv)
+    cl_freq[:, 16] += n16.sum(dim=1)
+    cl_freq[:, 17] += n17.sum(dim=1)
+    cl_freq[:, 18] += n18.sum(dim=1)
+    cl_lens = _kraft_lengths(cl_freq, 7)
+
+    ord_lens = cl_lens[:, _const("clcl_order", dev)]
+    last_o = torch.where(ord_lens > 0, torch.arange(19, device=dev),
+                         -1).amax(dim=1)
+    hclen = (last_o + 1).clamp(min=4)
+    emis_bits = ((cl_freq * cl_lens).sum(dim=1)
+                 + (cl_freq * _const("cl_extra", dev)).sum(dim=1))
+    header_bits = 14 + 3 * hclen + emis_bits
+    return header_bits, cl_lens, hlit.squeeze(1), hdist.squeeze(1)
+
+
+class _StageClock:
+    """Adds each stage's wall seconds to `stages` (a dict), synchronizing
+    the card at every mark so that a stage's kernels count in its own
+    time. With `stages=None` it does nothing."""
+
+    def __init__(self, stages: dict | None, device: torch.device):
+        self.stages = stages
+        self.device = device
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.stages is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.stages[name] = self.stages.get(name, 0.0) + now - self.t
+        self.t = now
+
+
+def _encode_group(blocks: torch.Tensor, lens: torch.Tensor,
+                  hist_lens: torch.Tensor, *, k: int, lazy: bool, hist: int,
+                  min3: bool = False, lits_only: bool = False,
+                  clock: _StageClock | None = None) -> dict:
+    """The full encode of a group of blocks: match finding, token
+    selection, Huffman tables, the exact stored/fixed/dynamic choice, and
+    bit packing with the chosen table. Returns a dict of (G, ...) tensors:
+    words, nbits, mode (0 stored / 1 fixed / 2 dynamic), ll_lens[286],
+    d_lens[30], cl_lens[19]."""
+    clock = clock or _StageClock(None, blocks.device)
+    dev = blocks.device
+    n = lens.long()
+    tok = find_tokens(blocks, n, hist_lens, k=k, lazy=lazy, hist=hist,
+                      min3=min3, lits_only=lits_only)
+    clock.mark("find_tokens")
+    ll_hist, dist_hist = tok["ll_hist"], tok["dist_hist"]
+    ll_lens = _kraft_lengths(ll_hist, 15)
+    d_lens = _kraft_lengths(dist_hist, 15)
+    header_bits, cl_lens, _, _ = _header_stats_device(ll_lens, d_lens)
+
+    extra = ((ll_hist[:, 257:286] * _const("len_extra", dev)).sum(dim=1)
+             + (dist_hist * _const("dist_extra", dev)).sum(dim=1))
+    fixed_ll, fixed_d = _const("fixed_ll", dev), _const("fixed_d", dev)
+    dyn_bits = (3 + header_bits + (ll_hist * ll_lens).sum(dim=1)
+                + (dist_hist * d_lens).sum(dim=1) + extra)
+    fix_bits = (3 + (ll_hist * fixed_ll).sum(dim=1)
+                + (dist_hist * fixed_d).sum(dim=1) + extra)
+    stored_bits = 8 * (n + 5 * ((n + 0xFFFE) // 0xFFFF)) + 7
+    mode = torch.where(stored_bits < torch.minimum(dyn_bits, fix_bits), 0,
+                       torch.where(fix_bits <= dyn_bits, 1, 2))
+    dyn = (mode == 2).unsqueeze(1)
+    use_ll = torch.where(dyn, ll_lens, fixed_ll)
+    use_d = torch.where(dyn, d_lens, fixed_d)
+    # Fixed-mode codes come from the precomputed 288-symbol table (symbols
+    # 286/287 shift the canonical codes of 280-285).
+    ll_codes = torch.where(dyn, _rev_codes_device(ll_lens),
+                           _const("fixed_ll_codes", dev))
+    d_codes = torch.where(dyn, _rev_codes_device(d_lens),
+                          _const("fixed_d_codes", dev))
+    clock.mark("kraft")
+    words, nbits = pack_tokens(tok, use_ll, ll_codes, use_d, d_codes)
+    clock.mark("pack")
+    return {
+        "words": words,
+        "nbits": nbits,
+        "mode": mode,
+        "ll_lens": ll_lens,
+        "d_lens": d_lens,
+        "cl_lens": cl_lens,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Host orchestration: dynamic Huffman header + stream assembly
+# ---------------------------------------------------------------------------
+
+
+class _HostBitWriter:
+    """Small LSB-first bit writer for block headers (host side only)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.bitbuf = 0
+        self.bitcnt = 0
+
+    def add(self, value: int, nbits: int) -> None:
+        self.bitbuf |= (value & ((1 << nbits) - 1)) << self.bitcnt
+        self.bitcnt += nbits
+        while self.bitcnt >= 8:
+            self.out.append(self.bitbuf & 0xFF)
+            self.bitbuf >>= 8
+            self.bitcnt -= 8
+
+    def bit_length(self) -> int:
+        return len(self.out) * 8 + self.bitcnt
+
+
+def _rle_code_lengths(lens: np.ndarray) -> list[tuple[int, int, int]]:
+    """RFC 1951 3.2.7 run-length coding of the code-length sequence, as
+    (sym, extra_val, extra_bits)."""
+    out = []
+    i, n = 0, len(lens)
+    while i < n:
+        v = int(lens[i])
+        run = 1
+        while i + run < n and lens[i + run] == v:
+            run += 1
+        if v == 0:
+            r = run
+            while r >= 3:
+                take = min(r, 138)
+                out.append((18, take - 11, 7) if take > 10
+                           else (17, take - 3, 3))
+                r -= take
+            out.extend([(0, 0, 0)] * r)
+        else:
+            out.append((v, 0, 0))
+            r = run - 1
+            while r >= 3:
+                take = min(r, 6)
+                out.append((16, take - 3, 2))
+                r -= take
+            out.extend([(v, 0, 0)] * r)
+        i += run
+    return out
+
+
+def make_dynamic_header(ll_lens: np.ndarray, dist_lens: np.ndarray,
+                        cl_lens: np.ndarray):
+    """Dynamic block header bits (HLIT/HDIST/HCLEN + CL-coded lengths).
+    Returns (header_bytes, header_bit_length). `cl_lens` are the
+    device-built code-length-code lengths, used verbatim so the header is
+    the size the device costed."""
+    hlit = 286
+    while hlit > 257 and ll_lens[hlit - 1] == 0:
+        hlit -= 1
+    hdist = 30
+    while hdist > 1 and dist_lens[hdist - 1] == 0:
+        hdist -= 1
+    all_lens = np.concatenate([ll_lens[:hlit], dist_lens[:hdist]])
+    rle = _rle_code_lengths(all_lens)
+    cl_codes = tables.canonical_codes(cl_lens)
+    order = tables.CLCL_ORDER
+    hclen = 19
+    while hclen > 4 and cl_lens[order[hclen - 1]] == 0:
+        hclen -= 1
+    bw = _HostBitWriter()
+    bw.add(hlit - 257, 5)
+    bw.add(hdist - 1, 5)
+    bw.add(hclen - 4, 4)
+    for i in range(hclen):
+        bw.add(int(cl_lens[order[i]]), 3)
+    for sym_v, extra_val, extra_bits in rle:
+        bw.add(int(cl_codes[sym_v]), int(cl_lens[sym_v]))
+        if extra_bits:
+            bw.add(extra_val, extra_bits)
+    return bytes(bw.out) + bytes([bw.bitbuf & 0xFF]), bw.bit_length()
+
+
+class _ByteBitAppender:
+    """Append bit strings (given as LSB-first byte arrays) efficiently."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.bitpos = 0  # bits valid in self.out
+
+    def append_bits(self, payload: np.ndarray, nbits: int) -> None:
+        if nbits == 0:
+            return
+        sh = self.bitpos & 7
+        data = payload[: (nbits + 7) // 8].astype(np.uint16)
+        if sh == 0:
+            self.out += data.astype(np.uint8).tobytes()
+        else:
+            shifted = (data << sh) & 0xFF
+            carry = (data >> (8 - sh)).astype(np.uint8)
+            lead = self.out[-1] | int(shifted[0])
+            body = (shifted[1:].astype(np.uint8) | carry[:-1])
+            self.out[-1] = lead
+            self.out += body.tobytes()
+            self.out.append(int(carry[-1]))
+        self.bitpos += nbits
+        # Trim bytes beyond the bit position.
+        del self.out[(self.bitpos + 7) // 8:]
+
+    def append_host_writer(self, bw: _HostBitWriter) -> None:
+        buf = np.frombuffer(bytes(bw.out) + bytes([bw.bitbuf & 0xFF]),
+                            dtype=np.uint8)
+        self.append_bits(buf, bw.bit_length())
+
+
+_MODES = ("stored", "fixed", "dynamic")
+
+
+def _assemble_block(out: _ByteBitAppender, mode_i: int, ll_lens, d_lens,
+                    cl_lens, words_row: np.ndarray, nbits: int,
+                    raw, blen: int, final: bool) -> None:
+    """Splice one device-encoded block: headers from the (tiny) length
+    arrays, payload from the packed words."""
+    mode = _MODES[int(mode_i)]
+    header_info = None
+    if mode == "dynamic":
+        header_info = make_dynamic_header(ll_lens, d_lens, cl_lens)
+    _append_block(out, mode, header_info, words_row, nbits, raw, blen, final)
+
+
+def _append_block(out: _ByteBitAppender, mode: str, header_info,
+                  words_row: np.ndarray | None, nbits: int,
+                  raw: np.ndarray | None, blen: int, final: bool) -> None:
+    """Splice one block (header + payload) onto the stream."""
+    if mode == "stored":
+        off = 0
+        while off < blen:
+            chunk = min(blen - off, 0xFFFF)
+            last = off + chunk == blen
+            bw = _HostBitWriter()
+            bw.add(1 if (final and last) else 0, 1)
+            bw.add(0, 2)
+            # LEN must start on a GLOBAL byte boundary.
+            pad = (-(out.bitpos + 3)) % 8
+            if pad:
+                bw.add(0, pad)
+            bw.add(chunk, 16)
+            bw.add(chunk ^ 0xFFFF, 16)
+            out.append_host_writer(bw)
+            out.append_bits(raw[off:off + chunk], chunk * 8)
+            off += chunk
+        return
+    bw = _HostBitWriter()
+    bw.add(1 if final else 0, 1)
+    bw.add(1 if mode == "fixed" else 2, 2)
+    out.append_host_writer(bw)
+    if mode == "dynamic":
+        header, header_bits = header_info
+        hdr = np.frombuffer(header + b"\x00", dtype=np.uint8)
+        out.append_bits(hdr, header_bits)
+    if nbits:
+        out.append_bits(words_row.view(np.uint8), nbits)
+
+
+def _empty_stream() -> bytes:
+    """A final fixed-Huffman block holding only end-of-block (7 zero bits):
+    the bytes every level of the reference's host codec writes for b""."""
+    out = _ByteBitAppender()
+    _append_block(out, "fixed", None, None, 0, None, 0, True)
+    out.append_bits(np.zeros(1, np.uint8), 7)
+    return bytes(out.out)
+
+
+def _level_params(level: int) -> tuple[int, bool, bool]:
+    """(k candidates, lazy, min3) per level: k candidates = the k most
+    recent same-hash positions (a depth-k chain walk); min3 adds length-3
+    short-distance matches at the quality tiers."""
+    if level == -1:
+        level = 6  # DefaultCompression maps to the level-6 row
+    if level <= 3:
+        return 2, False, False
+    if level <= 5:
+        return 4, True, False
+    if level == 6:
+        return 12, True, False
+    if level <= 8:
+        return 16, True, True
+    return 32, True, True
+
+
+MIN_BLOCK = 256
+
+# Device memory for one group's matcher intermediates. The largest are the
+# (G, N, k, 8) ranking windows and their XOR and mask copies; 12 bytes per
+# gathered word and position covers them. The group size decides no bytes.
+GROUP_BYTES = 8 << 30
+MAX_GROUP = 64
+
+
+def _group_size(k: int, block_size: int) -> int:
+    words = k * (NRANK if k >= 4 else NWIN) + 3 * NWIN + EXTW
+    return max(1, min(MAX_GROUP, GROUP_BYTES // (block_size * words * 12)))
+
+
+def deflate_array(x: torch.Tensor, level: int, block_size: int = BLOCK, *,
+                  stages: dict | None = None) -> bytes:
+    """Raw DEFLATE stream from a 1-D uint8 tensor, encoded on its device.
+
+    Block rows are sliced on the device; only the per-block code lengths,
+    modes and packed words (the output itself) come back. Stored-mode
+    blocks fetch just their own raw bytes. Level 0 (stored framing) fetches
+    the input once, since its output is the input. Level -1 runs level 1's
+    matcher here, as zippy_tpu's deflate_array does (`deflate` of host
+    bytes runs level 6's). `stages`, a dict, gets each stage's wall seconds
+    (the card synchronized between stages)."""
+    if (not isinstance(x, torch.Tensor) or x.dtype != torch.uint8
+            or x.dim() != 1):
+        raise ZippyError("deflate_array expects a 1-D uint8 tensor")
+    check_level(level)
+    return _deflate_tensor(x, level, max(level, 1), block_size, stages)
+
+
+def _deflate_tensor(x: torch.Tensor, level: int, matcher_level: int,
+                    block_size: int, stages: dict | None) -> bytes:
+    """The stream of `deflate_array` and `deflate`: `level` sets the block
+    format (0 stored, -2 literals only), `matcher_level` the matcher."""
+    if not MIN_BLOCK <= block_size <= (1 << 17) - HIST:
+        raise ZippyError(f"block_size must lie in [{MIN_BLOCK}, "
+                         f"{(1 << 17) - HIST}]")
+    n = int(x.shape[0])
+    if n == 0:
+        return _empty_stream()
+    out = _ByteBitAppender()
+    if level == 0:
+        _append_block(out, "stored", None, None, 0, x.cpu().numpy(), n, True)
+        return bytes(out.out)
+    lits_only = level == -2
+    k, lazy, min3 = _level_params(1 if lits_only else matcher_level)
+    dev = x.device
+    clock = _StageClock(stages, dev)
+    nblocks = -(-n // block_size)
+    hist = HIST if nblocks > 1 else 0
+    row_len = hist + block_size + PAD
+    padded = torch.zeros(hist + nblocks * block_size + PAD, dtype=torch.uint8,
+                         device=dev)
+    padded[hist:hist + n] = x
+    rows_all = padded.unfold(0, row_len, block_size)       # (nblocks, row_len)
+    gmax = _group_size(k, block_size)
+    for bi in range(0, nblocks, gmax):
+        g = min(gmax, nblocks - bi)
+        starts = np.arange(bi, bi + g, dtype=np.int64) * block_size
+        lens_np = np.minimum(block_size, n - starts)
+        res = _encode_group(
+            rows_all[bi:bi + g].contiguous(),
+            torch.from_numpy(lens_np).to(dev),
+            torch.from_numpy(np.minimum(hist, starts)).to(dev),
+            k=k, lazy=lazy, hist=hist, min3=min3, lits_only=lits_only,
+            clock=clock)
+        meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
+                          res["ll_lens"], res["d_lens"], res["cl_lens"]],
+                         dim=1).cpu().numpy()
+        nbits = meta[:, 1]
+        nwords = max(1, int(-(-int(nbits.max()) // 32)))
+        words = _to_i32(res["words"][:, :nwords]).cpu().numpy().view("<u4")
+        clock.mark("fetch")
+        for j in range(g):
+            b = bi + j
+            blen = int(lens_np[j])
+            mode = int(meta[j, 0])
+            raw = None
+            if mode == 0:  # stored: fetch only its raw bytes
+                s = hist + b * block_size
+                raw = padded[s:s + blen].cpu().numpy()
+            _assemble_block(out, mode, meta[j, 2:288], meta[j, 288:318],
+                            meta[j, 318:337], words[j], int(nbits[j]), raw,
+                            blen, b == nblocks - 1)
+        clock.mark("splice")
+    return bytes(out.out)
+
+
+def deflate(data, level: int, block_size: int = BLOCK,
+            device=None) -> bytes:
+    """Raw DEFLATE stream of host bytes via the device pipeline: one upload
+    to `device` (None: the CUDA card), then the encode of `deflate_array`
+    with level -1 as level 6, as zippy_tpu's `deflate` maps it."""
+    check_level(level)
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    arr = np.frombuffer(data, dtype=np.uint8)
+    x = torch.from_numpy(arr.copy()).to(resolve_device(device))
+    return _deflate_tensor(x, level, level, block_size, None)
