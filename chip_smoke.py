@@ -7,9 +7,15 @@ non-zero exit and no result line):
 
 1. the card (nvidia-smi's name and power limit, torch's device name);
 2. the kernel build (csrc/checksums.cu with nvcc), with its seconds;
-3. kernels K1 (adler_chunks) and K2 (crc_rows) against their plain
-   PyTorch versions on the card and against zlib, at 0 B to 256 MiB + 7,
-   with times and the card's least time for the same work;
+3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
+   with a tail row) and K3 (crc_combine) against their plain PyTorch
+   versions on the card, and adler32/crc32 against zlib, at 0 B to
+   256 MiB + 7 and on one unaligned view; at the largest size the kernels'
+   times (K2 also on all-zero rows, which read no shared-memory bank
+   twice) and the card's least time for the same work;
+   then the `crc32_call` line: host ms per synchronized crc32_device call
+   at 64 MiB, 256 MiB + 7 and on an unaligned 64 MiB view, and the device
+   operations of one call (at most 5);
 4. the main path: compress() of a seeded 64 MiB mixed text/binary payload
    to gzip at level 6, from host bytes and from a CUDA tensor, and of
    8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
@@ -167,9 +173,15 @@ def adler_work(nchunks: int):
 def crc_work(nrows: int):
     """(bytes, operations) K2 must move and do: each byte read once, one
     int32 written per row; one 32-bit operation per input word, the least
-    any formulation needs to fold a word into its row's CRC (K2's own
-    GF(2) products take far more)."""
+    any formulation needs to fold a word into its row's CRC (K2's table
+    lookups take about 5 per byte)."""
     return nrows * 512 + 4 * nrows, nrows * 128
+
+
+def combine_work(nrows: int):
+    """(bytes, operations) K3 must move and do: each row CRC read once, one
+    int32 written; one 32-bit operation per row."""
+    return 4 * nrows + 4, nrows
 
 
 def bound(work) -> tuple[float, str]:
@@ -177,6 +189,24 @@ def bound(work) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def crc32_call(tc, x: torch.Tensor, reps: int) -> dict:
+    """Host-clock ms per crc32_device(x) call, x a CUDA tensor (each call
+    ends in a copy of the result to the host, so it is synchronized), and
+    the device operations of one call from a trace."""
+    tc.crc32_device(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tc.crc32_device(x)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    trace = device_trace(lambda: tc.crc32_device(x))
+    return {"bytes": x.numel(), "aligned": x.data_ptr() % 16 == 0,
+            "ms": ms, "device_ops": trace["device_ops"],
+            "kernels": trace["kernels"],
+            "device_busy_ms": None if trace["device_busy_s"] is None
+            else trace["device_busy_s"] * 1e3}
 
 
 def main() -> int:
@@ -202,7 +232,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": lib.name})
 
-    # Phase 3: K1 and K2 against their plain versions and zlib.
+    # Phase 3: K1, K2 and K3 against their plain versions and zlib.
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     sizes = [0, 1, 511, 512, 513, 1 << 20, (256 << 20) + 7]
@@ -222,27 +252,64 @@ def main() -> int:
         s, w = ck.adler_chunks(chunks)
         s0, w0 = ck.adler_chunks_plain(chunks)
         r, r0 = ck.crc_rows(rows), ck.crc_rows_plain(rows)
+        full = n // ck.CRC_ROW_BYTES
+        in_place = x[:full * ck.CRC_ROW_BYTES].view(full, ck.CRC_ROW_BYTES)
+        tail = x[full * ck.CRC_ROW_BYTES:]
+        rt = ck.crc_rows(in_place, tail)
+        last = n - full * ck.CRC_ROW_BYTES or ck.CRC_ROW_BYTES
         adler, crc = tc.adler32_device(x), tc.crc32_device(x)
         row = {"phase": "kernels", "bytes": n,
                "adler_chunks_equal_plain": bool(torch.equal(s, s0)
                                                 and torch.equal(w, w0)),
                "crc_rows_equal_plain": bool(torch.equal(r, r0)),
+               "crc_rows_tail_equal_plain": bool(torch.equal(
+                   rt, ck.crc_rows_plain(in_place, tail))),
+               "crc_combine_equal_plain": n == 0 or bool(torch.equal(
+                   ck.crc_combine(rt, last), ck.crc_combine_plain(rt, last))),
                "adler32_equal_zlib": adler == zlib.adler32(host),
                "crc32_equal_zlib": crc == zlib.crc32(host)}
         if n == sizes[-1]:
+            zeros = torch.zeros_like(rows)
             for name, fn, plain, work in (
                     ("adler_chunks", lambda: ck.adler_chunks(chunks),
                      lambda: ck.adler_chunks_plain(chunks), adler_work(nch)),
                     ("crc_rows", lambda: ck.crc_rows(rows),
-                     lambda: ck.crc_rows_plain(rows), crc_work(nr))):
+                     lambda: ck.crc_rows_plain(rows), crc_work(nr)),
+                    ("crc_combine", lambda: ck.crc_combine(r),
+                     lambda: ck.crc_combine_plain(r), combine_work(nr))):
                 row[name + "_ms"] = kernel_ms(fn, 20)
                 row[name + "_call_ms"] = call_ms(fn, 20)
                 row[name + "_plain_ms"] = call_ms(plain, 2)
                 row[name + "_bound_ms"], row[name + "_bound_by"] = bound(work)
+            row["crc_rows_zero_rows_ms"] = kernel_ms(
+                lambda: ck.crc_rows(zeros), 20)
+            # One unaligned view: crc32_device reads it from an aligned copy.
+            view = x[1:]
+            row["unaligned_crc32_equal_zlib"] = (
+                view.data_ptr() % 16 != 0
+                and tc.crc32_device(view) == zlib.crc32(host[1:]))
+            del zeros, view
         emit(row)
         check(all(v for k, v in row.items()
                   if k.endswith(("_plain", "_zlib"))), row)
-        del x, chunks, rows, s, w, s0, w0, r, r0
+        del x, chunks, rows, s, w, s0, w0, r, r0, in_place, tail, rt
+    torch.cuda.empty_cache()
+
+    # The whole crc32 call on a CUDA tensor: an aligned 64 MiB payload (no
+    # tail), 256 MiB + 7 (a 7-byte tail row) and an unaligned 64 MiB view,
+    # each checked against zlib.
+    calls = []
+    for n, skip in ((MAIN_BYTES, 0), ((256 << 20) + 7, 0), (MAIN_BYTES, 1)):
+        x = torch.randint(0, 256, (n + skip,), dtype=torch.uint8, device=dev,
+                          generator=gen)[skip:]
+        line = crc32_call(tc, x, 20)
+        line["equal_zlib"] = (tc.crc32_device(x)
+                              == zlib.crc32(x.cpu().numpy().tobytes()))
+        calls.append(line)
+        del x
+    emit({"phase": "crc32_call", "calls": calls})
+    check(all(c["equal_zlib"] and c["device_ops"] is not None
+              and c["device_ops"] <= 5 for c in calls), calls)
     torch.cuda.empty_cache()
 
     # Phase 4: the main path.
@@ -274,7 +341,7 @@ def main() -> int:
         check(back == want, label)
     launches = dict(ck.LAUNCHES)
     emit({"phase": "main_path_launches", **launches})
-    check(launches["adler_chunks"] > 0 and launches["crc_rows"] > 0, launches)
+    check(all(v > 0 for v in launches.values()), launches)
 
     stages: dict = {}
     t0 = time.perf_counter()
@@ -297,11 +364,13 @@ def main() -> int:
           **device_trace(lambda: td._kraft_lengths(freq, 15))})
 
     # Kernel numbers at the shapes the main path gave each kernel: K1 the
-    # 8 MiB zlib trailer, K2 the 64 MiB gzip trailer.
+    # 8 MiB zlib trailer, K2 the 64 MiB gzip trailer's rows (in place, no
+    # tail) and K3 their 131072 row CRCs.
     nch = ZLIB_BYTES // ck.CHUNK
     chunks = x_dev[:ZLIB_BYTES].view(nch, ck.CHUNK)
     nr = MAIN_BYTES // ck.CRC_ROW_BYTES
     rows = x_dev.view(nr, ck.CRC_ROW_BYTES)
+    row_crcs = ck.crc_rows(rows)
     kernels, calls = [], {}
     for name, replaces, fn, plain, work, err in (
             ("adler_chunks", "zippy_tpu/ops/pallas_checksums.py:32",
@@ -314,7 +383,13 @@ def main() -> int:
              lambda: ck.crc_rows(rows), lambda: ck.crc_rows_plain(rows),
              crc_work(nr),
              lambda: int((ck.crc_rows(rows).long()
-                          - ck.crc_rows_plain(rows).long()).abs().max()))):
+                          - ck.crc_rows_plain(rows).long()).abs().max())),
+            ("crc_combine", "zippy_tpu/ops/pallas_checksums.py:188",
+             lambda: ck.crc_combine(row_crcs),
+             lambda: ck.crc_combine_plain(row_crcs), combine_work(nr),
+             lambda: int((ck.crc_combine(row_crcs).long()
+                          - ck.crc_combine_plain(row_crcs).long())
+                         .abs().max()))):
         bound_ms, bound_by = bound(work)
         kernels.append({
             "name": name, "route": "cuda",
@@ -326,7 +401,7 @@ def main() -> int:
         calls[name + "_call_ms"] = call_ms(fn, 100)
     emit({"phase": "kernel_calls", **calls})
     check(all(k["max_abs_err"] == 0 for k in kernels), kernels)
-    del x_dev, chunks, rows
+    del x_dev, chunks, rows, row_crcs
 
     # Phase 5: CPU and CUDA bytes.
     piece = data[:256 << 10]

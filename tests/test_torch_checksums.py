@@ -67,25 +67,97 @@ def test_crc_rows_match_pallas_kernel(nrows):
                           got.numpy().view(np.uint32))
 
     init = jc.crc_shift_register(0xFFFFFFFF, rows.size)
-    assert ck.combine_rows(got, init) == int(
-        pc._crc_combine_rows(ref, jnp.uint32(init)))
-    assert ck.combine_rows(got, init) == zlib.crc32(rows.tobytes())
+    crc = int(ck.crc_combine(got)) & 0xFFFFFFFF ^ init ^ 0xFFFFFFFF
+    assert crc == int(pc._crc_combine_rows(ref, jnp.uint32(init)))
+    assert crc == zlib.crc32(rows.tobytes())
+
+
+@pytest.mark.parametrize("tail", [1, 17, 511])
+def test_crc_rows_tail_is_a_front_padded_row(tail):
+    """K2's tail value is the Pallas kernel's raw CRC of the tail padded
+    with zeros in front to a full row."""
+    data = np.frombuffer(_data(127 * ck.CRC_ROW_BYTES + tail), np.uint8)
+    padded = np.concatenate([np.zeros(ck.CRC_ROW_BYTES - tail, np.uint8),
+                             data[127 * ck.CRC_ROW_BYTES:]])
+    rows = np.concatenate([data[:127 * ck.CRC_ROW_BYTES], padded])
+    ref = pc._crc_rows_pallas(jnp.asarray(
+        rows.view("<u4").astype(np.int64).astype(np.int32).reshape(128, -1)))
+    x = torch.from_numpy(data.copy())
+    got = ck.crc_rows(x[:127 * ck.CRC_ROW_BYTES].view(127, -1),
+                      x[127 * ck.CRC_ROW_BYTES:])
+    assert np.array_equal(np.asarray(ref).astype(np.uint32),
+                          got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("nrows", [1, 2, 128, 2048, 1 << 18])
+def test_crc_combine_plain_matches_reference(nrows):
+    """K3's plain version against zippy_tpu's log tree (which needs a power
+    of two), on random raw row CRCs: 2^18 rows take K3's Horner step twice
+    on each of its 2^17 threads."""
+    c = np.random.default_rng(nrows).integers(0, 1 << 32, nrows,
+                                              dtype=np.uint64)
+    init = jc.crc_shift_register(0xFFFFFFFF, nrows * ck.CRC_ROW_BYTES)
+    ref = int(pc._crc_combine_rows(jnp.asarray(c.astype(np.uint32)),
+                                   jnp.uint32(init)))
+    got = ck.crc_combine_plain(torch.from_numpy(c.astype(np.int64)).to(
+        torch.int32))
+    assert got.dtype == torch.int32 and got.shape == (1,)
+    assert int(got) & 0xFFFFFFFF ^ init ^ 0xFFFFFFFF == ref
 
 
 @pytest.mark.parametrize("nrows", [1, 3, 5, 129])
 def test_crc_combine_rows_any_row_count(nrows):
-    """The port folds any row count (a zero row in front of an odd level);
-    the reference needs a power of two."""
+    """The port folds any row count, with a last row of any length; the
+    reference needs a power of two."""
     data = _data(nrows * ck.CRC_ROW_BYTES - 3)
     assert tc.crc32_device(data, device="cpu") == zlib.crc32(data)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    full = (nrows - 1) * ck.CRC_ROW_BYTES
+    rows = ck.crc_rows(x[:full].view(nrows - 1, ck.CRC_ROW_BYTES), x[full:])
+    init = jc.crc_shift_register(0xFFFFFFFF, len(data))
+    raw = int(ck.crc_combine_plain(rows, ck.CRC_ROW_BYTES - 3))
+    assert raw & 0xFFFFFFFF ^ init ^ 0xFFFFFFFF == zlib.crc32(data)
+
+
+@pytest.mark.parametrize("n", [0, 1, 511, 512, 513, 4096 + 7, (1 << 20) + 3])
+def test_crc32_device_in_place_and_unaligned(n):
+    """An aligned payload is read in place (full rows and a tail row); the
+    unaligned view x[1:] is read from an aligned copy."""
+    data = _data(n + 1)
+    buf = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    assert buf.data_ptr() % 16 == 0
+    assert n == 0 or buf[1:].data_ptr() % 16 != 0
+    assert tc.crc32_device(buf[:n]) == zlib.crc32(data[:n])
+    assert tc.crc32_device(buf[1:]) == zlib.crc32(data[1:])
+    assert tc.crc32_device(data[:n], device="cpu") == zlib.crc32(data[:n])
 
 
 def test_plain_matrices_equal_reference():
-    assert np.array_equal(ck.crc_matrices().astype(np.int64).astype(np.int32),
-                          pc._crc_matrices())
-    assert np.array_equal(tc._word_bit_columns(), jc._word_bit_columns())
-    assert np.array_equal(tc._tree_matrices(), jc._tree_matrices())
-    assert np.array_equal(tc._crc_word_tables(), jc._crc_word_tables())
+    """The crc kernels' host tables against zippy_tpu's GF(2) matrices."""
+    def tables(cols):
+        return np.array([[jc.gf2_matvec(cols, b << (8 * j))
+                          for b in range(256)] for j in range(4)],
+                        dtype=np.uint32)
+
+    slices = tc.crc_slice_tables()
+    assert np.array_equal(slices[:4], jc._crc_word_tables())
+    word_cols = pc._crc_matrices()[0].astype(np.uint32)
+    for bit in range(32):  # the Pallas kernel's word columns
+        assert word_cols[bit] == slices[3 - bit // 8][1 << (bit % 8)]
+    tree = jc._tree_matrices()            # shift over 4 * 2^k bytes
+    shifts = tc.crc_shift_tables(ck.SHIFT_LEVELS)  # shift over 2^b bytes
+    for b in range(2, shifts.shape[0]):
+        assert np.array_equal(shifts[b], tables(tree[b - 2]))
+    lanes = tc.crc_lane_tables()          # shift over 16 (31 - lane) bytes
+    for k in range(5):
+        assert np.array_equal(lanes[31 - (1 << k)], tables(tree[k + 2]))
+    rng = np.random.default_rng(3)
+    for lane in range(32):
+        v = int(rng.integers(0, 1 << 32))
+        got = 0
+        for j in range(4):
+            got ^= int(lanes[lane, j, (v >> (8 * j)) & 255])
+        assert got == jc.crc_shift_register(v, 16 * (31 - lane))
 
 
 def test_host_combines_equal_reference():
@@ -118,3 +190,10 @@ def test_wrappers_check_their_input():
         ck.crc_rows(torch.zeros(2, 512, dtype=torch.int32))
     with pytest.raises(ZippyError):
         tc.crc32_device(torch.zeros(4, 4, dtype=torch.uint8))
+    rows = torch.zeros(2, 512, dtype=torch.uint8)
+    with pytest.raises(ZippyError):
+        ck.crc_rows(rows, torch.zeros(512, dtype=torch.uint8))
+    with pytest.raises(ZippyError):
+        ck.crc_combine(torch.zeros(0, dtype=torch.int32))
+    with pytest.raises(ZippyError):
+        ck.crc_combine(torch.zeros(3, dtype=torch.int32), 513)

@@ -4,7 +4,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound through ctypes: each entry point takes raw device pointers and
 // the caller's stream, launches one kernel, allocates nothing, and returns
-// cudaGetLastError().
+// the first CUDA error it met (0 when the launch was accepted).
 //
 // K1 zt_adler_chunks replaces zippy_tpu/ops/pallas_checksums.py
 //    `_adler_tile_kernel` (:32). For every 1024-byte chunk:
@@ -17,25 +17,54 @@
 //    warps through shared memory. 4 chunks per 256-thread block.
 //
 // K2 zt_crc_rows replaces the kernel built by `_make_crc_tile_kernel`
-//    (pallas_checksums.py:134, kernel at :139). For every row of 128
-//    little-endian words (512 bytes) it writes the row's raw CRC.
-//    Bound: bytes: it reads each input byte once and writes 4 bytes per
-//    row, (n + n/128) bytes / the HBM rate. This design does not reach it:
-//    its 32 select-XORs per GF(2) product (255 products a row) are integer
-//    work that takes longer than the reads.
-//    Design: one thread per word computes the word's raw CRC as a GF(2)
-//    matrix-vector product, 32 select-XORs against constant columns. The row
-//    (4 warps) then folds in 7 levels, v_i <- shift^(4h)(v_i) ^ v_{i+h} with
-//    h = 64, 32, ..., 1 words: the first 2 through shared memory, the last 5
-//    with shuffles in the row's first warp. The 8 x 32 matrix columns are a
-//    __grid_constant__ kernel parameter, which the card holds in its
-//    constant bank, so every lane reads the same column at the same time as
-//    __constant__ data.
-//    2 rows per block.
+//    (pallas_checksums.py:134, kernel at :139). For every 512-byte row it
+//    writes the row's raw CRC (register init 0, no final xor); an optional
+//    tail of fewer than 512 bytes counts as one more row, padded with zeros
+//    at its front (leading zeros do not change a raw CRC).
+//    Bound: bytes: each input byte read once, 4 bytes written per row,
+//    (n + n/128) bytes / the HBM rate. A GF(2) product done as 32
+//    select-XORs (the TPU kernel's form) costs about 96 integer
+//    instructions, which made the first port of K2 bound by integer issue
+//    at 16x its bytes bound. Design: every GF(2)-linear map of a 32-bit
+//    word splits by byte into 4 tables of 256 words, T[j][b] = M (b << 8j),
+//    so a product is 4 shared-memory lookups and 3 XORs.
+//    - One warp per row; each lane loads one 16-byte vector (neighbouring
+//      lanes on neighbouring addresses) and takes its raw CRC by
+//      slicing-by-16: 16 tables, D[k][b] = raw CRC of byte b followed by k
+//      zero bytes (16 KB).
+//    - The 32 lane values join inside the warp, with no __syncthreads:
+//      lane l applies its own shift over 16 (31 - l) bytes (4 tables per
+//      lane, 128 KB), then one __reduce_xor_sync; 20 lookups per 16 bytes.
+//      (Five __shfl_down_sync levels with shared shift tables, 36 lookups
+//      per 16 bytes, took 1.7x as long on the H100.)
+//    - The tables are one device buffer built on the host and cached per
+//      device; each block copies its 144 KB into dynamic shared memory.
+//      A lane's 4 tables start one bank after the previous lane's, so an
+//      all-zero row reads no bank twice: the conflict-free control.
+//    - Persistent blocks (as many as fit on each SM) walk the rows in a
+//      grid-stride loop, with two rows in flight ahead of the one being
+//      folded; the first two load while the block copies its tables.
+//
+// K3 zt_crc_combine replaces the jnp log-tree `_crc_combine_rows`
+//    (pallas_checksums.py:188). It folds nrows raw row CRCs, where every
+//    row is 512 bytes but the last, which has last_bytes (1..512), into the
+//    raw CRC of the whole. Bound: bytes, 4 per row read once. Each row costs
+//    one GF(2) product, 4 lookups at random banks, so one SM's shared
+//    memory would take about 0.03 ms for 131072 rows: the work is spread
+//    over up to 128 blocks. Design: 2^lg blocks of 1024 threads, L =
+//    1024 * 2^lg threads in all, at least one full row each when the rows
+//    allow. Thread g folds the rows g, g + L, ... (zero rows in front;
+//    coalesced reads) by Horner's rule with the shift over 512 L bytes,
+//    then shifts its sum over the rows behind it, 512 (L - 1 - g) bytes,
+//    by the set bits of L - 1 - g. Each block XORs its threads' sums (a
+//    warp reduction and one step through shared memory), shifts the result
+//    over last_bytes, and XORs it into the zeroed output with atomicXor;
+//    block 0 adds the last row. Shift levels: byte tables of the shift over
+//    2^b bytes, b = 0 .. 19 + lg (at most 27 levels, 108 KB of shared
+//    memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
 
 namespace {
 
@@ -45,15 +74,27 @@ constexpr int kThreadsPerChunk = kChunk / 16;  // 64: one uint4 each
 constexpr int kChunksPerBlock = 4;
 constexpr int kAdlerThreads = kThreadsPerChunk * kChunksPerBlock;
 
-constexpr int kRowWords = 128;
-constexpr int kRowsPerBlock = 2;
-constexpr int kCrcThreads = kRowWords * kRowsPerBlock;
+// The crc table buffer (checksum_kernels._crc_tables), in uint32 words:
+// slice tables D[16][256], lane tables S[32][4][256] (lane l: the shift
+// over 16 (31 - l) bytes), shift levels L[27][4][256] (the shift over 2^b
+// bytes).
+constexpr int kTable = 4 * 256;                 // one map's 4 byte tables
+constexpr int kSliceWords = 16 * 256;
+constexpr int kLaneWords = 32 * kTable;
+constexpr int kShiftLevels = 27;
+constexpr int kShiftOffset = kSliceWords + kLaneWords;
+constexpr int kLaneStride = kTable + 1;         // in shared: one bank apart
 
-struct CrcMats {
-  // col[0]: raw CRC of each bit of a LE word; col[r], r = 1..7: the shift
-  // over 4 * 2^(r-1) bytes.
-  uint32_t col[8][32];
-};
+constexpr int kRowBytes = 512;
+constexpr int kCrcThreads = 1024;
+constexpr int kCrcWarps = kCrcThreads / 32;
+constexpr size_t kCrcSmem = (kSliceWords + 32 * kLaneStride) * 4;
+
+constexpr int kCombineThreads = 1024;
+constexpr int kCombineMaxLg = 7;                // at most 2^7 blocks
+constexpr size_t kCombineSmem = kShiftLevels * kTable * 4;
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __global__ void __launch_bounds__(kAdlerThreads)
 adler_chunks_kernel(const uint4* __restrict__ data, long long nchunks,
@@ -100,43 +141,140 @@ adler_chunks_kernel(const uint4* __restrict__ data, long long nchunks,
   }
 }
 
-__device__ __forceinline__ uint32_t gf2_apply(const uint32_t (&cols)[32],
-                                              uint32_t v) {
-  uint32_t r = 0;
+// M v for a map M given as 4 byte tables t[j * 256 + b].
+__device__ __forceinline__ uint32_t apply_tables(const uint32_t* t,
+                                                 uint32_t v) {
+  return t[v & 0xFFu] ^ t[256 + ((v >> 8) & 0xFFu)] ^
+         t[512 + ((v >> 16) & 0xFFu)] ^ t[768 + (v >> 24)];
+}
+
+// Raw CRC of 16 stream bytes (a little-endian uint4): byte p is followed by
+// 15 - p bytes, so it looks up D[15 - p].
+__device__ __forceinline__ uint32_t slice16(const uint32_t* d, uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t c = 0;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) r ^= (0u - ((v >> j) & 1u)) & cols[j];
-  return r;
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      c ^= d[(15 - 4 * q - b) * 256 + ((w[q] >> (8 * b)) & 0xFFu)];
+  }
+  return c;
+}
+
+// This lane's 16 bytes of row `row`: a full row, or the tail row (its
+// bytes at the end, zeros in front), or zeros past the end.
+__device__ __forceinline__ uint4 load_row(const uint4* __restrict__ rows,
+                                          long long nrows,
+                                          const uint8_t* __restrict__ tail,
+                                          int tail_len, long long row,
+                                          int lane) {
+  if (row < nrows) return __ldg(rows + row * (kRowBytes / 16) + lane);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (row == nrows && tail_len > 0) {
+    const int first = 16 * lane - (kRowBytes - tail_len);
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      if (first + p >= 0)
+        w[p >> 2] |= (uint32_t)tail[first + p] << (8 * (p & 3));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __global__ void __launch_bounds__(kCrcThreads)
-crc_rows_kernel(const uint32_t* __restrict__ words, long long nrows,
-                int32_t* __restrict__ out, const __grid_constant__ CrcMats mats) {
-  __shared__ uint32_t sh[kRowsPerBlock][kRowWords];
-  const int local = threadIdx.x / kRowWords;
-  const int t = threadIdx.x % kRowWords;
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + local;
-  uint32_t v = 0;
-  if (row < nrows) v = gf2_apply(mats.col[0], words[row * kRowWords + t]);
+crc_rows_kernel(const uint4* __restrict__ rows, long long nrows,
+                const uint8_t* __restrict__ tail, int tail_len,
+                int32_t* __restrict__ out,
+                const uint32_t* __restrict__ tables) {
+  extern __shared__ uint32_t sh[];
+  // The first two rows are in flight while the block copies its tables.
+  const int lane = threadIdx.x % 32;
+  const long long total = nrows + (tail_len > 0 ? 1 : 0);
+  const long long stride = (long long)gridDim.x * kCrcWarps;
+  long long row = (long long)blockIdx.x * kCrcWarps + threadIdx.x / 32;
+  uint4 cur = load_row(rows, nrows, tail, tail_len, row, lane);
+  uint4 next = load_row(rows, nrows, tail, tail_len, row + stride, lane);
+  for (int i = threadIdx.x; i < kSliceWords + kLaneWords; i += kCrcThreads) {
+    const int k = i - kSliceWords;  // lane tables: one padded block per lane
+    const int to = i < kSliceWords
+                       ? i
+                       : kSliceWords + (k / kTable) * kLaneStride + k % kTable;
+    sh[to] = tables[i];
+  }
+  __syncthreads();
+  const uint32_t* shift = sh + kSliceWords + lane * kLaneStride;
+  for (; row < total; row += stride) {  // warp-uniform
+    const uint4 after = load_row(rows, nrows, tail, tail_len, row + 2 * stride,
+                                 lane);
+    const uint32_t v =
+        __reduce_xor_sync(kFull, apply_tables(shift, slice16(sh, cur)));
+    if (lane == 0) out[row] = (int32_t)v;
+    cur = next;
+    next = after;
+  }
+}
 
-  // Halves of 64 and 32 words span warps: fold through shared memory.
-  sh[local][t] = v;
+__global__ void __launch_bounds__(kCombineThreads)
+crc_combine_kernel(const uint32_t* __restrict__ crcs, long long nrows,
+                   int last_bytes, int lg, const uint32_t* __restrict__ levels,
+                   uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t lv[];
+  __shared__ uint32_t part[kCombineThreads / 32];
+  for (int i = threadIdx.x; i < (20 + lg) * kTable; i += kCombineThreads)
+    lv[i] = levels[i];
   __syncthreads();
-  if (t < 64) v = gf2_apply(mats.col[7], v) ^ sh[local][t + 64];
+  // The full rows 0 .. nrows - 2, with zero rows in front up to a multiple
+  // of the 1024 * 2^lg threads: thread g takes padded rows g + lanes * j.
+  const long long lanes = (long long)kCombineThreads << lg;
+  const long long g = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
+  const long long nfull = nrows - 1;
+  const long long steps = (nfull + lanes - 1) / lanes;
+  const long long first = g - (steps * lanes - nfull);
+  const uint32_t* horner = lv + (19 + lg) * kTable;  // 512 * lanes bytes
+  uint32_t acc = 0;
+  for (long long j = 0; j < steps; ++j) {
+    const long long i = first + j * lanes;
+    acc = apply_tables(horner, acc) ^ (i >= 0 ? __ldg(crcs + i) : 0u);
+  }
+  const long long behind = lanes - 1 - g;  // rows after this thread's
+  for (int b = 0; b < 10 + lg; ++b)
+    if ((behind >> b) & 1) acc = apply_tables(lv + (9 + b) * kTable, acc);
+  acc = __reduce_xor_sync(kFull, acc);
+  const int t = threadIdx.x;
+  if (t % 32 == 0) part[t / 32] = acc;
   __syncthreads();
-  sh[local][t] = v;
-  __syncthreads();
-  if (t < 32) v = gf2_apply(mats.col[6], v) ^ sh[local][t + 32];
+  if (t < 32) {
+    uint32_t f = __reduce_xor_sync(kFull, part[t]);
+    if (t == 0) {
+      // The shift over the last row is linear: each block applies it to
+      // its own part before the parts meet.
+#pragma unroll
+      for (int b = 0; b < 10; ++b)
+        if ((last_bytes >> b) & 1) f = apply_tables(lv + b * kTable, f);
+      if (blockIdx.x == 0) f ^= __ldg(crcs + nrows - 1);
+      atomicXor(out, f);
+    }
+  }
+}
 
-  // Halves of 16..1 words lie inside the row's first warp; the other warps
-  // are done. Every lane of it takes part in the shuffles; lane 0 keeps the
-  // result.
-  if (t >= 32) return;
-  v = gf2_apply(mats.col[5], v) ^ __shfl_down_sync(0xFFFFFFFFu, v, 16);
-  v = gf2_apply(mats.col[4], v) ^ __shfl_down_sync(0xFFFFFFFFu, v, 8);
-  v = gf2_apply(mats.col[3], v) ^ __shfl_down_sync(0xFFFFFFFFu, v, 4);
-  v = gf2_apply(mats.col[2], v) ^ __shfl_down_sync(0xFFFFFFFFu, v, 2);
-  v = gf2_apply(mats.col[1], v) ^ __shfl_down_sync(0xFFFFFFFFu, v, 1);
-  if (t == 0 && row < nrows) out[row] = (int32_t)v;
+// Blocks for a persistent grid: as many as fit on every SM, and no more
+// than the work needs.
+cudaError_t persistent_grid(const void* kernel, int threads, size_t smem,
+                            long long want, int device, long long* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long fit = (long long)sms * per_sm;
+  *grid = want < fit ? want : fit;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -157,20 +295,46 @@ int zt_adler_chunks(const void* data, long long nchunks, void* s_out,
   return (int)cudaGetLastError();
 }
 
-// words: nrows * 128 uint32, 4-byte aligned; out: nrows int32;
-// mats: host pointer to the 8 x 32 uint32 matrix columns.
-int zt_crc_rows(const void* words, long long nrows, void* out,
-                const void* mats, void* stream, int device) {
+// rows: nrows * 512 bytes, 16-byte aligned; tail: tail_len < 512 bytes, any
+// alignment (unused when tail_len is 0); out: nrows + (tail_len > 0) int32;
+// tables: the device table buffer.
+int zt_crc_rows(const void* rows, long long nrows, const void* tail,
+                int tail_len, void* out, const void* tables, void* stream,
+                int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nrows > 0) {
-    CrcMats m;
-    memcpy(&m, mats, sizeof(m));
-    const long long grid = (nrows + kRowsPerBlock - 1) / kRowsPerBlock;
-    crc_rows_kernel<<<(unsigned)grid, kCrcThreads, 0,
+  const long long total = nrows + (tail_len > 0 ? 1 : 0);
+  if (total > 0) {
+    long long grid = 0;
+    err = persistent_grid((const void*)crc_rows_kernel, kCrcThreads, kCrcSmem,
+                          (total + kCrcWarps - 1) / kCrcWarps, device, &grid);
+    if (err != cudaSuccess) return (int)err;
+    crc_rows_kernel<<<(unsigned)grid, kCrcThreads, kCrcSmem,
                       (cudaStream_t)stream>>>(
-        (const uint32_t*)words, nrows, (int32_t*)out, m);
+        (const uint4*)rows, nrows, (const uint8_t*)tail, tail_len,
+        (int32_t*)out, (const uint32_t*)tables);
   }
+  return (int)cudaGetLastError();
+}
+
+// crcs: nrows >= 1 int32 raw row CRCs; last_bytes: the last row's length,
+// 1..512; levels: the table buffer's shift levels; out: one int32, zero
+// before the launch (the blocks XOR their parts into it).
+int zt_crc_combine(const void* crcs, long long nrows, int last_bytes,
+                   const void* levels, void* out, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(crc_combine_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kCombineSmem);
+  if (err != cudaSuccess) return (int)err;
+  int lg = 0;  // 2^lg blocks: enough threads for one full row each
+  while (lg < kCombineMaxLg && ((long long)kCombineThreads << lg) < nrows - 1)
+    ++lg;
+  crc_combine_kernel<<<1u << lg, kCombineThreads, (20 + lg) * kTable * 4,
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)crcs, nrows, last_bytes, lg, (const uint32_t*)levels,
+      (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,17 +1,21 @@
-"""The two checksum kernels (csrc/checksums.cu), their plain PyTorch
-versions, and the combines around them.
+"""The checksum kernels (csrc/checksums.cu), their plain PyTorch versions,
+and the combines around them.
 
 Port of zippy_tpu/ops/pallas_checksums.py:
 
 * K1 `adler_chunks` replaces the Pallas `_adler_tile_kernel`: per 1024-byte
   chunk, S = sum of bytes and W = sum (1024 - i) * byte_i, both mod 65521.
 * K2 `crc_rows` replaces the kernel built by `_make_crc_tile_kernel`: per
-  row of 128 little-endian words (512 bytes), the raw CRC of the row.
+  512-byte row, the raw CRC of the row, by byte-table lookups.
+* K3 `crc_combine` replaces the jnp log tree `_crc_combine_rows`: one launch
+  folds the row CRCs into the raw CRC of the whole.
 
+The crc kernels read one table buffer (`_crc_tables`), built on the host
+and kept on each device; the plain versions gather from the same tables.
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
-tensor it runs the plain version. The combines are torch ops on the tensor's
-device. The kernels build with nvcc at first CUDA use into build/kernels/
-and load through ctypes; importing this module builds nothing.
+tensor it runs the plain version. The kernels build with nvcc at first CUDA
+use into build/kernels/ and load through ctypes; importing this module
+builds nothing.
 """
 
 from __future__ import annotations
@@ -31,12 +35,11 @@ from ..common import ZippyError
 from . import checksums
 
 CHUNK = 1024               # adler bytes per chunk (W < 255 * 1024 * 1025 / 2 < 2^31)
-CRC_ROW = 128              # crc words per row
-CRC_ROW_BYTES = 4 * CRC_ROW
+CRC_ROW_BYTES = 512        # crc bytes per row: one warp of 16-byte vectors
 MOD = checksums.ADLER_MOD
 
 # Kernel launches per wrapper: one per launch, counted nowhere else.
-LAUNCHES = {"adler_chunks": 0, "crc_rows": 0}
+LAUNCHES = {"adler_chunks": 0, "crc_rows": 0, "crc_combine": 0}
 
 _SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "checksums.cu"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -80,12 +83,16 @@ def build() -> pathlib.Path:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    try:
+        lib = ctypes.CDLL(str(build()))
+    except OSError as e:
+        raise ZippyError(f"cannot load the checksum kernels: {e}") from e
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.zt_adler_chunks.argtypes = [p, i64, p, p, p, i32]
-    lib.zt_adler_chunks.restype = i32
-    lib.zt_crc_rows.argtypes = [p, i64, p, p, p, i32]
-    lib.zt_crc_rows.restype = i32
+    lib.zt_crc_rows.argtypes = [p, i64, p, i32, p, p, p, i32]
+    lib.zt_crc_combine.argtypes = [p, i64, i32, p, p, p, i32]
+    for fn in (lib.zt_adler_chunks, lib.zt_crc_rows, lib.zt_crc_combine):
+        fn.restype = i32
     return lib
 
 
@@ -160,58 +167,105 @@ def combine_chunks(s_c: torch.Tensor, w_c: torch.Tensor, n: int,
 
 
 # ---------------------------------------------------------------------------
+# The crc tables
+# ---------------------------------------------------------------------------
+
+# Word offsets in the table buffer; csrc/checksums.cu has the same layout.
+SLICE_WORDS = 16 * 256
+LANE_WORDS = 32 * 4 * 256
+SHIFT_LEVELS = 27
+SHIFT_OFFSET = SLICE_WORDS + LANE_WORDS
+
+
+@functools.cache
+def _crc_tables() -> np.ndarray:
+    """Every crc table, one uint32 buffer: the slice tables (16, 256), the
+    lane tables (32, 4, 256) and the shift levels (27, 4, 256)."""
+    return np.concatenate([checksums.crc_slice_tables().ravel(),
+                           checksums.crc_lane_tables().ravel(),
+                           checksums.crc_shift_tables(SHIFT_LEVELS).ravel()])
+
+
+@functools.cache
+def _tables_on(device: torch.device) -> torch.Tensor:
+    """The table buffer as int32 bit patterns on `device` (uploaded once)."""
+    return torch.from_numpy(_crc_tables().view(np.int32).copy()).to(device)
+
+
+def _tables_i64(device: torch.device):
+    """The plain versions' view of the buffer: (slice, lane, shift) int64."""
+    t = _tables_on(device).to(torch.int64) & 0xFFFFFFFF
+    return (t[:SLICE_WORDS].view(16, 256),
+            t[SLICE_WORDS:SHIFT_OFFSET].view(32, 4, 256),
+            t[SHIFT_OFFSET:].view(SHIFT_LEVELS, 4, 256))
+
+
+def _apply_tables(tabs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M v for int64 32-bit words v, M given as (4, 256) byte tables."""
+    return (tabs[0][v & 255] ^ tabs[1][(v >> 8) & 255]
+            ^ tabs[2][(v >> 16) & 255] ^ tabs[3][(v >> 24) & 255])
+
+
+def _xor_reduce(v: torch.Tensor) -> torch.Tensor:
+    """XOR over the last dimension, whose size is a power of two."""
+    n = v.shape[-1]
+    while n > 1:
+        n //= 2
+        v = v[..., :n] ^ v[..., n:2 * n]
+    return v[..., 0]
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 32-bit words as int32 bit patterns."""
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # K2: crc32 per-row raw CRC
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def crc_matrices() -> np.ndarray:
-    """(8, 32) uint32: row 0 = raw CRC of each bit of a little-endian word;
-    row r (1..7) = the shift over 4 * 2^(r-1) bytes, which folds two halves
-    of 2^(r-1) words each."""
-    return np.ascontiguousarray(
-        np.stack([checksums._word_bit_columns(), *checksums._tree_matrices(7)]),
-        dtype=np.uint32)
+def crc_rows_plain(rows: torch.Tensor, tail=None) -> torch.Tensor:
+    """Plain version of K2: (nrows, 512) uint8 [+ a tail of < 512 bytes,
+    front-padded to one more row] -> raw CRC per row, as int32 bit
+    patterns. Each 16-byte lane slice by slice (D[15 - p] for its byte p),
+    then each lane's shift tables, then the XOR of the 32 lanes."""
+    if tail is not None and tail.numel():
+        pad = torch.zeros(CRC_ROW_BYTES - tail.numel(), dtype=torch.uint8,
+                          device=rows.device)
+        rows = torch.cat([rows, torch.cat([pad, tail]).view(1, -1)])
+    slice_t, lane_t, _ = _tables_i64(rows.device)
+    b = rows.view(rows.shape[0], 32, 16).to(torch.int64)
+    pos = torch.arange(15, -1, -1, device=rows.device)
+    v = _xor_reduce(slice_t[pos, b])                      # (nrows, 32)
+    lane = torch.arange(32, device=rows.device)
+    v = (lane_t[lane, 0, v & 255] ^ lane_t[lane, 1, (v >> 8) & 255]
+         ^ lane_t[lane, 2, (v >> 16) & 255] ^ lane_t[lane, 3, (v >> 24) & 255])
+    return _as_int32(_xor_reduce(v))
 
 
-def _gf2_apply(cols: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Apply one GF(2) matrix (32 int64 columns) to int64 32-bit words:
-    32 select-XORs."""
-    out = torch.zeros_like(v)
-    for j in range(32):
-        out ^= ((v >> j) & 1) * cols[j]
-    return out
-
-
-def crc_rows_plain(rows: torch.Tensor) -> torch.Tensor:
-    """Plain version of K2: (nrows, 512) uint8 -> raw CRC per row, as the
-    int32 bit pattern. Each word's raw CRC, then contiguous halving folds:
-    with h words per half, v_i <- shift^(4h)(v_i) ^ v_{i+h}."""
-    mats = torch.from_numpy(crc_matrices().astype(np.int64)).to(rows.device)
-    b = rows.to(torch.int64).view(rows.shape[0], CRC_ROW, 4)
-    w = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
-    v = _gf2_apply(mats[0], w)
-    half, r = CRC_ROW // 2, 7
-    while half:
-        v = _gf2_apply(mats[r], v[:, :half]) ^ v[:, half:2 * half]
-        half, r = half // 2, r - 1
-    v = v[:, 0]
-    return (v - ((v >> 31) << 32)).to(torch.int32)
-
-
-def crc_rows(rows: torch.Tensor) -> torch.Tensor:
+def crc_rows(rows: torch.Tensor, tail=None) -> torch.Tensor:
     """Raw CRC of every 512-byte row: (nrows, 512) uint8 -> (nrows,) int32
-    bit patterns. K2 on a CUDA tensor, the plain version on a CPU tensor."""
-    _check_input(rows, CRC_ROW_BYTES, 4)
+    bit patterns. A non-empty `tail` (1-D uint8, < 512 bytes, same device)
+    adds one more value: the raw CRC of the tail, which is that of the tail
+    padded with zeros in front to a row. K2 on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    _check_input(rows, CRC_ROW_BYTES, 16)
+    ntail = 0 if tail is None else tail.numel()
+    if ntail and (tail.dtype != torch.uint8 or tail.dim() != 1
+                  or ntail >= CRC_ROW_BYTES or tail.device != rows.device
+                  or not tail.is_contiguous()):
+        raise ZippyError("the tail must be a contiguous 1-D uint8 tensor of "
+                         "fewer than 512 bytes on the rows' device")
     if rows.device.type == "cpu":
-        return crc_rows_plain(rows)
+        return crc_rows_plain(rows, tail)
     nrows = rows.shape[0]
-    out = torch.empty(nrows, dtype=torch.int32, device=rows.device)
-    if nrows:
-        mats = crc_matrices()
+    out = torch.empty(nrows + (ntail > 0), dtype=torch.int32,
+                      device=rows.device)
+    if out.numel():
         rc = _lib().zt_crc_rows(
-            rows.data_ptr(), nrows, out.data_ptr(),
-            mats.ctypes.data_as(ctypes.c_void_p),
+            rows.data_ptr(), nrows, tail.data_ptr() if ntail else None,
+            ntail, out.data_ptr(), _tables_on(rows.device).data_ptr(),
             torch.cuda.current_stream(rows.device).cuda_stream,
             rows.device.index or 0)
         _raise_on(rc, "crc_rows")
@@ -219,20 +273,74 @@ def crc_rows(rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def combine_rows(row_crcs: torch.Tensor, init_term: int) -> int:
-    """crc32 from per-row raw CRCs (the log-tree of zippy_tpu's
-    `_crc_combine_rows`, then the init term and the final xor). An odd
-    level gets a zero row in front: leading zeros are free in raw space,
-    so the row count need not be a power of two."""
+# ---------------------------------------------------------------------------
+# K3: the crc32 row fold
+# ---------------------------------------------------------------------------
+
+COMBINE_THREADS = 1024   # K3's threads per block
+COMBINE_MAX_LG = 7       # K3 runs at most 2^7 blocks
+
+
+def _combine_lg(nfull: int) -> int:
+    """log2 of K3's blocks: enough threads for one full row each, at most
+    2^7 blocks (csrc/checksums.cu, zt_crc_combine)."""
+    lg = 0
+    while lg < COMBINE_MAX_LG and (COMBINE_THREADS << lg) < nfull:
+        lg += 1
+    return lg
+
+
+def crc_combine_plain(row_crcs: torch.Tensor,
+                      last_bytes: int = CRC_ROW_BYTES) -> torch.Tensor:
+    """Plain version of K3, step for step: each of the L = 1024 * 2^lg
+    threads folds the full rows g, g + L, ... (zero rows in front) by
+    Horner's rule and shifts its sum over the rows behind it; the XOR of
+    the sums is shifted over the last row's `last_bytes` and XORed with
+    that row's CRC. (1,) int32 bit pattern."""
+    _, _, lv = _tables_i64(row_crcs.device)
     c = row_crcs.to(torch.int64) & 0xFFFFFFFF
-    levels = max(1, (c.shape[0] - 1).bit_length())
-    mats = torch.from_numpy(
-        checksums._tree_matrices(max(28, 7 + levels)).astype(np.int64)
-    ).to(c.device)
-    k = 7  # a row is 2^7 words
-    while c.shape[0] > 1:
-        if c.shape[0] % 2:
-            c = torch.cat([c.new_zeros(1), c])
-        c = _gf2_apply(mats[k], c[0::2]) ^ c[1::2]
-        k += 1
-    return int(c[0]) ^ init_term ^ 0xFFFFFFFF
+    nfull = c.shape[0] - 1
+    lg = _combine_lg(nfull)
+    lanes = COMBINE_THREADS << lg
+    steps = -(-nfull // lanes)
+    lattice = torch.cat([c.new_zeros(steps * lanes - nfull),
+                         c[:nfull]]).view(steps, lanes)
+    acc = c.new_zeros(lanes)
+    for j in range(steps):
+        acc = _apply_tables(lv[19 + lg], acc) ^ lattice[j]
+    behind = lanes - 1 - torch.arange(lanes, device=c.device)
+    for b in range(10 + lg):
+        acc = torch.where((behind >> b) & 1 == 1,
+                          _apply_tables(lv[9 + b], acc), acc)
+    f = _xor_reduce(acc)
+    for b in range(10):
+        if (last_bytes >> b) & 1:
+            f = _apply_tables(lv[b], f)
+    return _as_int32((f ^ c[nfull]).view(1))
+
+
+def crc_combine(row_crcs: torch.Tensor,
+                last_bytes: int = CRC_ROW_BYTES) -> torch.Tensor:
+    """Raw CRC of the whole from the raw CRCs of its rows: every row is 512
+    bytes except the last, which has `last_bytes` (1..512). (n,) int32 ->
+    (1,) int32 bit pattern. K3 on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if (row_crcs.dtype != torch.int32 or row_crcs.dim() != 1
+            or not row_crcs.numel() or not row_crcs.is_contiguous()):
+        raise ZippyError("expected a non-empty contiguous 1-D int32 tensor")
+    if not 1 <= last_bytes <= CRC_ROW_BYTES:
+        raise ZippyError(f"last_bytes {last_bytes} is not in 1..512")
+    if row_crcs.device.type == "cpu":
+        return crc_combine_plain(row_crcs, last_bytes)
+    if row_crcs.device.type != "cuda":
+        raise ZippyError(f"unsupported device {row_crcs.device}")
+    out = torch.zeros(1, dtype=torch.int32, device=row_crcs.device)
+    tables = _tables_on(row_crcs.device)
+    rc = _lib().zt_crc_combine(
+        row_crcs.data_ptr(), row_crcs.numel(), last_bytes,
+        tables.data_ptr() + 4 * SHIFT_OFFSET, out.data_ptr(),
+        torch.cuda.current_stream(row_crcs.device).cuda_stream,
+        row_crcs.device.index or 0)
+    _raise_on(rc, "crc_combine")
+    LAUNCHES["crc_combine"] += 1
+    return out

@@ -8,9 +8,10 @@ CUDA kernels of ops/checksum_kernels.py:
   sum (1024 - i) d_i) mod 65521 (kernel K1); the chunks combine
   associatively in a few torch ops.
 * crc32 — CRC is GF(2)-linear: the register after message M with init I is
-  shift8^n(I) XOR raw(M). Kernel K2 gives the raw CRC of every 512-byte row;
-  the rows fold in a log tree of constant shift matrices. Leading zero bytes
-  are free in raw space, so the input is padded at the FRONT.
+  shift8^n(I) XOR raw(M). Kernel K2 gives the raw CRC of every 512-byte row
+  (the last, shorter row padded at its FRONT: leading zero bytes are free in
+  raw space), and kernel K3 folds the rows into the raw CRC of the whole.
+  Every GF(2) map on the card is 4 byte tables (`_byte_tables`).
 
 A CUDA tensor stays on the card: only the 4-byte result comes back.
 """
@@ -112,42 +113,62 @@ def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
     return ((s2 << 16) | s1) & 0xFFFFFFFF
 
 
+def _apply_cols(cols: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Apply a GF(2) matrix (32 uint32 columns) to every uint32 of v."""
+    v = np.asarray(v, dtype=np.uint32)
+    out = np.zeros_like(v)
+    for j in range(32):
+        out ^= np.where((v >> np.uint32(j)) & np.uint32(1), cols[j],
+                        np.uint32(0)).astype(np.uint32)
+    return out
+
+
+def _byte_tables(cols: np.ndarray) -> np.ndarray:
+    """(4, 256) uint32 byte tables of a GF(2) map M: T[j][b] = M (b << 8j),
+    so M v = T[0][v & 255] ^ T[1][(v >> 8) & 255] ^ ... (4 lookups)."""
+    b = np.arange(256, dtype=np.uint32)
+    return np.stack([_apply_cols(cols, b << np.uint32(8 * j))
+                     for j in range(4)])
+
+
+def _shift_cols(nbytes: int) -> np.ndarray:
+    """shift8^nbytes as 32 uint32 columns (the identity for 0)."""
+    m = np.array([1 << j for j in range(32)], dtype=np.uint32)
+    k = 0
+    while nbytes:
+        if nbytes & 1:
+            m = _apply_cols(np.frombuffer(_shift_matrix_pow(k), np.uint32), m)
+        nbytes >>= 1
+        k += 1
+    return m
+
+
 @functools.cache
-def _crc_word_tables() -> np.ndarray:
-    """Tk[b] = raw CRC of byte b followed by k zero bytes, k = 0..3."""
-    t0 = _crc_byte_table()
+def crc_slice_tables() -> np.ndarray:
+    """(16, 256) uint32: D[k][b] = raw CRC of byte b followed by k zero
+    bytes (slicing-by-16; D[:4] are zippy_tpu's `_crc_word_tables`)."""
     shift8 = np.frombuffer(_shift8_matrix(), dtype=np.uint32)
-    tabs = [t0]
-    for _ in range(3):
-        prev = tabs[-1]
-        tabs.append(np.array([gf2_matvec(shift8, int(v)) for v in prev],
-                             dtype=np.uint32))
-    return np.stack(tabs)  # (4, 256)
+    tabs = [_crc_byte_table()]
+    for _ in range(15):
+        tabs.append(_apply_cols(shift8, tabs[-1]))
+    return np.stack(tabs)
 
 
 @functools.cache
-def _tree_matrices(max_levels: int = 28) -> np.ndarray:
-    """Level-k pair combine uses shift by 4*2^k bytes (word-level tree)."""
-    mats = []
-    m = np.frombuffer(_shift_matrix_pow(1), dtype=np.uint32)  # 2 bytes
-    m = gf2_matmul(m, m)  # 4 bytes
-    for _ in range(max_levels):
-        mats.append(m)
-        m = gf2_matmul(m, m)
-    return np.stack(mats)  # (levels, 32)
+def crc_lane_tables() -> np.ndarray:
+    """(32, 4, 256) uint32: lane l's byte tables of the shift over
+    16 (31 - l) bytes, which places the lane's 16 bytes in a 512-byte row."""
+    return np.stack([_byte_tables(_shift_cols(16 * (31 - lane)))
+                     for lane in range(32)])
 
 
 @functools.cache
-def _word_bit_columns() -> np.ndarray:
-    """C[b] = raw CRC of a 4-byte word with only bit b set (b indexes the
-    word's little-endian uint32 value). The per-word raw CRC is GF(2)-
-    LINEAR in the word's bits: raw(w) = XOR over set bits of C[b]."""
-    tabs = _crc_word_tables()
-    cols = np.zeros(32, dtype=np.uint32)
-    for b in range(32):
-        byte_i = b // 8          # which byte of the LE word
-        cols[b] = tabs[3 - byte_i][1 << (b % 8)]
-    return cols
+def crc_shift_tables(levels: int) -> np.ndarray:
+    """(levels, 4, 256) uint32: level b's byte tables of the shift over 2^b
+    bytes."""
+    return np.stack([_byte_tables(np.frombuffer(_shift_matrix_pow(b),
+                                                dtype=np.uint32))
+                     for b in range(levels)])
 
 
 # ---------------------------------------------------------------------------
@@ -173,16 +194,22 @@ def adler32_device(data, device=None) -> int:
 
 def crc32_device(data, device=None) -> int:
     """CRC-32 on the card (bytes or a 1-D uint8 tensor). A tensor runs on
-    its own device; bytes go to `device` (None: CUDA)."""
+    its own device; bytes go to `device` (None: CUDA).
+
+    The payload is read in place when it is contiguous and 16-byte aligned,
+    else from one aligned copy: K2 takes its full rows and its tail (one
+    front-padded row), K3 folds them, and 4 bytes come back."""
     from . import checksum_kernels as ck
 
     x = as_u8_tensor(data, device)
     n = x.shape[0]
     if n == 0:
         return 0
-    nrows = -(-n // ck.CRC_ROW_BYTES)
-    total = nrows * ck.CRC_ROW_BYTES
-    padded = torch.zeros(total, dtype=torch.uint8, device=x.device)
-    padded[total - n:] = x
-    rows = ck.crc_rows(padded.view(nrows, ck.CRC_ROW_BYTES))
-    return ck.combine_rows(rows, crc_shift_register(0xFFFFFFFF, n))
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    row = ck.CRC_ROW_BYTES
+    full = n // row
+    rows, tail = x[:full * row].view(full, row), x[full * row:]
+    raw = int(ck.crc_combine(ck.crc_rows(rows, tail), n - full * row or row))
+    raw &= 0xFFFFFFFF
+    return raw ^ crc_shift_register(0xFFFFFFFF, n) ^ 0xFFFFFFFF
