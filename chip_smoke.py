@@ -1,4 +1,5 @@
-"""Drive zippy_tpu_torch's compress path on one CUDA card and check it.
+"""Drive zippy_tpu_torch's compress and decode paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -6,7 +7,9 @@ Phases, each printing one JSON line (any failure ends the run with a
 non-zero exit and no result line):
 
 1. the card (nvidia-smi's name and power limit, torch's device name);
-2. the kernel build (csrc/checksums.cu with nvcc), with its seconds;
+2. the build of every native library, with its seconds: csrc/checksums.cu
+   and csrc/inflate.cu with nvcc (started together) and the decode's host
+   scan csrc/inflate_scan.cpp with c++;
 3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
    with a tail row) and K3 (crc_combine) against their plain PyTorch
    versions on the card, and adler32/crc32 against zlib, at 0 B to
@@ -16,18 +19,31 @@ non-zero exit and no result line):
    then the `crc32_call` line: host ms per synchronized crc32_device call
    at 64 MiB, 256 MiB + 7 and on an unaligned 64 MiB view, and the device
    operations of one call (at most 5);
-4. the main path: compress() of a seeded 64 MiB mixed text/binary payload
-   to gzip at level 6, from host bytes and from a CUDA tensor, and of
-   8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
+4. the compress path: compress() of a seeded 64 MiB mixed text/binary
+   payload to gzip at level 6, from host bytes and from a CUDA tensor, and
+   of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
    gzip/zlib; the kernels' launch counts are zeroed before and read after;
    then one instrumented encode gives seconds per stage, and torch.profiler
    traces of the encode and of one Kraft build give device operations and
    the card's idle share;
-5. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9.
+5. the decode path: uncompress() of phase 4's 64 MiB gzip and 8 MiB zlib
+   streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
+   (level 0) stream and of a two-member gzip, each equal to its input, with
+   the launch counts zeroed before and read after (K1-K4 all launched);
+   per stream the scan's seconds, the decode given its index (twice) and
+   CPython's decompress; K4 against its plain version on every tile of the
+   64 MiB stream; a decode given its index with no host sync from the first
+   tile to the last (torch.cuda.set_sync_debug_mode("error")); a flipped
+   crc raising ZippyError; one decode's synchronized stage seconds; and a
+   torch.profiler trace of a decode given its index;
+6. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9,
+   and the same decode.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
-wrapper's ("call_ms") are per call of the Python function.
+wrapper's ("call_ms") are per call of the Python function. K4's numbers
+are means over the tiles of the 64 MiB stream. A kernel's "launches" in the
+kernel line are those of the compress and decode runs together.
 
 Then the kernel table (one JSON line), the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -140,8 +156,9 @@ def kernel_ms(fn, reps: int) -> float:
 
 def device_trace(fn) -> dict:
     """fn() under torch.profiler's CUDA tracing: wall seconds, the device
-    operations it ran (kernels, copies, fills), their summed seconds, and
-    the share of the wall time in which the card ran none. The device
+    operations it ran (kernels, copies, fills), their summed seconds, the
+    share of the wall time in which the card ran none, and the six
+    operation names with the most device ms (name, ms, count). The device
     numbers are null where the profiler saw no device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -157,11 +174,18 @@ def device_trace(fn) -> dict:
         return {"wall_s": wall, "device_ops": None, "kernels": None,
                 "device_busy_s": None, "device_idle_share": None}
     busy = sum(e.time_range.elapsed_us() for e in ops) / 1e6
+    by_name: dict = {}
+    for e in ops:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_s": wall, "device_ops": len(ops),
             "kernels": sum(1 for e in ops
                            if not e.name.startswith(("Memcpy", "Memset"))),
             "device_busy_s": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall)}
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "top_device_ms": [[name[:60], ms, count]
+                              for name, (ms, count) in top]}
 
 
 def adler_work(nchunks: int):
@@ -191,6 +215,31 @@ def bound(work) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The 32-bit operations (loads and stores included) that decoding one token
+# needs, whatever the formulation: not K4's own instruction count. A
+# literal (or end-of-block): the 64-bit window (word index, shift, two word
+# loads, one funnel shift) 5, its litlen code by one table lookup (the
+# peek, the load) 2, the entry's code length and literal test 2, the packed
+# value, its address and store 3, the next bit position 1. A match adds
+# its length's base and extra count 2 and extra bits (shift, mask, add) 3,
+# the distance code's window shift 1, lookup 2, fields (length, base, extra
+# count) 3 and extra bits 3, two more for the packed value and two more
+# bit-position adds.
+LITERAL_OPS = 5 + 2 + 2 + 3 + 1
+MATCH_OPS = LITERAL_OPS + 2 + 3 + 1 + 2 + 3 + 3 + 2 + 2
+
+
+def extract_work(words: int, nblk: int, nseg: int, lanes: int, k: int,
+                 literals: int, matches: int):
+    """(bytes, operations) K4 must move and do on one tile: the tile's
+    stream words, its blocks' 382-word tables and its segments' 3-word
+    records read once, the packed (k, lanes) output written once; and
+    LITERAL_OPS per literal or end-of-block token, MATCH_OPS per match
+    token, as this tile's data has them."""
+    return (4 * words + 4 * 382 * nblk + 12 * nseg + 4 * k * lanes,
+            LITERAL_OPS * literals + MATCH_OPS * matches)
+
+
 def crc32_call(tc, x: torch.Tensor, reps: int) -> dict:
     """Host-clock ms per crc32_device(x) call, x a CUDA tensor (each call
     ends in a copy of the result to the host, so it is synchronized), and
@@ -209,6 +258,176 @@ def crc32_call(tc, x: torch.Tensor, reps: int) -> dict:
             else trace["device_busy_s"] * 1e3}
 
 
+def _member_indexes(idev, gzip_format, blob: bytes, fmt: str) -> list:
+    """[(byte offset, decode index)] of each member of a gzip stream, or of
+    the one zlib stream."""
+    if fmt == "zlib":
+        return [(0, idev.build_decode_index(blob, 16))]
+    return gzip_format.member_indexes(blob)
+
+
+def _decode_given(idev, gzip_format, blob: bytes, fmt: str,
+                  indexes: list) -> bytes:
+    if fmt == "zlib":
+        return idev.uncompress_zlib_device(blob, indexes[0][1])
+    return gzip_format.uncompress_gzip_device_all(blob, indexes=indexes)
+
+
+def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
+    """Phase 5, the decode path. Returns (the run's kernel launches, K4's
+    row for the kernel line)."""
+    from zippy_tpu_torch import api, common, gzip_format
+    from zippy_tpu_torch.ops import checksums as tc
+    from zippy_tpu_torch.ops import inflate_device as idev
+    from zippy_tpu_torch.ops import inflate_kernels as ik
+    from zippy_tpu_torch.ops import kernel_build as kb
+
+    small = data[:ZLIB_BYTES]
+    half = ZLIB_BYTES // 2
+    two = gzip.compress(small[:half], 6) + gzip.compress(small[half:], 6)
+    streams = (
+        ("gzip L6 64 MiB (compress phase)", gz6, data, "gzip"),
+        ("zlib L1 8 MiB (compress phase)", zl1, small, "zlib"),
+        ("zlib L9 8 MiB (compress phase)", zl9, small, "zlib"),
+        ("zlib L6 64 MiB (CPython)", zlib.compress(data, 6), data, "zlib"),
+        ("zlib L0 8 MiB stored (CPython)", zlib.compress(small, 0), small,
+         "zlib"),
+        ("gzip two members 8 MiB (CPython)", two, small, "gzip"))
+    torch.cuda.synchronize()
+    for key in kb.LAUNCHES:
+        kb.LAUNCHES[key] = 0
+    runs = []
+    for label, blob, want, fmt in streams:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = api.uncompress(blob)
+        sec = time.perf_counter() - t0
+        runs.append({"phase": "decode", "run": label, "bytes": len(want),
+                     "compressed_bytes": len(blob), "seconds": sec,
+                     "MB_per_s": len(want) / sec / 1e6,
+                     "peak_device_GiB": torch.cuda.max_memory_allocated()
+                     / 2**30, "equal_input": out == want})
+        check(out == want, label)
+    launches = dict(kb.LAUNCHES)
+    emit({"phase": "decode_launches", **launches})
+    check(all(v > 0 for v in launches.values()), launches)
+
+    # Outside the counted run: the scan alone, the decode given its index
+    # (twice) and CPython's decompress, per stream.
+    all_indexes = {}
+    for run, (label, blob, want, fmt) in zip(runs, streams):
+        t0 = time.perf_counter()
+        indexes = _member_indexes(idev, gzip_format, blob, fmt)
+        run["scan_s"] = time.perf_counter() - t0
+        run["tiles"] = sum(len(idev._plan_tiles(
+            index, idev._pick_cfg(index["total_out"])))
+            for _, index in indexes)
+        given = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = _decode_given(idev, gzip_format, blob, fmt, indexes)
+            given.append(time.perf_counter() - t0)
+            check(out == want, label + " given its index")
+        run["decode_given_index_s"] = given
+        t0 = time.perf_counter()
+        back = gzip.decompress(blob) if fmt == "gzip" else zlib.decompress(
+            blob)
+        run["cpython_decompress_s"] = time.perf_counter() - t0
+        check(back == want, label + " CPython")
+        all_indexes[label] = indexes
+        emit(run)
+
+    # The 64 MiB gzip stream given its index: no host sync from the first
+    # tile to the last, then the checksums and the bytes.
+    pos, index = all_indexes[streams[0][0]][0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        buf, keep = idev._run_tiles(gz6, index, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    tpos = (index["end_bit"] + 7) // 8
+    no_sync = {"phase": "decode_no_sync", "run": streams[0][0],
+               "adler_equal_scan": tc.adler32_device(buf) == index["adler"],
+               "crc_equal_trailer": tc.crc32_device(buf)
+               == int.from_bytes(gz6[tpos:tpos + 4], "little"),
+               "equal_input": buf.cpu().numpy().tobytes() == data}
+    del buf, keep
+    emit(no_sync)
+    check(all(v for k, v in no_sync.items() if k not in ("phase", "run")),
+          no_sync)
+
+    bad = bytearray(two)
+    bad[-5] ^= 0xFF
+    try:
+        api.uncompress(bytes(bad))
+        flipped = False
+    except common.ZippyError:
+        flipped = True
+    emit({"phase": "decode_flipped_crc", "raises_ZippyError": flipped})
+    check(flipped, "a flipped crc decoded")
+
+    stages: dict = {}
+    t0 = time.perf_counter()
+    out = idev.inflate_device(gz6, start_bit=gzip_format.parse_header(gz6)[
+        "data_offset"] * 8, stages=stages)
+    emit({"phase": "decode_stages", "run": streams[0][0] + ", raw stream",
+          "seconds": time.perf_counter() - t0,
+          **{k + "_s": v for k, v in stages.items()}})
+    check(out == data, "staged decode")
+    emit({"phase": "trace", "run": "decode given its index, "
+          + streams[0][0], **device_trace(
+              lambda: idev.inflate_device_array(gz6, index))})
+
+    # K4 on every tile of the 64 MiB stream against its plain version.
+    cfg = idev._pick_cfg(index["total_out"])
+    tiles = idev._plan_tiles(index, cfg)
+    k = index["every"]
+    per_tile = []
+    for i, tile in enumerate(tiles):
+        nrounds = idev._nrounds_for_depth(tile.depth, cfg)
+        pack = torch.from_numpy(idev._tile_pack(
+            gz6, index, tile, cfg, nrounds).view(np.int32)).to(dev)
+        words, bit, blk, ntok, _, lens8 = idev._unpack(pack, cfg)
+        args = (words, bit, blk, ntok, idev._block_tables(lens8), k)
+        got, plain = ik.inflate_extract(*args), ik._extract_plain(*args)
+        end_w = (tiles[i + 1].w0 if i + 1 < len(tiles)
+                 else -(-index["end_bit"] // 32))
+        nseg = tile.s1 - tile.s0
+        tokens = int(index["segments"][tile.s0:tile.s1, 3].sum())
+        matches = int(((plain & 0xFFFF) >= 256).sum())
+        work = extract_work(end_w - tile.w0 + 1, tile.b1 - tile.b0, nseg,
+                            cfg.nseg, k, tokens - matches, matches)
+        per_tile.append({
+            "equal_plain": bool(torch.equal(got, plain)),
+            "max_abs_err": int((got.long() - plain.long()).abs().max()),
+            "ms": kernel_ms(lambda: ik.inflate_extract(*args), 20),
+            "plain_ms": call_ms(lambda: ik._extract_plain(*args), 1),
+            "work": work, "bound": bound(work), "segments": nseg,
+            "tokens": tokens, "matches": matches})
+        del pack, got, plain, args
+    emit({"phase": "inflate_extract_tiles", "tiles": [
+        {key: t[key] for key in ("equal_plain", "ms", "plain_ms",
+                                 "segments", "tokens", "matches")}
+        | {"bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
+        for t in per_tile]})
+    check(all(t["equal_plain"] for t in per_tile), "K4 differs from plain")
+    n = len(per_tile)
+    bound_ms, bound_by = bound([sum(t["work"][i] for t in per_tile) / n
+                                for i in (0, 1)])
+    row = {"name": "inflate_extract", "route": "cuda",
+           "source": "zippy_tpu_torch/csrc/inflate.cu",
+           "replaces": "zippy_tpu/ops/inflate_device.py:268",
+           "launches": launches["inflate_extract"],
+           "max_abs_err": max(t["max_abs_err"] for t in per_tile),
+           "ms": sum(t["ms"] for t in per_tile) / n,
+           "plain_ms": sum(t["plain_ms"] for t in per_tile) / n,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -217,6 +436,7 @@ def main() -> int:
     from zippy_tpu_torch.ops import checksum_kernels as ck
     from zippy_tpu_torch.ops import checksums as tc
     from zippy_tpu_torch.ops import deflate_device as td
+    from zippy_tpu_torch.ops import kernel_build as kb
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -226,11 +446,11 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # Phase 2: the kernel build.
+    # Phase 2: every native library, the nvcc builds started together.
     t0 = time.perf_counter()
-    lib = ck.build()
+    libs = kb.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib.name})
+          "libraries": sorted(lib.name for lib in libs.values())})
 
     # Phase 3: K1, K2 and K3 against their plain versions and zlib.
     gen = torch.Generator(device=dev)
@@ -317,9 +537,9 @@ def main() -> int:
     small = data[:ZLIB_BYTES]
     x_dev = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
     torch.cuda.synchronize()
-    for key in ck.LAUNCHES:
-        ck.LAUNCHES[key] = 0
-    runs = []
+    for key in kb.LAUNCHES:
+        kb.LAUNCHES[key] = 0
+    runs, blobs = [], {}
     for label, src, level, fmt, want in (
             ("gzip L6 host bytes", data, 6, common.dfGzip, data),
             ("gzip L6 cuda tensor", x_dev, 6, common.dfGzip, data),
@@ -339,7 +559,9 @@ def main() -> int:
                      "roundtrip": back == want})
         emit(runs[-1])
         check(back == want, label)
-    launches = dict(ck.LAUNCHES)
+        blobs[label] = blob
+    compress_kernels = ("adler_chunks", "crc_rows", "crc_combine")
+    launches = {key: kb.LAUNCHES[key] for key in compress_kernels}
     emit({"phase": "main_path_launches", **launches})
     check(all(v > 0 for v in launches.values()), launches)
 
@@ -402,8 +624,18 @@ def main() -> int:
     emit({"phase": "kernel_calls", **calls})
     check(all(k["max_abs_err"] == 0 for k in kernels), kernels)
     del x_dev, chunks, rows, row_crcs
+    torch.cuda.empty_cache()
 
-    # Phase 5: CPU and CUDA bytes.
+    # Phase 5: the decode path.
+    decode_launches, k4 = decode_phase(
+        dev, data, blobs["gzip L6 host bytes"], blobs["zlib L1 host bytes"],
+        blobs["zlib L9 host bytes"])
+    for row in kernels:
+        row["launches"] += decode_launches[row["name"]]
+    kernels.append(k4)
+    check(k4["max_abs_err"] == 0, k4)
+
+    # Phase 6: CPU and CUDA bytes.
     piece = data[:256 << 10]
     same = {}
     for level in (1, 6, 9):
@@ -411,6 +643,9 @@ def main() -> int:
         b = td.deflate(piece, level)
         same[str(level)] = a == b
         check(zlib.decompress(b, wbits=-15) == piece, f"raw L{level}")
+        same[f"uncompress {level}"] = (
+            api.uncompress(b, common.dfDeflate, device="cpu")
+            == api.uncompress(b, common.dfDeflate) == piece)
     emit({"phase": "cpu_vs_cuda", "bytes": len(piece), "identical": same})
     check(all(same.values()), same)
 

@@ -1,6 +1,7 @@
 """Helpers shared by the tests that hold zippy_tpu_torch against zippy_tpu."""
 
 import types
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +11,22 @@ import torch
 
 from zippy_tpu.ops import deflate_device as jd
 from zippy_tpu_torch.ops import deflate_device as td
+
+
+def raw_deflate(data: bytes, level: int = 6, *, mem_level: int = 8,
+                strategy: int = zlib.Z_DEFAULT_STRATEGY) -> bytes:
+    """A raw DEFLATE stream from CPython's zlib (a small mem_level makes
+    many blocks; zlib.Z_FIXED fixed-Huffman ones)."""
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, mem_level, strategy)
+    return c.compress(data) + c.flush()
+
+
+def random_bytes(n: int, seed: int) -> bytes:
+    return np.random.default_rng(seed).integers(0, 256, n,
+                                                dtype=np.uint8).tobytes()
+
+
+DEEP_CHAINS = b"a" * 100_000 + b"bc" * 5_000 + b"a" * 50_000
 
 
 def mixed_payload(n: int, seed: int = 3) -> bytes:
@@ -54,3 +71,15 @@ def shared_depth(monkeypatch):
     yield
     monkeypatch.undo()
     jax.clear_caches()
+
+
+@pytest.fixture
+def one_thread():
+    """Torch ops on one thread for the test. The suite runs in several
+    worker processes on the host's cores, and torch's per-op thread pools
+    spinning against each other made the decode tests several times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

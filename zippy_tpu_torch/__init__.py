@@ -1,11 +1,12 @@
 """zippy_tpu_torch: the PyTorch/CUDA port of zippy_tpu.
 
-The device compress path (gzip, zlib and raw DEFLATE) on an NVIDIA H100,
-with the checksum kernels hand-written in CUDA (csrc/checksums.cu). Entry
-points run on the CUDA card unless the caller passes device="cpu".
+The device compress and decode paths (gzip, zlib and raw DEFLATE) on an
+NVIDIA H100, with the checksum kernels and the decode's token extraction
+hand-written in CUDA (csrc/checksums.cu, csrc/inflate.cu). Entry points run
+on the CUDA card unless the caller passes device="cpu".
 """
 
-from .api import compress
+from .api import compress, uncompress
 from .common import (
     BestCompression,
     BestSpeed,
@@ -21,7 +22,7 @@ from .common import (
 )
 
 __all__ = [
-    "compress", "CompressedDataFormat", "ZippyError",
+    "compress", "uncompress", "CompressedDataFormat", "ZippyError",
     "dfDetect", "dfZlib", "dfGzip", "dfDeflate",
     "NoCompression", "BestSpeed", "BestCompression", "DefaultCompression",
     "HuffmanOnly",

@@ -2,7 +2,8 @@
 
 "auto" and "device" both run the device pipeline. "native" (the reference's
 host C++ codec) is not part of the port and raises ZippyError. A tensor runs
-on its own device; host bytes go to the CUDA card.
+on its own device; host bytes go to the CUDA card. The decode's host scan is
+the port's own (ops/inflate_scan.py).
 """
 
 from __future__ import annotations
@@ -32,6 +33,19 @@ def deflate(data, level: int, engine: str = "auto") -> bytes:
     if isinstance(data, torch.Tensor):
         return deflate_device.deflate_array(data, level)
     return deflate_device.deflate(data, level)
+
+
+def inflate(data: bytes, start_bit: int = 0, engine: str = "auto",
+            device=None) -> tuple[bytes, int]:
+    """Raw DEFLATE decode on the device pipeline (ops/inflate_device: the
+    host scan, then the tiled decode on `device`, None meaning the CUDA
+    card). Returns (payload, end_bit)."""
+    from .ops import inflate_device
+
+    check_engine(engine)
+    index = inflate_device.build_decode_index(data, start_bit)
+    return (inflate_device.inflate_device(data, index, device=device),
+            int(index["end_bit"]))
 
 
 def crc32(data, engine: str = "auto") -> int:

@@ -14,77 +14,36 @@ The crc kernels read one table buffer (`_crc_tables`), built on the host
 and kept on each device; the plain versions gather from the same tables.
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the plain version. The kernels build with nvcc at first CUDA
-use into build/kernels/ and load through ctypes; importing this module
-builds nothing.
+use into build/kernels/ (ops/kernel_build.py) and load through ctypes;
+importing this module builds nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
 from ..common import ZippyError
-from . import checksums
+from . import checksums, kernel_build
+from .kernel_build import LAUNCHES
 
 CHUNK = 1024               # adler bytes per chunk (W < 255 * 1024 * 1025 / 2 < 2^31)
 CRC_ROW_BYTES = 512        # crc bytes per row: one warp of 16-byte vectors
 MOD = checksums.ADLER_MOD
 
-# Kernel launches per wrapper: one per launch, counted nowhere else.
-LAUNCHES = {"adler_chunks": 0, "crc_rows": 0, "crc_combine": 0}
-
-_SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "checksums.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-
 
 # ---------------------------------------------------------------------------
-# Build and binding
+# Binding
 # ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise ZippyError("nvcc not found: the CUDA kernels build on first use")
-
-
-def build() -> pathlib.Path:
-    """Compile csrc/checksums.cu for sm_90a into build/kernels/ (skipped when
-    a library built from the same source is there). Returns its path; the
-    compiler's output, resource usage included, is beside it as .log."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    lib = BUILD_DIR / f"libzt_checksums-{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise ZippyError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     try:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(kernel_build.build("checksums.cu")))
     except OSError as e:
         raise ZippyError(f"cannot load the checksum kernels: {e}") from e
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -105,11 +64,6 @@ def _check_input(x: torch.Tensor, width: int, align: int) -> None:
                          "aligned")
     if x.device.type not in ("cuda", "cpu"):
         raise ZippyError(f"unsupported device {x.device}")
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise ZippyError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +94,7 @@ def adler_chunks(chunks: torch.Tensor):
             chunks.data_ptr(), nchunks, s.data_ptr(), w.data_ptr(),
             torch.cuda.current_stream(chunks.device).cuda_stream,
             chunks.device.index or 0)
-        _raise_on(rc, "adler_chunks")
+        kernel_build.check_launch(rc, "adler_chunks")
         LAUNCHES["adler_chunks"] += 1
     return s, w
 
@@ -268,7 +222,7 @@ def crc_rows(rows: torch.Tensor, tail=None) -> torch.Tensor:
             ntail, out.data_ptr(), _tables_on(rows.device).data_ptr(),
             torch.cuda.current_stream(rows.device).cuda_stream,
             rows.device.index or 0)
-        _raise_on(rc, "crc_rows")
+        kernel_build.check_launch(rc, "crc_rows")
         LAUNCHES["crc_rows"] += 1
     return out
 
@@ -341,6 +295,6 @@ def crc_combine(row_crcs: torch.Tensor,
         tables.data_ptr() + 4 * SHIFT_OFFSET, out.data_ptr(),
         torch.cuda.current_stream(row_crcs.device).cuda_stream,
         row_crcs.device.index or 0)
-    _raise_on(rc, "crc_combine")
+    kernel_build.check_launch(rc, "crc_combine")
     LAUNCHES["crc_combine"] += 1
     return out

@@ -1,0 +1,675 @@
+"""DEFLATE decoder on the card: the port of zippy_tpu/ops/inflate_device.py.
+
+The index-based tiled decode of the reference, on a CUDA card:
+
+1. The host scan (`build_decode_index`, csrc/inflate_scan.cpp) records a
+   checkpoint every 32 tokens, each Huffman block's code lengths, the
+   stored spans, and the adler32 of the serial decode.
+2. The host planner (`_plan_tiles`) cuts the checkpoints into tiles of
+   fixed capacity (output bytes, segments, blocks, stored spans, stream
+   words, match bytes), and `_tile_pack` packs each tile into one buffer,
+   uploaded from pinned memory without a host sync. The two capacity sets
+   are the reference's, so every tile can be held against its `_decode_tile`.
+3. On the card, per tile (`_decode_tile`): the per-block comparison tables
+   (`_cmp_tables`, torch ops), token extraction (kernel K4
+   `inflate_extract`, ops/inflate_kernels.py), and the LZ resolution
+   (`_resolve`, torch ops: one token scatter, a forward fill (`_ffill`),
+   stored-span copies, match-byte compaction and pointer doubling). Tiles
+   chain through a 32 KiB halo of decoded bytes, device to device.
+4. Every tile's bytes land in one output buffer, whose adler32 (kernel K1)
+   must equal the scan's, and for gzip whose crc32 (K2 + K3) must equal the
+   trailer: a corrupt stream that passes the scan cannot return silent
+   garbage. The reference folds the checksums tile by tile
+   (`_combine_checksums`, `_crc_shift_device`); one pass over the whole
+   output gives the same values with fewer launches, so those two are not
+   ported.
+
+Not ported: the `mesh` argument (multi-GPU comes with the parallel layers),
+`warmup` (PyTorch compiles nothing), and `inflate_device_array_acc` (only
+the indexed serving format uses it). Every gather and scatter of the
+reference that XLA would clamp or drop is clamped, or sent to one spare
+trailing slot, here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import gzip_format
+from ..common import ZippyError, resolve_device
+from . import checksums, inflate_kernels
+from .inflate_scan import inflate_scan
+
+# Tokens per segment: the extraction runs this many dependent steps per lane.
+_EVERY = 32
+
+HALO = 32768  # DEFLATE window: matches never reach further back
+
+
+class TileConfig(NamedTuple):
+    """Fixed per-tile capacities."""
+
+    tile_out: int   # decoded bytes per tile
+    nseg: int       # segment lanes (each covers up to _EVERY tokens)
+    nblk: int       # Huffman table slots
+    nsto: int       # stored-span slots
+    nwords: int     # compressed uint32 words visible to the tile
+    ncmp: int       # compact match-byte slots (LZ resolve runs over these)
+
+
+def _mk_cfg(tile_out: int, nseg: int, nblk: int, nsto: int) -> TileConfig:
+    # Words: ~1.1x the output (DEFLATE rarely expands past ~1.03x; stored
+    # spans read their bytes from the words too) + header slack. Compact
+    # capacity tile_out/2: match-heavier tiles cut earlier on the scan's
+    # per-segment match-byte counts.
+    return TileConfig(tile_out, nseg, nblk, nsto,
+                      (tile_out + tile_out // 8 + (1 << 16)) // 4,
+                      tile_out // 2)
+
+
+# S covers streams up to 2 MiB; L is the streaming tile. The planner cuts on
+# whichever capacity fills first, so any stream fits.
+CFG_S = _mk_cfg(1 << 18, 4096, 8, 64)
+CFG_L = _mk_cfg(1 << 22, 65536, 64, 256)
+
+# ---------------------------------------------------------------------------
+# RFC 1951 constant tables
+# ---------------------------------------------------------------------------
+
+_LENGTH_BASE = np.array(
+    [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59,
+     67, 83, 99, 115, 131, 163, 195, 227, 258], dtype=np.int64)
+_LENGTH_EXTRA = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4,
+     5, 5, 5, 5, 0], dtype=np.int64)
+_DIST_BASE = np.array(
+    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385,
+     513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385,
+     24577], dtype=np.int64)
+_DIST_EXTRA = np.array(
+    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10,
+     10, 11, 11, 12, 12, 13, 13], dtype=np.int64)
+
+# Per-symbol packed litlen entries, without the code length (added from the
+# block's lengths): bit5 literal flag, bits8-15 literal byte, bits16-24
+# length base, bits25-27 length extra count.
+_LL_ENT = np.zeros(288, dtype=np.int64)
+_LL_ENT[:256] = (1 << 5) | (np.arange(256, dtype=np.int64) << 8)
+_LL_ENT[257:286] = (_LENGTH_BASE << 16) | (_LENGTH_EXTRA << 25)
+# Dist entries: bits5-8 extra count, bits16-30 base - 1.
+_D_ENT = (_DIST_EXTRA << 5) | ((_DIST_BASE - 1) << 16)
+
+_STO_MAX = 1 << 16  # a stored span's LEN field is 16-bit
+
+
+def _upload(arr: np.ndarray, device: torch.device, keep: list) -> torch.Tensor:
+    """arr on `device`: a CUDA upload goes from pinned memory without a host
+    sync; the pinned buffer is appended to `keep`, for the caller to hold
+    until it next synchronizes."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t.to(device)
+    t = t.pin_memory()
+    keep.append(t)
+    return t.to(device, non_blocking=True)
+
+
+@functools.cache
+def _entries(device: torch.device):
+    """(_LL_ENT, _D_ENT) as int64 tensors on `device`, uploaded once."""
+    return tuple(_upload(a, device, []) for a in (_LL_ENT, _D_ENT))
+
+
+@contextlib.contextmanager
+def _stage(stages, name: str, device: torch.device):
+    """With a `stages` dict, add this block's seconds under `name`, the card
+    synchronized before and after it; without one, do nothing."""
+    if stages is None:
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Decode tables
+# ---------------------------------------------------------------------------
+
+
+def _cmp_tables(lens: torch.Tensor, ent: torch.Tensor):
+    """Per-block comparison-decode tables from code lengths (nblk, S):
+    fc (nblk, 16) = first_code + count per length (the Moffat range
+    boundaries), off (nblk, 16) = rank_base - first_code, and E (nblk, S) =
+    packed entry (ent | len) of the symbol at each canonical rank. int32."""
+    nblk, S = lens.shape
+    dev = lens.device
+    lens = lens.to(torch.int64).clamp(0, 15)
+    oh = (lens[:, :, None] == torch.arange(16, device=dev)).to(torch.int64)
+    count = oh.sum(dim=1)                                  # (nblk, 16)
+    # first[b] = sum over 1 <= j < b of count[j] << (b - j): the canonical
+    # recurrence first[b] = (first[b-1] + count[b-1]) << 1 from first[1] = 0.
+    b = torch.arange(16, device=dev)
+    shift = b[None, :] - b[:, None]                        # [j, b] = b - j
+    weight = torch.where((shift > 0) & (b[:, None] >= 1),
+                         1 << shift.clamp(min=0), 0)
+    first = (count[:, :, None] * weight[None]).sum(dim=1)
+    fc = first + count
+    cnt_a = torch.cat([torch.zeros_like(count[:, :1]), count[:, 1:]], dim=1)
+    sym_base = torch.cumsum(cnt_a, dim=1) - cnt_a          # shorter codes
+    off = sym_base - first
+    # Canonical rank of each symbol: sym_base[len] + rank within its length.
+    rank_in = torch.cumsum(oh, dim=1) - oh
+    rank_sym = (sym_base.gather(1, lens)
+                + rank_in.gather(2, lens[:, :, None])[:, :, 0])
+    # Absent symbols (and any rank out of the row) go to one spare column.
+    pos = torch.where((lens > 0) & (rank_sym < S), rank_sym, S)
+    E = torch.zeros(nblk, S + 1, dtype=torch.int64, device=dev).scatter_(
+        1, pos, ent[None, :] | lens)[:, :S]
+    return fc.to(torch.int32), off.to(torch.int32), E.to(torch.int32)
+
+
+def _block_tables(lens8: torch.Tensor) -> torch.Tensor:
+    """K4's tables from the scan's code-length records (nblk, 318) uint8:
+    (nblk, 382) int32, the litlen code's fc, off, E, then the distance
+    code's."""
+    ll_ent, d_ent = _entries(lens8.device)
+    fc_l, off_l, e_l = _cmp_tables(lens8[:, :288], ll_ent)
+    fc_d, off_d, e_d = _cmp_tables(lens8[:, 288:318], d_ent)
+    return torch.cat([fc_l, off_l, e_l, fc_d, off_d, e_d], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# LZ resolution
+# ---------------------------------------------------------------------------
+
+
+def _ffill(flag: torch.Tensor, *arrays: torch.Tensor):
+    """Forward-fill: position i takes each array's value at the last p <= i
+    where flag is set (0 before the first). Returns (p or 0, filled...).
+    One scan: the running count of set positions numbers them; each set
+    position scatters itself to its number, and every position gathers the
+    position of its count. No fill distance bound (the reference's 9
+    shifted selects reach 511 positions). torch.cummax over the positions
+    computes the same, but measured 9.3 ms a call on a 4 MiB tile on the
+    H100."""
+    n = flag.shape[0]
+    rank = torch.cumsum(flag, dim=0) - 1
+    has = rank >= 0
+    pos = torch.arange(n, device=flag.device)
+    first = _scatter(n, torch.where(flag, rank, n), pos)
+    at = first[rank.clamp(min=0)]
+    return (torch.where(has, at, 0),
+            *(torch.where(has, a[at], 0) for a in arrays))
+
+
+def _scatter(size: int, index: torch.Tensor, values: torch.Tensor,
+             base=None) -> torch.Tensor:
+    """values written at `index` into a buffer of `size` (zeros, or a copy
+    of `base`); indices outside [0, size) go to one spare trailing slot,
+    which is cut off."""
+    index = torch.where((index >= 0) & (index < size), index, size)
+    buf = torch.zeros(size + 1, dtype=values.dtype, device=values.device)
+    if base is not None:
+        buf[:size] = base
+    return buf.scatter_(0, index, values)[:size]
+
+
+def _resolve(packed, seg_out, words, stored, halo, nrounds: int,
+             cfg: TileConfig) -> torch.Tensor:
+    """Output bytes from the extracted tokens and the stored spans.
+
+    Positions [0, HALO) are the carried window (literal fixpoints valued from
+    `halo`); the tile's output occupies [HALO, HALO + tile_out). `stored`
+    lists the tile's stored spans as host ints (source byte in the words,
+    output position, length). One token scatter places a packed (dist, lit)
+    payload at each token's first byte, a forward fill spreads it over the
+    span; literals finish there. Match bytes compact into cfg.ncmp slots,
+    take the closed-form overlap source start - dist + (o mod dist), and
+    resolve by `nrounds` pointer-doubling hops over the compact slots."""
+    out_pad = HALO + cfg.tile_out
+    C = cfg.ncmp
+    dev = packed.device
+    tok = packed.T.to(torch.int64)                         # (nseg, k)
+    out_len = tok >> 16
+    low = tok & 0xFFFF
+    is_mt = low >= 256
+    dists = torch.where(is_mt, low - 256, 0)
+    litbyte = torch.where(is_mt, 0, low)
+
+    # Token output starts: per-segment base from the index plus the prefix
+    # sum of the lane's token lengths.
+    starts = seg_out.to(torch.int64)[:, None] + (
+        torch.cumsum(out_len, dim=1) - out_len)
+    valid = out_len > 0
+    flat_starts = torch.where(valid, starts, out_pad).reshape(-1)
+    flat_dist = dists.reshape(-1)
+    flat_lit = litbyte.reshape(-1)
+    flat_mlen = torch.where(is_mt & valid, out_len, 0).reshape(-1)
+
+    j = torch.arange(out_pad, device=dev)
+    payload = (flat_dist << 9) | (flat_lit << 1) | 1
+    pay_at = _scatter(out_pad, flat_starts, payload)
+    _, pay = _ffill(pay_at != 0, pay_at)
+    dist_span = pay >> 9
+    lit_base = torch.cat([halo.to(torch.int64), (pay[HALO:] >> 1) & 0xFF])
+
+    # Stored spans: one contiguous copy each, from the tile's words.
+    in_sto = torch.zeros(out_pad, dtype=torch.bool, device=dev)
+    src_bytes = words.view(torch.uint8)
+    nbytes = src_bytes.shape[0]
+    for src, o0, ln in stored:
+        src = min(max(src, 0), nbytes)
+        o0 = min(max(o0, 0), out_pad)
+        ln = max(0, min(ln, _STO_MAX, out_pad - o0))
+        n = min(ln, nbytes - src)
+        lit_base[o0:o0 + n] = src_bytes[src:src + n]
+        lit_base[o0 + n:o0 + ln] = 0
+        in_sto[o0:o0 + ln] = True
+
+    # Match-byte compaction: byte i of match token t sits at compact slot
+    # cb[t] + i (tokens partition the output in order). The fill past the
+    # tile's last token marks padding bytes too; they sort after every real
+    # match byte and are masked by total_m below.
+    is_m = (dist_span > 0) & ~in_sto & (j >= HALO)
+    cidx = torch.cumsum(is_m, dim=0) - 1
+    pfull = torch.where(is_m, cidx, -(j + 1))
+
+    cb = torch.cumsum(flat_mlen, dim=0) - flat_mlen
+    total_m = flat_mlen.sum()
+    cpos = torch.where(flat_mlen > 0, cb, C)
+    fs_at = _scatter(C, cpos, flat_starts)
+    d_at = _scatter(C, cpos, flat_dist)
+    cb_f, fs_f, d_f = _ffill(fs_at != 0, fs_at, d_at)
+
+    # Overlapping copies (dist < len) in closed form: byte o of a span reads
+    # span_start - d + (o mod d). Real targets are strictly earlier bytes,
+    # so chains strictly decrease and end at literals, halo or stored bytes.
+    ii = torch.arange(C, device=dev)
+    o = ii - cb_f
+    f_i = fs_f + o
+    t = (fs_f - d_f + o % d_f.clamp(min=1)).clamp(0, out_pad - 1)
+    p = pfull[t]
+    # p < 0 is a resolved literal source -(pos + 1); p >= 0 the compact slot
+    # of the next hop.
+    for _ in range(nrounds):
+        p = torch.where(p < 0, p, p[p.clamp(0, C - 1)])
+    vals = lit_base[(-p - 1).clamp(0, out_pad - 1)]
+    fpos = torch.where((ii < total_m) & (fs_f > 0),
+                       f_i.clamp(0, out_pad), out_pad)
+    return _scatter(out_pad, fpos, vals, base=lit_base).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# The tile
+# ---------------------------------------------------------------------------
+
+
+def _buf_size(cfg: TileConfig) -> int:
+    """uint32 words in the single packed per-tile upload buffer."""
+    return (2 + cfg.nwords + 4 * cfg.nseg + 3 * cfg.nsto
+            + (318 * cfg.nblk + 3) // 4)
+
+
+def _unpack(pack: torch.Tensor, cfg: TileConfig):
+    """Views of one tile's packed int32 buffer: words (nwords,), the segment
+    rows bit, block, ntok (each (nseg,)), seg_out (nseg,), and the code
+    lengths (nblk, 318) uint8. The stored-span table is skipped: the host
+    hands the spans to `_resolve`."""
+    off = 2
+    words = pack[off:off + cfg.nwords]
+    off += cfg.nwords
+    seg = pack[off:off + 3 * cfg.nseg].view(3, cfg.nseg)
+    off += 3 * cfg.nseg
+    seg_out = pack[off:off + cfg.nseg]
+    off += cfg.nseg + 3 * cfg.nsto
+    lens8 = pack[off:off + (318 * cfg.nblk + 3) // 4].view(torch.uint8)
+    return (words, seg[0], seg[1], seg[2], seg_out,
+            lens8[:318 * cfg.nblk].view(cfg.nblk, 318))
+
+
+def _decode_tile(pack, halo, nrounds: int, stored, *, k: int,
+                 cfg: TileConfig, stages=None) -> torch.Tensor:
+    """One tile: tables, extraction (K4), LZ resolution. `pack` is the
+    tile's packed buffer as int32 on the card, `halo` the 32 KiB before the
+    tile. Returns out uint8 (HALO + tile_out,): the tile's `used` bytes are
+    out[HALO:HALO + used], and out[used:used + HALO] is the next halo."""
+    dev = pack.device
+    words, seg_bit, seg_blk, seg_ntok, seg_out, lens8 = _unpack(pack, cfg)
+    with _stage(stages, "tables", dev):
+        tables = _block_tables(lens8)
+    with _stage(stages, "extract", dev):
+        packed = inflate_kernels.inflate_extract(words, seg_bit, seg_blk,
+                                                 seg_ntok, tables, k)
+    with _stage(stages, "resolve", dev):
+        return _resolve(packed, seg_out, words, stored, halo, nrounds, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Host planner: cut the index into fixed-capacity tiles
+# ---------------------------------------------------------------------------
+
+
+class _Tile(NamedTuple):
+    base: int          # absolute output offset of the tile's first byte
+    used: int          # decoded bytes this tile
+    w0: int            # absolute word offset of the tile's stream window
+    s0: int            # segment range [s0, s1)
+    s1: int
+    t0: int            # stored-span range [t0, t1)
+    t1: int
+    b0: int            # block-id range [b0, b1)
+    b1: int
+    depth: int         # max copy-nesting depth among the tile's segments
+
+
+def _plan_tiles(index, cfg: TileConfig) -> list[_Tile]:
+    """Greedy fixed-capacity tiling of the checkpoint list.
+
+    Entities (segments + stored spans) partition [0, total_out) contiguously
+    in stream order; every capacity is monotone along that order, so each
+    tile's end is a searchsorted over prefix arrays."""
+    seg = index["segments"]
+    sto = index["stored"]
+    sto = sto[sto[:, 2] > 0] if sto.shape[0] else sto  # len-0 spans: no output
+    total = int(index["total_out"])
+    end_bit = int(index["end_bit"])
+    nseg, nsto = seg.shape[0], sto.shape[0]
+
+    ent_out = np.concatenate([seg[:, 1], sto[:, 1]])
+    order = np.argsort(ent_out, kind="stable")
+    ent_out = ent_out[order]
+    ent_is_seg = order < nseg
+    ent_bit = np.concatenate([seg[:, 0], sto[:, 0] * 8])[order]
+    n_e = ent_out.shape[0]
+    if n_e == 0:
+        return []
+    ent_end_out = np.concatenate([ent_out[1:], [total]])
+    ent_end_bit = np.concatenate([ent_bit[1:], [end_bit]])
+    sto_end_bit = (sto[:, 0] + sto[:, 2]) * 8
+    ent_end_bit = np.maximum(
+        ent_end_bit,
+        np.concatenate([np.zeros(nseg, np.int64), sto_end_bit])[order])
+    # +3 words: the 64-bit window read touches words[i + 2] at the last bit.
+    ent_word_end = (ent_end_bit + 31) // 32 + 3
+    ent_blk = np.concatenate(
+        [seg[:, 2], np.full(nsto, -1, np.int64)])[order]
+    # Match-byte capacity: the scan's per-segment match-byte counts bound
+    # each tile's compact slots.
+    ent_match = np.concatenate([seg[:, 4], np.zeros(nsto, np.int64)])[order]
+    cum_match = np.cumsum(ent_match)
+    # Per-tile depth: each tile sizes its pointer-doubling trip count from
+    # the deepest chain it contains. Stored entities contribute depth 0.
+    ent_depth = np.concatenate([seg[:, 5], np.zeros(nsto, np.int64)])[order] \
+        if seg.shape[1] > 5 else np.full(n_e, int(1) << 62, np.int64)
+    cum_seg = np.cumsum(ent_is_seg)
+    cum_sto = np.cumsum(~ent_is_seg)
+    # Running max block id (block ids are nondecreasing over segments but
+    # stored entities interleave with -1).
+    blk_ffill = np.maximum.accumulate(ent_blk)
+
+    tiles = []
+    i = 0
+    base = 0
+    while i < n_e:
+        w0 = int(ent_bit[i] // 32)
+        lo = i + 1  # a single entity always fits (extent <= 8256 or 65535)
+        j = np.searchsorted(ent_end_out, base + cfg.tile_out, side="right")
+        j = min(j, np.searchsorted(
+            cum_seg, (cum_seg[i] - ent_is_seg[i]) + cfg.nseg, side="right"))
+        j = min(j, np.searchsorted(
+            cum_sto, (cum_sto[i] - (not ent_is_seg[i])) + cfg.nsto,
+            side="right"))
+        j = int(min(j, np.searchsorted(
+            ent_word_end, w0 + cfg.nwords, side="right")))
+        j = int(min(j, np.searchsorted(
+            cum_match, (cum_match[i] - ent_match[i]) + cfg.ncmp,
+            side="right")))
+        # Distinct blocks referenced so far: ids are contiguous nondecreasing.
+        first_blk = int(ent_blk[i]) if ent_is_seg[i] else int(
+            max(blk_ffill[i], 0))
+        j = int(min(j, np.searchsorted(
+            blk_ffill, first_blk + cfg.nblk - 1, side="right")))
+        j = max(j, lo)
+        s0 = int(cum_seg[i] - ent_is_seg[i])
+        s1 = int(cum_seg[j - 1])
+        t0 = int(cum_sto[i] - (not ent_is_seg[i]))
+        t1 = int(cum_sto[j - 1])
+        b1 = int(blk_ffill[j - 1]) + 1 if s1 > s0 else first_blk + 1
+        used = int(ent_end_out[j - 1]) - base
+        depth = int(ent_depth[i:j].max()) if j > i else 0
+        tiles.append(_Tile(base, used, w0, s0, s1, t0, t1, first_blk, b1,
+                           depth))
+        base += used
+        i = j
+    return tiles
+
+
+def _pick_cfg(total_out: int) -> TileConfig:
+    return CFG_S if total_out <= 8 * CFG_S.tile_out else CFG_L
+
+
+def _nrounds_for_depth(depth: int, cfg: TileConfig) -> int:
+    """Pointer-doubling trip count for one tile: log2 of the deepest chain
+    it contains; the halo bounds any chain inside one tile, so the cap is
+    log2(tokens per tile)."""
+    cap = int(np.ceil(np.log2(cfg.nseg * _EVERY)))
+    if depth >= 0xFFFF:  # the scan's u16 depth saturated
+        return cap
+    return max(1, min(cap, int(np.ceil(np.log2(max(depth, 2))))))
+
+
+def _tile_pack(data, index, tile: _Tile, cfg: TileConfig,
+               nrounds: int) -> np.ndarray:
+    """One packed uint32 buffer per tile (fixed size): scalars, stream
+    words, segment/stored tables, byte-packed code lengths."""
+    seg = index["segments"]
+    sto = index["stored"]
+    sto = sto[sto[:, 2] > 0] if sto.shape[0] else sto
+    out_pad = HALO + cfg.tile_out
+
+    buf = np.zeros(_buf_size(cfg), dtype=np.uint32)
+    buf[0] = tile.used
+    buf[1] = nrounds
+    off = 2
+
+    lo = tile.w0 * 4
+    hi = min(len(data), lo + cfg.nwords * 4)
+    raw = bytes(data[lo:hi])
+    nw = len(raw) // 4
+    buf[off : off + nw] = np.frombuffer(raw[: nw * 4], "<u4")
+    if len(raw) % 4:
+        tail = raw[nw * 4 :] + b"\x00" * (4 - len(raw) % 4)
+        buf[off + nw] = np.frombuffer(tail, "<u4")[0]
+    off += cfg.nwords
+
+    sp = buf[off : off + 3 * cfg.nseg].reshape(3, cfg.nseg)
+    off += 3 * cfg.nseg
+    so = buf[off : off + cfg.nseg]
+    so[:] = out_pad
+    off += cfg.nseg
+    ns = tile.s1 - tile.s0
+    if ns:
+        rows = seg[tile.s0 : tile.s1]
+        sp[0, :ns] = rows[:, 0] - tile.w0 * 32
+        sp[1, :ns] = rows[:, 2] - tile.b0
+        sp[2, :ns] = rows[:, 3]
+        so[:ns] = rows[:, 1] - tile.base + HALO
+
+    st = buf[off : off + 3 * cfg.nsto].reshape(3, cfg.nsto)
+    off += 3 * cfg.nsto
+    st[1] = out_pad  # empty slots sort past every output byte
+    nt = tile.t1 - tile.t0
+    if nt:
+        rows = sto[tile.t0 : tile.t1]
+        st[0, :nt] = rows[:, 0] - tile.w0 * 4
+        st[1, :nt] = rows[:, 1] - tile.base + HALO
+        st[2, :nt] = rows[:, 2]
+
+    nb = tile.b1 - tile.b0
+    if nb and index["block_lens"].shape[0]:
+        lens8 = np.zeros((318 * cfg.nblk + 3) // 4 * 4, np.uint8)
+        flat = index["block_lens"][tile.b0 : tile.b1].reshape(-1)
+        lens8[: flat.shape[0]] = flat
+        buf[off:] = lens8.view("<u4")
+    return buf
+
+
+def _tile_stored(index, tile: _Tile) -> list:
+    """The tile's stored spans as host ints, relative to the tile: (source
+    byte in its words, output position, length)."""
+    sto = index["stored"]
+    sto = sto[sto[:, 2] > 0] if sto.shape[0] else sto
+    return [(int(s) - tile.w0 * 4, int(o) - tile.base + HALO, int(n))
+            for s, o, n in sto[tile.t0:tile.t1]]
+
+
+# ---------------------------------------------------------------------------
+# Orchestration
+# ---------------------------------------------------------------------------
+
+
+def build_decode_index(data: bytes, start_bit: int = 0, every: int = _EVERY):
+    """One-time host scan producing the device decode index for the raw
+    DEFLATE stream at bit `start_bit` of `data` (any producer). The index
+    carries the adler32 of the serial decode, which every device decode
+    verifies its own output against."""
+    return inflate_scan(data, start_bit, every)
+
+
+def _run_tiles(data, index, device: torch.device, stages=None):
+    """Dispatch every tile, back to back with no host sync, into one output
+    buffer on `device`. Returns (buffer of total_out bytes, the pinned
+    upload buffers to hold until the next sync)."""
+    total = int(index["total_out"])
+    cfg = _pick_cfg(total)
+    k = int(index["every"])
+    with _stage(stages, "plan_pack", device):
+        tiles = _plan_tiles(index, cfg)
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    halo = torch.zeros(HALO, dtype=torch.uint8, device=device)
+    keep: list = []
+    for tile in tiles:
+        nrounds = _nrounds_for_depth(tile.depth, cfg)
+        with _stage(stages, "plan_pack", device):
+            pack = _tile_pack(data, index, tile, cfg, nrounds).view(np.int32)
+            stored = _tile_stored(index, tile)
+        with _stage(stages, "upload", device):
+            pack = _upload(pack, device, keep)
+        out = _decode_tile(pack, halo, nrounds, stored, k=k, cfg=cfg,
+                           stages=stages)
+        with _stage(stages, "resolve", device):
+            buf[tile.base:tile.base + tile.used] = out[HALO:HALO + tile.used]
+        halo = out[tile.used:tile.used + HALO]
+    return buf, keep
+
+
+def _verify_adler(index, buf: torch.Tensor) -> None:
+    if checksums.adler32_device(buf) != int(index["adler"]):
+        raise ZippyError(
+            "Device decode verification failed (output checksum does not "
+            "match the scan)")
+
+
+def inflate_device_array(data: bytes, index=None, start_bit: int = 0,
+                         verify: bool = True, device=None, stages=None):
+    """Decode a raw DEFLATE stream into a uint8 tensor on `device` (None:
+    the CUDA card; "cpu" runs the plain versions). Returns (tensor, total):
+    the tensor holds exactly the total_out decoded bytes. `index` is the
+    result of build_decode_index (scanned here when omitted).
+
+    verify=True checks the output's adler32 (K1) against the scan's and
+    raises ZippyError on a mismatch: the integrity gate of raw DEFLATE,
+    which has no checksum of its own. With a `stages` dict, each stage's
+    synchronized seconds are added to it."""
+    dev = resolve_device(device)
+    if index is None:
+        with _stage(stages, "scan", dev):
+            index = build_decode_index(data, start_bit)
+    total = int(index["total_out"])
+    if total == 0:
+        return torch.empty(0, dtype=torch.uint8, device=dev), 0
+    buf, keep = _run_tiles(data, index, dev, stages)
+    if verify:
+        with _stage(stages, "checksums", dev):
+            _verify_adler(index, buf)
+    # Held to here; without the gate's sync, torch's pinned-memory cache
+    # keeps a freed upload buffer until its copy has run.
+    del keep
+    return buf, total
+
+
+def _fetch(buf: torch.Tensor, stages=None) -> bytes:
+    with _stage(stages, "fetch", buf.device):
+        return buf.cpu().numpy().tobytes()
+
+
+def inflate_device(data: bytes, index=None, start_bit: int = 0,
+                   verify: bool = True, device=None, stages=None) -> bytes:
+    """Decode a raw DEFLATE stream on the card; as inflate_device_array,
+    with the bytes fetched to the host."""
+    buf, _ = inflate_device_array(data, index, start_bit, verify, device,
+                                  stages)
+    return _fetch(buf, stages)
+
+
+def uncompress_zlib_device(blob: bytes, index=None, device=None) -> bytes:
+    """Decode one zlib stream on the card. The trailer's adler32 is checked
+    against the scan's (on the host), and the device output against the
+    same value."""
+    if len(blob) < 6:
+        raise ZippyError("Invalid compressed data")
+    cmf, flg = blob[0], blob[1]
+    if (cmf & 0x0F) != 8:
+        raise ZippyError("Unsupported compression method")
+    if (cmf >> 4) > 7:
+        raise ZippyError("Invalid compression info")
+    if (cmf * 256 + flg) % 31 != 0:
+        raise ZippyError("Invalid header")
+    if flg & 0b0010_0000:
+        raise ZippyError("Preset dictionary is not yet supported")
+    if index is None:
+        index = build_decode_index(blob, 16)
+    tpos = (int(index["end_bit"]) + 7) // 8
+    if tpos + 4 > len(blob):
+        raise ZippyError("Invalid compressed data")
+    want = int.from_bytes(blob[tpos : tpos + 4], "big")
+    if int(index["adler"]) != want:
+        raise ZippyError("Checksum verification failed")
+    return inflate_device(blob, index, verify=True, device=device)
+
+
+def uncompress_gzip_device(blob: bytes, index=None, device=None,
+                           pos: int = 0) -> bytes:
+    """Decode the gzip member at byte `pos` of `blob` on the card. The
+    output's crc32 (K2 + K3) is checked against the trailer and its length
+    against ISIZE mod 2^32, after the adler32 gate."""
+    hdr = gzip_format.parse_header(blob, pos)
+    if index is None:
+        index = build_decode_index(blob, hdr["data_offset"] * 8)
+    tpos = (int(index["end_bit"]) + 7) // 8
+    if tpos + 8 > len(blob):
+        raise ZippyError("Invalid gzip data")
+    want_crc = int.from_bytes(blob[tpos:tpos + 4], "little")
+    want_isize = int.from_bytes(blob[tpos + 4:tpos + 8], "little")
+    total = int(index["total_out"])
+    payload, got_crc = b"", 0
+    if total:
+        buf, _ = inflate_device_array(blob, index, device=device)
+        got_crc = checksums.crc32_device(buf)
+        payload = _fetch(buf)
+    if got_crc != want_crc:
+        raise ZippyError("Checksum verification failed")
+    if want_isize != total & 0xFFFFFFFF:
+        raise ZippyError("Size verification failed")
+    return payload

@@ -1,0 +1,106 @@
+"""Build the port's native libraries and count its kernel launches.
+
+* csrc/checksums.cu (K1-K3) and csrc/inflate.cu (K4): nvcc for sm_90a.
+* csrc/inflate_scan.cpp (the decode's host scan): the host C++ compiler.
+
+Each library is built at first use into build/kernels/ under a name keyed by
+its source's hash, through a temporary file renamed into place, so that
+processes building at once do not race. `build_all` starts every missing
+build at once and waits for them. Importing this module builds nothing.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+from ..common import ZippyError
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+CUDA_SOURCES = ("checksums.cu", "inflate.cu")
+HOST_SOURCES = ("inflate_scan.cpp",)
+
+# Kernel launches per wrapper: one per launch, counted nowhere else.
+LAUNCHES = {"adler_chunks": 0, "crc_rows": 0, "crc_combine": 0,
+            "inflate_extract": 0}
+
+
+def _find(names, what: str) -> str:
+    for cand in names:
+        if cand and os.path.exists(cand):
+            return cand
+    raise ZippyError(f"{what} not found: the native libraries build on "
+                     "first use")
+
+
+def _command(src: pathlib.Path, out: pathlib.Path) -> list[str]:
+    if src.suffix == ".cu":
+        nvcc = _find((shutil.which("nvcc"), os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")),
+            "nvcc")
+        return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", str(out), str(src)]
+    cxx = _find((shutil.which("c++"), shutil.which("g++")), "c++")
+    return [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out),
+            str(src)]
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of csrc/`name` lives, keyed by its source's hash."""
+    src = CSRC / name
+    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libzt_{src.stem}-{tag}.so"
+
+
+def build_all(names=CUDA_SOURCES + HOST_SOURCES) -> dict:
+    """Build the libraries of csrc/`names` that are not built yet, all at
+    once. Returns {name: library path}; each compiler's output (for nvcc,
+    each kernel's registers and shared memory) is beside its library as
+    .log."""
+    libs = {name: library_path(name) for name in names}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            _command(CSRC / name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    try:
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            lib = todo[name]
+            lib.with_suffix(".log").write_text(out)
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, lib)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise ZippyError("build failed: " + "\n".join(failed))
+    return libs
+
+
+def build(name: str) -> pathlib.Path:
+    """The library of csrc/`name`, built if needed."""
+    return build_all((name,))[name]
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise on the CUDA error a kernel's entry point returned."""
+    if rc != 0:
+        raise ZippyError(f"{name} kernel launch failed: cudaError {rc}")
