@@ -9,7 +9,8 @@ non-zero exit and no result line):
 1. the card (nvidia-smi's name and power limit, torch's device name);
 2. the build of every native library, with its seconds: csrc/checksums.cu
    and csrc/inflate.cu with nvcc (started together) and the decode's host
-   scan csrc/inflate_scan.cpp with c++;
+   scan csrc/inflate_scan.cpp with c++; and what `nvcc -Xptxas -v` said of
+   each kernel (registers, shared memory, spills);
 3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
    with a tail row) and K3 (crc_combine) against their plain PyTorch
    versions on the card, and adler32/crc32 against zlib, at 0 B to
@@ -29,21 +30,27 @@ non-zero exit and no result line):
 5. the decode path: uncompress() of phase 4's 64 MiB gzip and 8 MiB zlib
    streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
    (level 0) stream and of a two-member gzip, each equal to its input, with
-   the launch counts zeroed before and read after (K1-K4 all launched);
-   per stream the scan's seconds, the decode given its index (twice) and
-   CPython's decompress; K4 against its plain version on every tile of the
-   64 MiB stream; a decode given its index with no host sync from the first
-   tile to the last (torch.cuda.set_sync_debug_mode("error")); a flipped
-   crc raising ZippyError; one decode's synchronized stage seconds; and a
-   torch.profiler trace of a decode given its index;
+   the launch counts zeroed before and read after (K1-K4 all launched, K4
+   once per batch of tiles that has a busy lane); per stream the scan's
+   seconds, the decode given its index (twice) and CPython's decompress; a
+   decode given its index with no host sync from the first tile to the
+   last (torch.cuda.set_sync_debug_mode("error")); the 64 MiB stream in
+   batches of 8 tiles; a flipped crc raising ZippyError; one decode's
+   synchronized stage seconds; a torch.profiler trace of a decode given
+   its index; K4 against its plain version on every tile of all six
+   streams, batched as the decode batches them, with the lanes whose block
+   row K4 read from device memory rather than shared memory; and one K4
+   launch over the 64 MiB stream's batch timed, with its bound for the
+   busy lanes and for the padded segment tables it wrote before;
 6. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9,
    and the same decode.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
-are means over the tiles of the 64 MiB stream. A kernel's "launches" in the
-kernel line are those of the compress and decode runs together.
+are those of one launch over the 64 MiB stream's batch of tiles. A
+kernel's "launches" in the kernel line are those of the compress and
+decode runs together.
 
 Then the kernel table (one JSON line), the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -158,18 +165,24 @@ def device_trace(fn) -> dict:
     """fn() under torch.profiler's CUDA tracing: wall seconds, the device
     operations it ran (kernels, copies, fills), their summed seconds, the
     share of the wall time in which the card ran none, and the six
-    operation names with the most device ms (name, ms, count). The device
-    numbers are null where the profiler saw no device work."""
+    operation names with the most device ms (name, ms, count). A profile
+    on the H100 has come back without any device event; the trace is then
+    taken again, up to three times. The device numbers are null
+    where the profiler saw no device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ops = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
     if not ops:
         return {"wall_s": wall, "device_ops": None, "kernels": None,
                 "device_busy_s": None, "device_idle_share": None}
@@ -232,10 +245,13 @@ MATCH_OPS = LITERAL_OPS + 2 + 3 + 1 + 2 + 3 + 3 + 2 + 2
 def extract_work(words: int, nblk: int, nseg: int, lanes: int, k: int,
                  literals: int, matches: int):
     """(bytes, operations) K4 must move and do on one tile: the tile's
-    stream words, its blocks' 382-word tables and its segments' 3-word
-    records read once, the packed (k, lanes) output written once; and
-    LITERAL_OPS per literal or end-of-block token, MATCH_OPS per match
-    token, as this tile's data has them."""
+    stream words, its blocks' 382-word tables and its nseg busy segments'
+    3-word records read once, the packed (k, lanes) output written once;
+    and LITERAL_OPS per literal or end-of-block token, MATCH_OPS per match
+    token, as this tile's data has them. `lanes` is nseg for the work the
+    tile needs; the tile's full segment table (cfg.nseg, padding lanes
+    included) gives the bound K4 was held to before it wrote busy lanes
+    only."""
     return (4 * words + 4 * 382 * nblk + 12 * nseg + 4 * k * lanes,
             LITERAL_OPS * literals + MATCH_OPS * matches)
 
@@ -271,6 +287,117 @@ def _decode_given(idev, gzip_format, blob: bytes, fmt: str,
     if fmt == "zlib":
         return idev.uncompress_zlib_device(blob, indexes[0][1])
     return gzip_format.uncompress_gzip_device_all(blob, indexes=indexes)
+
+
+def _batches(idev, tiles) -> list:
+    """The tiles in the decode's batches of up to _TILES_PER_LAUNCH."""
+    cap = idev._TILES_PER_LAUNCH
+    return [tiles[b:b + cap] for b in range(0, len(tiles), cap)]
+
+
+def _k4_launches(idev, index) -> int:
+    """K4 launches one decode of `index` makes: one per batch that has a
+    busy lane."""
+    tiles = idev._plan_tiles(index, idev._pick_cfg(index["total_out"]))
+    return sum(any(t.s1 > t.s0 for t in batch)
+               for batch in _batches(idev, tiles))
+
+
+def _k4_inputs(idev, blob: bytes, index, dev, keep: list):
+    """K4's inputs for each batch of one decode index, as the decode forms
+    them: (tile config, the batch's tiles, each tile's end word in the
+    stream, words, seg, busy lanes, tables) on `dev`."""
+    cfg = idev._pick_cfg(index["total_out"])
+    tiles = idev._plan_tiles(index, cfg)
+    ends = [t.w0 for t in tiles[1:]] + [-(-index["end_bit"] // 32)]
+    b = 0
+    for batch in _batches(idev, tiles):
+        packs = idev._upload_packs(
+            [idev._tile_pack(blob, index, t, cfg,
+                             idev._nrounds_for_depth(t.depth, cfg))
+             for t in batch], dev, keep)
+        words, seg, _, lens8 = idev._unpack(packs, cfg)
+        yield (cfg, batch, ends[b:b + len(batch)], words, seg,
+               [t.s1 - t.s0 for t in batch],
+               idev._block_tables(lens8.reshape(-1, 318)))
+        b += len(batch)
+
+
+def k4_phase(idev, ik, streams, all_indexes, dev) -> dict:
+    """K4 against its plain version on every tile of every stream, in the
+    decode's batches, with the lanes whose block row K4 did not stage; then
+    one launch over the first stream's first batch timed, with its bound
+    for the busy lanes and for the padded segment tables. Returns K4's row
+    for the kernel line (launches filled in by the caller)."""
+    lines, first = [], None
+    for label, blob, _, _ in streams:
+        line = {"run": label, "tiles": 0, "batches": 0, "busy_lanes": 0,
+                "equal_plain": True, "max_abs_err": 0}
+        off_run = torch.zeros(1, dtype=torch.int64, device=dev)
+        keep: list = []
+        for _, index in all_indexes[label]:
+            k = index["every"]
+            for cfg, batch, ends, words, seg, used, tables in _k4_inputs(
+                    idev, blob, index, dev, keep):
+                line["tiles"] += len(batch)
+                if not sum(used):
+                    continue
+                line["batches"] += 1
+                line["busy_lanes"] += sum(used)
+                got = ik.inflate_extract(words, seg, used, tables, k, off_run)
+                plain = ik._extract_plain(words, seg, used, tables, k)
+                line["equal_plain"] &= bool(torch.equal(got, plain))
+                line["max_abs_err"] = max(line["max_abs_err"], int(
+                    (got.long() - plain.long()).abs().max()))
+                if first is None:
+                    first = (cfg, batch, ends, words, seg, used, tables, k,
+                             plain, index, label)
+                del got
+        line["off_run_lanes"] = int(off_run.item())
+        lines.append(line)
+        del keep
+    emit({"phase": "inflate_extract_streams", "streams": lines})
+    check(all(line["equal_plain"] for line in lines), "K4 differs from plain")
+
+    cfg, batch, ends, words, seg, used, tables, k, plain, index, label = first
+    bases, ncta = ik._bases(used, dev)
+    out = torch.empty_like(plain)
+    ms = kernel_ms(lambda: ik._launch(words, seg, bases, ncta, tables, k,
+                                      out), 100)
+    plain_ms = call_ms(lambda: ik._extract_plain(words, seg, used, tables,
+                                                 k), 1)
+    per_tile, busy, padded = [], [0, 0], [0, 0]
+    col = 0
+    for tile, end, n in zip(batch, ends, used):
+        tokens = int(index["segments"][tile.s0:tile.s1, 3].sum())
+        matches = int(((plain[:, col:col + n] & 0xFFFF) >= 256).sum())
+        col += n
+        args = (end - tile.w0 + 1, tile.b1 - tile.b0, n)
+        w_busy = extract_work(*args, n, k, tokens - matches, matches)
+        w_pad = extract_work(*args, cfg.nseg, k, tokens - matches, matches)
+        per_tile.append({"segments": n, "tokens": tokens, "matches": matches,
+                         "bound_ms": bound(w_busy)[0],
+                         "padded_bound_ms": bound(w_pad)[0]})
+        for i in (0, 1):
+            busy[i] += w_busy[i]
+            padded[i] += w_pad[i]
+    bound_ms, bound_by = bound(busy)
+    pad_ms, pad_by = bound(padded)
+    n = len(batch)
+    emit({"phase": "inflate_extract_batch", "run": label, "tiles": n,
+          "busy_lanes": sum(used), "ms_per_launch": ms, "ms_per_tile": ms / n,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_ms_per_tile": bound_ms / n, "share_of_bound": bound_ms / ms,
+          "padded_bound_ms": pad_ms, "padded_bound_by": pad_by,
+          "padded_bound_ms_per_tile": pad_ms / n, "plain_ms": plain_ms,
+          "per_tile": per_tile})
+    return {"name": "inflate_extract", "route": "cuda",
+            "source": "zippy_tpu_torch/csrc/inflate.cu",
+            "replaces": "zippy_tpu/ops/inflate_device.py:268",
+            "launches": None,
+            "max_abs_err": max(line["max_abs_err"] for line in lines),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
@@ -309,7 +436,6 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
                      / 2**30, "equal_input": out == want})
         check(out == want, label)
     launches = dict(kb.LAUNCHES)
-    emit({"phase": "decode_launches", **launches})
     check(all(v > 0 for v in launches.values()), launches)
 
     # Outside the counted run: the scan alone, the decode given its index
@@ -322,6 +448,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
         run["tiles"] = sum(len(idev._plan_tiles(
             index, idev._pick_cfg(index["total_out"])))
             for _, index in indexes)
+        run["k4_launches"] = sum(_k4_launches(idev, index)
+                                 for _, index in indexes)
         given = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -336,6 +464,12 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
         check(back == want, label + " CPython")
         all_indexes[label] = indexes
         emit(run)
+    # K4 runs once per batch that has a busy lane, not once per tile.
+    batches = sum(run["k4_launches"] for run in runs)
+    emit({"phase": "decode_launches", **launches,
+          "tiles": sum(run["tiles"] for run in runs),
+          "k4_batches_with_busy_lanes": batches})
+    check(launches["inflate_extract"] == batches, (launches, batches))
 
     # The 64 MiB gzip stream given its index: no host sync from the first
     # tile to the last, then the checksums and the bytes.
@@ -356,6 +490,22 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
     emit(no_sync)
     check(all(v for k, v in no_sync.items() if k not in ("phase", "run")),
           no_sync)
+
+    # The same stream in batches of 8 tiles: one K4 launch per batch.
+    cap, idev._TILES_PER_LAUNCH = idev._TILES_PER_LAUNCH, 8
+    before = kb.LAUNCHES["inflate_extract"]
+    try:
+        out = api.uncompress(gz6)
+        capped = {"phase": "decode_batch_cap", "run": streams[0][0],
+                  "tiles_per_launch": idev._TILES_PER_LAUNCH,
+                  "k4_launches": kb.LAUNCHES["inflate_extract"] - before,
+                  "k4_batches_with_busy_lanes": _k4_launches(idev, index),
+                  "equal_input": out == data}
+    finally:
+        idev._TILES_PER_LAUNCH = cap
+    emit(capped)
+    check(capped["equal_input"] and capped["k4_launches"]
+          == capped["k4_batches_with_busy_lanes"], capped)
 
     bad = bytearray(two)
     bad[-5] ^= 0xFF
@@ -379,51 +529,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
           + streams[0][0], **device_trace(
               lambda: idev.inflate_device_array(gz6, index))})
 
-    # K4 on every tile of the 64 MiB stream against its plain version.
-    cfg = idev._pick_cfg(index["total_out"])
-    tiles = idev._plan_tiles(index, cfg)
-    k = index["every"]
-    per_tile = []
-    for i, tile in enumerate(tiles):
-        nrounds = idev._nrounds_for_depth(tile.depth, cfg)
-        pack = torch.from_numpy(idev._tile_pack(
-            gz6, index, tile, cfg, nrounds).view(np.int32)).to(dev)
-        words, bit, blk, ntok, _, lens8 = idev._unpack(pack, cfg)
-        args = (words, bit, blk, ntok, idev._block_tables(lens8), k)
-        got, plain = ik.inflate_extract(*args), ik._extract_plain(*args)
-        end_w = (tiles[i + 1].w0 if i + 1 < len(tiles)
-                 else -(-index["end_bit"] // 32))
-        nseg = tile.s1 - tile.s0
-        tokens = int(index["segments"][tile.s0:tile.s1, 3].sum())
-        matches = int(((plain & 0xFFFF) >= 256).sum())
-        work = extract_work(end_w - tile.w0 + 1, tile.b1 - tile.b0, nseg,
-                            cfg.nseg, k, tokens - matches, matches)
-        per_tile.append({
-            "equal_plain": bool(torch.equal(got, plain)),
-            "max_abs_err": int((got.long() - plain.long()).abs().max()),
-            "ms": kernel_ms(lambda: ik.inflate_extract(*args), 20),
-            "plain_ms": call_ms(lambda: ik._extract_plain(*args), 1),
-            "work": work, "bound": bound(work), "segments": nseg,
-            "tokens": tokens, "matches": matches})
-        del pack, got, plain, args
-    emit({"phase": "inflate_extract_tiles", "tiles": [
-        {key: t[key] for key in ("equal_plain", "ms", "plain_ms",
-                                 "segments", "tokens", "matches")}
-        | {"bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
-        for t in per_tile]})
-    check(all(t["equal_plain"] for t in per_tile), "K4 differs from plain")
-    n = len(per_tile)
-    bound_ms, bound_by = bound([sum(t["work"][i] for t in per_tile) / n
-                                for i in (0, 1)])
-    row = {"name": "inflate_extract", "route": "cuda",
-           "source": "zippy_tpu_torch/csrc/inflate.cu",
-           "replaces": "zippy_tpu/ops/inflate_device.py:268",
-           "launches": launches["inflate_extract"],
-           "max_abs_err": max(t["max_abs_err"] for t in per_tile),
-           "ms": sum(t["ms"] for t in per_tile) / n,
-           "plain_ms": sum(t["plain_ms"] for t in per_tile) / n,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": None}
+    row = k4_phase(idev, ik, streams, all_indexes, dev)
+    row["launches"] = launches["inflate_extract"]
     torch.cuda.empty_cache()
     return launches, row
 
@@ -450,7 +557,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = kb.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(lib.name for lib in libs.values())})
+          "libraries": sorted(lib.name for lib in libs.values()),
+          "ptxas": {name: [line.strip() for line in libs[name].with_suffix(
+              ".log").read_text().splitlines()
+              if "registers" in line or "spill" in line]
+              for name in kb.CUDA_SOURCES}})
 
     # Phase 3: K1, K2 and K3 against their plain versions and zlib.
     gen = torch.Generator(device=dev)

@@ -2,6 +2,7 @@
 comparison tables, token extraction (K4's plain version) and every tile's
 bytes, the reference's jitted `_decode_tile` running on JAX's CPU backend."""
 
+import functools
 import zlib
 
 import jax.numpy as jnp
@@ -40,12 +41,14 @@ STREAMS = {
 
 
 def _tile_packs(blob):
+    """The reference's index, tile config, tiles and their packs."""
     index = ref.build_decode_index(blob)
     cfg = ref._pick_cfg(index["total_out"])
-    for tile in ref._plan_tiles(index, cfg):
-        nrounds = ref._nrounds_for_depth(tile.depth, cfg)
-        yield index, cfg, tile, nrounds, ref._tile_pack(blob, index, tile,
-                                                          cfg, nrounds)
+    tiles = ref._plan_tiles(index, cfg)
+    return index, cfg, tiles, [
+        ref._tile_pack(blob, index, tile, cfg,
+                       ref._nrounds_for_depth(tile.depth, cfg))
+        for tile in tiles]
 
 
 def _ref_extract_inputs(pack, cfg):
@@ -81,20 +84,27 @@ def test_cmp_tables_equal_reference(name):
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_extract_equals_reference(name):
-    """K4's plain version (through the wrapper, on CPU tensors) gives the
-    reference's packed tokens exactly, on every tile of real streams."""
-    for index, cfg, tile, _, pack in _tile_packs(STREAMS[name]()):
-        words, seg, lens8 = _ref_extract_inputs(pack, cfg)
-        tabs = ref._build_lane_tables(lens8, jnp.asarray(seg[1]))
-        want = np.asarray(ref._extract(words, jnp.asarray(seg[0]),
-                                       jnp.asarray(seg[2]), tabs, 32))
-        p_words, bit, blk, ntok, _, p_lens8 = port._unpack(_port_pack(pack),
-                                                           cfg)
-        tables = port._block_tables(p_lens8)
-        got = ik.inflate_extract(p_words, bit, blk, ntok, tables, 32)
-        assert got.shape == (32, cfg.nseg) and got.dtype == torch.int32
-        assert np.array_equal(want, got.numpy())
-        assert int((want != 0).sum()) == int(seg[2].sum())
+    """K4's plain version (through the wrapper, on CPU tensors), run over
+    all of a stream's tiles as one batch, gives each tile's busy lanes the
+    reference's packed tokens exactly; the reference's lanes past them are
+    all zero."""
+    _, cfg, tiles, packs = _tile_packs(STREAMS[name]())
+    words, seg, _, lens8 = port._unpack(
+        torch.from_numpy(np.stack(packs).view(np.int32)), cfg)
+    used = [tile.s1 - tile.s0 for tile in tiles]
+    tables = port._block_tables(lens8.reshape(-1, 318))
+    got = ik.inflate_extract(words, seg, used, tables, 32)
+    assert got.shape == (32, sum(used)) and got.dtype == torch.int32
+    col = 0
+    for pack, n in zip(packs, used):
+        r_words, r_seg, r_lens8 = _ref_extract_inputs(pack, cfg)
+        tabs = ref._build_lane_tables(r_lens8, jnp.asarray(r_seg[1]))
+        want = np.asarray(ref._extract(r_words, jnp.asarray(r_seg[0]),
+                                       jnp.asarray(r_seg[2]), tabs, 32))
+        assert not want[:, n:].any()
+        assert np.array_equal(want[:, :n], got[:, col:col + n].numpy())
+        assert int((want != 0).sum()) == int(r_seg[2].sum())
+        col += n
 
 
 def _decode_tiles_against_reference(blob, want_cfg):
@@ -102,11 +112,12 @@ def _decode_tiles_against_reference(blob, want_cfg):
     acc = (jnp.uint32(1), jnp.uint32(0))
     halo_p = torch.zeros(HALO, dtype=torch.uint8)
     ntiles = 0
-    for index, cfg, tile, nrounds, pack in _tile_packs(blob):
-        assert cfg == want_cfg
+    index, cfg, tiles, packs = _tile_packs(blob)
+    assert cfg == want_cfg
+    for tile, pack in zip(tiles, packs):
         out_r, halo_r, *acc = ref._decode_tile(jnp.asarray(pack), halo_r,
                                                *acc, k=32, cfg=cfg)
-        out_p = port._decode_tile(_port_pack(pack), halo_p, nrounds,
+        out_p = port._decode_tile(_port_pack(pack), halo_p, tile,
                                   port._tile_stored(index, tile), k=32,
                                   cfg=cfg)
         assert out_p.shape == (HALO + cfg.tile_out,)
@@ -149,20 +160,168 @@ def test_ffill_matches_the_shifted_selects():
         assert np.array_equal(np.asarray(w)[:last + 1], g.numpy()[:last + 1])
 
 
+@functools.cache
+def _reference_chain(name):
+    """The reference's `_decode_tile` chain over one of STREAMS: per tile,
+    the halo handed to it and its output bytes."""
+    halo = jnp.zeros(HALO, jnp.uint8)
+    acc = (jnp.uint32(1), jnp.uint32(0))
+    _, cfg, tiles, packs = _tile_packs(STREAMS[name]())
+    chain = []
+    for tile, pack in zip(tiles, packs):
+        before = np.asarray(halo)
+        out, halo, *acc = ref._decode_tile(jnp.asarray(pack), halo, *acc,
+                                           k=32, cfg=cfg)
+        chain.append((before, np.asarray(out)[HALO:HALO + tile.used]))
+    return chain
+
+
+@pytest.mark.parametrize("cap", [1, 2])
+def test_batches_equal_the_reference_chain(cap, monkeypatch):
+    """With the batch cap lowered, the decode makes one extraction per
+    batch, gives the bytes of the reference's `_decode_tile` chain, and
+    hands every tile the reference's halo."""
+    monkeypatch.setattr(port, "_TILES_PER_LAUNCH", cap)
+    halos, batches = [], []
+    resolve, extract = port._resolve, ik.inflate_extract
+
+    def spy_resolve(packed, seg_out, words, stored, halo, *rest):
+        halos.append(halo.clone())
+        return resolve(packed, seg_out, words, stored, halo, *rest)
+
+    def spy_extract(words, seg, used, *rest):
+        batches.append(len(used))
+        return extract(words, seg, used, *rest)
+
+    monkeypatch.setattr(port, "_resolve", spy_resolve)
+    monkeypatch.setattr(ik, "inflate_extract", spy_extract)
+    blob = STREAMS["three_tiles"]()
+    buf, _ = port._run_tiles(blob, port.build_decode_index(blob),
+                             torch.device("cpu"))
+    chain = _reference_chain("three_tiles")
+    n = len(chain)
+    assert n >= 3 and batches == [min(cap, n - i) for i in range(0, n, cap)]
+    assert buf.numpy().tobytes() == b"".join(out.tobytes()
+                                             for _, out in chain)
+    assert len(halos) == n
+    for got, (want, _) in zip(halos, chain):
+        assert np.array_equal(got.numpy(), want)
+
+
+def _code(rng, nsym: int, kind: str) -> np.ndarray:
+    """Code lengths of one code: a complete code (random leaves split down
+    to length 15 at most), an incomplete one (a complete one with leaves
+    dropped), a single length-1 code, none, or random lengths (mostly
+    over-subscribed)."""
+    lens = np.zeros(nsym, np.uint8)
+    if kind == "random":
+        return rng.integers(0, 16, nsym).astype(np.uint8)
+    if kind == "single":
+        lens[rng.integers(nsym)] = 1
+        return lens
+    if kind == "none":
+        return lens
+    leaves = [1, 1]
+    for _ in range(int(rng.integers(1, nsym - 1))):
+        i = int(rng.integers(len(leaves)))
+        if leaves[i] < 15:
+            leaves[i:i + 1] = [leaves[i] + 1] * 2
+    leaves = np.array(leaves[:nsym])
+    if kind == "incomplete":
+        leaves = leaves[rng.random(leaves.size) < 0.7]
+    lens[rng.choice(nsym, leaves.size, replace=False)] = leaves
+    return lens
+
+
+def _random_lens8() -> np.ndarray:
+    rng = np.random.default_rng(37)
+    kinds = ("complete", "incomplete", "single", "none", "random")
+    return np.stack([np.concatenate([_code(rng, 288, a), _code(rng, 30, b)])
+                     for a in kinds for b in kinds for _ in range(2)])
+
+
+def _long_code(r, row, at: int, n: int):
+    """K4's decode where its first-level table holds 0: the compares of
+    lengths FAST_BITS + 1 .. 14 only, the shorter boundaries taken as
+    exceeded. Returns (entry, code length)."""
+    lens = torch.arange(ik.FAST_BITS + 1, 15)
+    cl = ik.FAST_BITS + 1 + ((r[:, None] >> (15 - lens)) >= row[at + lens]
+                             ).sum(dim=1)
+    rank = (r >> (15 - cl)) + row[at + 16 + cl]
+    inside = (rank >= 0) & (rank < n)
+    return torch.where(inside, row[at + 32 + rank.clamp(0, n - 1)], 0), cl
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS) + ["random_rows"])
+def test_fast_table_and_compares_equal_cmp_decode(name):
+    """K4's first-level table (`_fast_table_plain`), with the compares of
+    the longer lengths where it holds 0, gives the comparison decode's
+    entry and code length on every 15-bit window, for every block of the
+    streams and for seeded random code lengths (complete, incomplete,
+    single-code, empty and over-subscribed codes)."""
+    if name == "random_rows":
+        lens8 = _random_lens8()
+    else:
+        lens8 = np.unique(ref.build_decode_index(STREAMS[name]())[
+            "block_lens"].astype(np.uint8), axis=0)
+    tables = port._block_tables(torch.from_numpy(lens8))
+    fast = ik._fast_table_plain(tables)
+    assert fast.shape == (len(lens8), 2, 1 << ik.FAST_BITS)
+    assert fast.dtype == torch.int32
+    r = torch.arange(1 << 15)
+    prefix = r >> (15 - ik.FAST_BITS)
+    hits = []
+    for b, row in enumerate(tables.to(torch.int64)):
+        for c, (at, n) in enumerate(((ik.FC_L, ik.LL_SYMS),
+                                     (ik.FC_D, ik.D_SYMS))):
+            want_e, want_cl = ik._cmp_decode(
+                r, row[at:at + 16].expand(r.numel(), 16),
+                row[at + 16:at + 32].expand(r.numel(), 16), row, at + 32, n)
+            entry = fast[b, c, prefix].to(torch.int64)
+            hit = entry != 0
+            long_e, long_cl = _long_code(r, row, at, n)
+            assert torch.equal(torch.where(hit, entry, long_e), want_e)
+            assert torch.equal(torch.where(hit, entry & 15, long_cl),
+                               want_cl)
+            hits.append(float(hit.double().mean()))
+    # The table serves most windows of real codes (every 15-bit window is
+    # equally likely here, so a code of length L weighs 2^-L).
+    if name != "random_rows":
+        assert min(hits[0::2]) > 0.5
+    assert 0 < max(hits)
+
+
 def test_extract_wrapper_checks_its_arguments():
-    words = torch.zeros(8, dtype=torch.int32)
-    seg = torch.zeros(4, dtype=torch.int32)
-    tables = torch.zeros(1, ik.TABLE_WORDS, dtype=torch.int32)
-    assert torch.equal(ik.inflate_extract(words, seg, seg, seg, tables, 32),
-                       torch.zeros(32, 4, dtype=torch.int32))
+    words = torch.zeros(2, 8, dtype=torch.int32)
+    seg = torch.zeros(2, 3, 4, dtype=torch.int32)
+    tables = torch.zeros(2, ik.TABLE_WORDS, dtype=torch.int32)
+    assert torch.equal(ik.inflate_extract(words, seg, [4, 1], tables, 32),
+                       torch.zeros(32, 5, dtype=torch.int32))
+    assert ik.inflate_extract(words, seg, [0, 0], tables, 32).shape == (32, 0)
+    # Rows may be views into packed buffers.
+    packs = torch.zeros(2, 24, dtype=torch.int32)
+    assert ik.inflate_extract(packs[:, :8], packs[:, 8:20].unflatten(1, (
+        3, 4)), [2, 3], tables, 32).shape == (32, 5)
     for args in (
-            (words.long(), seg, seg, seg, tables, 32),
-            (words, seg, seg[:3], seg, tables, 32),
-            (words, seg, seg, seg, tables[:, :100], 32),
-            (words, seg, seg, seg, tables[:0], 32),
-            (words[:0], seg, seg, seg, tables, 32),
-            (words, seg, seg, seg, tables, 0),
-            (words, seg.view(2, 2), seg, seg, tables, 32)):
+            (words.long(), seg, [4, 1], tables, 32),
+            (words[0], seg, [4, 1], tables, 32),
+            (words.t(), seg, [4, 1], tables, 32),
+            (words[:, :0], seg, [4, 1], tables, 32),
+            (words, seg[:1], [4, 1], tables, 32),
+            (words, seg[:, :2], [4, 1], tables, 32),
+            (words, seg[:, :, ::2], [2, 1], tables, 32),
+            (words, seg, [4], tables, 32),
+            (words, seg, [4, 1, 0], tables, 32),
+            (words, seg, [5, 1], tables, 32),
+            (words, seg, [-1, 1], tables, 32),
+            (words, seg, [4, 1], tables[:, :100], 32),
+            (words, seg, [4, 1], tables[:0], 32),
+            (words, seg, [4, 1], torch.zeros(3, ik.TABLE_WORDS,
+                                              dtype=torch.int32), 32),
+            (words, seg, [4, 1], torch.zeros(ik.TABLE_WORDS, 2,
+                                              dtype=torch.int32).t(), 32),
+            (words, seg, [4, 1], tables, 0),
+            (words, seg, [4, 1], tables, 1025)):
         with pytest.raises(ZippyError):
             ik.inflate_extract(*args)
 
@@ -174,3 +333,5 @@ def test_table_layout_matches_the_kernel_source():
     assert f"kFcD = kEL + kNL;     // {ik.FC_D}" in text
     assert f"kOffD = kFcD + 16;    // {ik.OFF_D}" in text
     assert f"kED = kOffD + 16;     // {ik.E_D}" in text
+    assert f"kThreads = {ik.LANES_PER_CTA};" in text
+    assert f"kFastBits = {ik.FAST_BITS};" in text

@@ -9,40 +9,76 @@
 //
 // K4 zt_inflate_extract replaces the jnp/XLA `_extract`
 //    (zippy_tpu/ops/inflate_device.py:268) with `_cmp_decode` (:246) and
-//    `_rev15` (:152). Every segment lane of a tile decodes up to k
-//    sequential DEFLATE tokens from its bit offset, with the Huffman tables
-//    of its block, and writes them packed as the reference does:
-//      out[i][lane] = out_len << 16 | literal       (a literal)
-//                   = out_len << 16 | (dist + 256)  (a match)
-//                   = 0                             (i >= ntok)
+//    `_rev15` (:152). One launch serves a batch of tiles. Every busy segment
+//    lane of every tile decodes up to k sequential DEFLATE tokens from its
+//    bit offset, with the Huffman tables of its block, and writes them
+//    packed as the reference does:
+//      out[i][col] = out_len << 16 | literal       (a literal)
+//                  = out_len << 16 | (dist + 256)  (a match)
+//                  = 0                             (i >= ntok)
+//    Tile t's busy lanes 0 .. used_t - 1 are the columns lane_base[t] ..
+//    lane_base[t + 1] - 1; the padding lanes of the tiles' fixed-size
+//    segment tables are neither run nor written.
 //    Tables, per block, 382 int32 (ops/inflate_kernels.TABLE_WORDS): the
 //    Moffat boundaries fc = first + count and rank offsets off = rank_base
 //    - first per code length, and the rank -> entry row E, for the litlen
-//    code (16, 16, 288) and the distance code (16, 16, 30).
+//    code (16, 16, 288) and the distance code (16, 16, 30); tile t's
+//    blocks are rows t * nblk .. t * nblk + nblk - 1.
 //
-//    Bound: the bytes, mostly the packed output (8 MB for a CFG_L tile; a
-//    token decode needs only 13-31 operations), and in practice the
-//    latency of dependent steps. Each step needs the bit position the step
-//    before it produced, so a lane is a chain of k dependent decodes: three
-//    word loads, then 14 boundary compares, an offset load and an entry
-//    load for the litlen code, the same again for the distance code.
-//    Design: one thread per lane, the block's tables read through the
-//    read-only cache (a tile's tables are at most 64 x 1.5 KB, so they stay
-//    in L1/L2), and the 64-bit window made from three consecutive words by
-//    two funnel shifts. The TPU version's half-shifted copy of the words
-//    (which saved it one gather a step) and its one-hot reduces (which
-//    avoided gathers) are not needed here. Lanes are independent, so the
-//    latency hides only behind other lanes: a 4 MiB tile has about 30,000
-//    busy lanes for the card's 270,000 thread slots.
+//    Bound: the bytes, the packed output of the busy lanes above all (4 k
+//    bytes a lane, about 4.3 MB for a CFG_L tile; a token decode needs only
+//    13-31 operations). Each step needs the bit position the step before it
+//    produced, so a lane is a chain of k dependent decodes, and the kernel
+//    reaches its bound only with enough lanes in flight to hide the chain.
+//    In practice it is near issue-bound: a step on the staged path is about
+//    80 instructions, and 44 warps a SM keep the schedulers busy.
+//    Design:
+//    - The grid covers every busy lane of the batch. A CTA takes
+//      kThreads = 128 consecutive busy lanes of one tile; cta_base, a
+//      prefix made on the host, maps CTAs to tiles. A batch of 23 CFG_L
+//      tiles puts about 770,000 lanes in flight for the card's 270,336
+//      thread slots (one tile alone had about 33,500).
+//    - A CTA's lanes are in stream order, so they use a contiguous run of
+//      block rows. The CTA stages the first kRows = 2 rows of that run in
+//      shared memory (one 64 KiB encoder block, or one zlib block of 16 Ki
+//      symbols, spans 500-1000 lanes, so 128 lanes meet one or two rows),
+//      and builds from each a first-level table of 2^kFastBits = 512
+//      entries per code: entry p is the comparison decode's entry for every
+//      15-bit window whose first 9 code bits are p, where the other 6 bits
+//      cannot change it, and 0 where they can (codes longer than 9 bits).
+//      Those take the compares of lengths 10..14 from the staged row (the
+//      9 shorter boundaries are known to be exceeded). A token then costs
+//      three dependent memory round trips (the window's words, the litlen
+//      entry, the distance entry) instead of six or seven.
+//    - A lane whose row lies outside the staged run (blocks shorter than
+//      128 lanes) reads it from device memory through the read-only cache,
+//      inside this kernel, and adds one to *off_run when that is given.
+//    - The window is 64 bits from three consecutive words, by two funnel
+//      shifts. Neighbouring lanes start some 37 bytes apart in the stream,
+//      so one warp's word load from device memory touches about ten cache
+//      lines. The CTA therefore copies its stretch of the stream, from its
+//      first lane's word to the next CTA's first lane's word + 2, at most
+//      kWinWords = 2048 words (a CTA needs about 1,200 on the 64 MiB
+//      streams), into shared memory with coalesced loads, and a lane reads
+//      its three words from there whenever they lie in it.
+//    - Shared memory per CTA: kRows * (382 + 2 * 512) * 4 + 2048 * 4 =
+//      19,440 bytes. __launch_bounds__ asks for kCtasPerSm = 11 CTAs a SM,
+//      which caps the registers at 46 (nvcc then takes 40; uncapped it
+//      takes 56, and 9 CTAs fit), and 11 CTAs' shared memory fits the SM's
+//      228 KB.
+//    - Each warp finds its CTA's tile with one ballot over cta_base, not a
+//      loop of dependent loads.
+//    Every word index is clamped to its tile's [0, nwords), every block
+//    row to its tile's [0, nblk), as the reference's gathers clamp.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 // Offsets inside one block's table row (int32 words).
 constexpr int kFcL = 0;
-constexpr int kOffL = 16;
 constexpr int kEL = 32;
 constexpr int kNL = 288;
 constexpr int kFcD = kEL + kNL;     // 320
@@ -50,78 +86,242 @@ constexpr int kOffD = kFcD + 16;    // 336
 constexpr int kED = kOffD + 16;     // 352
 constexpr int kND = 30;
 constexpr int kTableWords = kED + kND;  // 382
+// Inside one code's part of a row: fc at +0, off at +16, E at +32.
+constexpr int kOff = 16;
+constexpr int kE = 32;
 
 constexpr int kThreads = 128;
+constexpr int kRows = 2;
+constexpr int kFastBits = 9;
+constexpr int kFast = 1 << kFastBits;
+constexpr int kWinWords = 2048;
+constexpr int kCtasPerSm = 11;
 
-// Canonical Huffman decode by comparisons (Moffat): `r` is the bit-reversed
-// 15-bit window (MSB-first code space). The code length is 1 + the number of
-// exceeded boundaries; the symbol's entry is E[code + off[len]], 0 for a
-// rank outside the row.
-__device__ __forceinline__ int32_t cmp_decode(const int32_t* __restrict__ t,
-                                              int fc, int off, int e, int n,
-                                              int32_t r, int32_t* cl_out) {
-  int32_t cl = 1;
-#pragma unroll
-  for (int len = 1; len <= 14; ++len)
-    cl += (r >> (15 - len)) >= __ldg(t + fc + len) ? 1 : 0;
-  const int32_t rank = (r >> (15 - cl)) + __ldg(t + off + cl);
-  *cl_out = cl;
-  return (rank >= 0 && rank < n) ? __ldg(t + e + rank) : 0;
+template <bool kShared>
+__device__ __forceinline__ int32_t ld(const int32_t* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-inflate_extract_kernel(const uint32_t* __restrict__ words, int nwords,
-                       const int32_t* __restrict__ seg_bit,
-                       const int32_t* __restrict__ seg_blk,
-                       const int32_t* __restrict__ seg_ntok, int nseg,
-                       const int32_t* __restrict__ tables, int nblk, int k,
-                       int32_t* __restrict__ out) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= nseg) return;
-  int32_t bit = seg_bit[lane];
-  const int32_t ntok = seg_ntok[lane];
-  const int32_t blk = min(max(seg_blk[lane], 0), nblk - 1);
-  const int32_t* __restrict__ t = tables + (long long)blk * kTableWords;
-  for (int i = 0; i < k; ++i) {
-    int32_t val = 0;
-    if (i < ntok) {
-      // 64 stream bits from `bit` on: three words (index clamped to the
-      // buffer), two funnel shifts.
-      const int iw = min(max(bit >> 5, 0), nwords - 1);
-      const uint32_t w0 = __ldg(words + iw);
-      const uint32_t w1 = __ldg(words + min(iw + 1, nwords - 1));
-      const uint32_t w2 = __ldg(words + min(iw + 2, nwords - 1));
-      const uint32_t sh = (uint32_t)bit & 31u;
-      const uint32_t lo = __funnelshift_r(w0, w1, sh);
-      const uint32_t hi = __funnelshift_r(w1, w2, sh);
-      // Litlen symbol: rev15 of the low 15 bits is brev(lo) >> 17.
-      int32_t cl;
-      const int32_t e = cmp_decode(t, kFcL, kOffL, kEL, kNL,
-                                   (int32_t)(__brev(lo) >> 17), &cl);
-      const bool is_lit = (e >> 5) & 1;
-      const int32_t lb = (e >> 8) & 0xFF;
-      const int32_t lbase = (e >> 16) & 0x1FF;
-      const uint32_t lx = (uint32_t)(e >> 25) & 7u;
-      const int32_t length =
-          lbase + (int32_t)((lo >> cl) & ((1u << lx) - 1u));
-      // Distance symbol: its code starts cl + lx bits in (1..22).
-      const uint32_t sh2 = (uint32_t)cl + lx;
-      const uint32_t lo2 = __funnelshift_r(lo, hi, sh2);
-      int32_t dcl;
-      const int32_t de = cmp_decode(t, kFcD, kOffD, kED, kND,
-                                    (int32_t)(__brev(lo2) >> 17), &dcl);
-      const uint32_t dx = (uint32_t)(de >> 5) & 15u;
-      const int32_t dist = ((de >> 16) & 0x7FFF) + 1 +
-                           (int32_t)((lo2 >> dcl) & ((1u << dx) - 1u));
-      if (is_lit) {
-        val = (1 << 16) | lb;
-        bit += cl;
-      } else {
-        val = (length << 16) | (dist + 256);
-        bit += (int32_t)(sh2 + (uint32_t)dcl + dx);
-      }
+// Canonical Huffman decode by comparisons (Moffat) on one code's part of a
+// table row `c`: `r` is the bit-reversed 15-bit window (MSB-first code
+// space). The code length is 1 + the number of exceeded boundaries; the
+// symbol's entry is E[code + off[len]], 0 for a rank outside the row. The
+// exceeded boundaries are always those of lengths 1 .. cl - 1 (tables as
+// `_cmp_tables` builds them have fc[j + 1] >= 2 fc[j]), so a caller that
+// knows the first kFirst - 1 are exceeded starts at kFirst.
+template <bool kShared, int kFirst>
+__device__ __forceinline__ int32_t cmp_decode(const int32_t* c, int n,
+                                              int32_t r, int32_t* cl_out) {
+  int32_t cl = kFirst;
+#pragma unroll
+  for (int len = kFirst; len <= 14; ++len)
+    cl += (r >> (15 - len)) >= ld<kShared>(c + len) ? 1 : 0;
+  const int32_t rank = (r >> (15 - cl)) + ld<kShared>(c + kOff + cl);
+  *cl_out = cl;
+  return (rank >= 0 && rank < n) ? ld<kShared>(c + kE + rank) : 0;
+}
+
+// The code at the low end of `bits` (LSB-first stream order). With staged
+// tables: the first-level table's entry (which holds its code length in
+// its low 4 bits, E = symbol | length), or for a 0 there, whose code is
+// longer than kFastBits, the compares of lengths kFastBits + 1 .. 14.
+// Without: all 14 compares.
+template <bool kShared>
+__device__ __forceinline__ int32_t decode(const int32_t* c,
+                                          const int32_t* fast, int n,
+                                          uint32_t bits, int32_t* cl) {
+  const int32_t r = (int32_t)(__brev(bits) >> 17);
+  if constexpr (kShared) {
+    const int32_t e = fast[r >> (15 - kFastBits)];
+    if (e != 0) {
+      *cl = e & 15;
+      return e;
     }
-    out[(long long)i * nseg + lane] = val;
+    return cmp_decode<true, kFastBits + 1>(c, n, r, cl);
+  } else {
+    return cmp_decode<false, 1>(c, n, r, cl);
+  }
+}
+
+// One code's first-level table from its staged part of a row, in shared
+// memory: entry p is the compare decode's entry for the windows starting
+// with p when the boundaries of lengths 1..9 give a length cl <= 9, else 0.
+// Tables as `_cmp_tables` builds them have fc[j + 1] >= 2 fc[j], so a
+// prefix below boundary cl stays below every longer one: the other 6 bits
+// cannot change cl, the rank, or the entry, which is then that of a symbol
+// of length cl (E = symbol | length, never 0).
+__device__ __forceinline__ void build_fast(const int32_t* c, int n,
+                                           int32_t* fast) {
+  int32_t fc[kFastBits + 1];
+#pragma unroll
+  for (int len = 1; len <= kFastBits; ++len) fc[len] = c[len];
+#pragma unroll
+  for (int q = 0; q < kFast / kThreads; ++q) {
+    const int32_t p = (int32_t)threadIdx.x + q * kThreads;
+    int32_t cl = 1;
+#pragma unroll
+    for (int len = 1; len <= kFastBits; ++len)
+      cl += (p >> (kFastBits - len)) >= fc[len] ? 1 : 0;
+    int32_t e = 0;
+    if (cl <= kFastBits) {
+      const int32_t rank = (p >> (kFastBits - cl)) + c[kOff + cl];
+      e = (rank >= 0 && rank < n) ? c[kE + rank] : 0;
+    }
+    fast[p] = e;
+  }
+}
+
+// One lane's k steps; `row` is its block's table row (shared memory when
+// kShared, with `fast` its two first-level tables), `win` the CTA's staged
+// words w_lo .. w_lo + nwin - 1 of the tile, `out` the lane's column.
+template <bool kShared>
+__device__ __forceinline__ void extract_lane(
+    const uint32_t* __restrict__ words, int nwords, const uint32_t* win,
+    int w_lo, int nwin, const int32_t* row, const int32_t* fast,
+    int32_t bit, int32_t ntok, int k, int32_t* __restrict__ out,
+    int total) {
+  const int n = min(max(ntok, 0), k);
+  // The three words at j .. j + 2 lie in the window for j < nwin - 2.
+  const unsigned in_win = (unsigned)max(nwin - 2, 0);
+  for (int i = 0; i < n; ++i, out += total) {
+    // 64 stream bits from `bit` on: three words (from the staged window
+    // when all three lie in it; else from device memory, the index
+    // clamped to the tile's words), two funnel shifts.
+    const int j = (bit >> 5) - w_lo;
+    uint32_t w0, w1, w2;
+    if ((unsigned)j < in_win) {
+      w0 = win[j];
+      w1 = win[j + 1];
+      w2 = win[j + 2];
+    } else {
+      const int iw = min(max(bit >> 5, 0), nwords - 1);
+      w0 = __ldg(words + iw);
+      w1 = __ldg(words + min(iw + 1, nwords - 1));
+      w2 = __ldg(words + min(iw + 2, nwords - 1));
+    }
+    const uint32_t sh = (uint32_t)bit & 31u;
+    const uint32_t lo = __funnelshift_r(w0, w1, sh);
+    const uint32_t hi = __funnelshift_r(w1, w2, sh);
+    int32_t cl;
+    const int32_t e = decode<kShared>(row + kFcL, fast, kNL, lo, &cl);
+    const bool is_lit = (e >> 5) & 1;
+    const int32_t lb = (e >> 8) & 0xFF;
+    const int32_t lbase = (e >> 16) & 0x1FF;
+    const uint32_t lx = (uint32_t)(e >> 25) & 7u;
+    const int32_t length = lbase + (int32_t)((lo >> cl) & ((1u << lx) - 1u));
+    // Distance code: it starts cl + lx bits in (1..22).
+    const uint32_t sh2 = (uint32_t)cl + lx;
+    const uint32_t lo2 = __funnelshift_r(lo, hi, sh2);
+    int32_t dcl;
+    const int32_t de = decode<kShared>(row + kFcD, fast + kFast, kND, lo2,
+                                       &dcl);
+    const uint32_t dx = (uint32_t)(de >> 5) & 15u;
+    const int32_t dist = ((de >> 16) & 0x7FFF) + 1 +
+                         (int32_t)((lo2 >> dcl) & ((1u << dx) - 1u));
+    if (is_lit) {
+      *out = (1 << 16) | lb;
+      bit += cl;
+    } else {
+      *out = (length << 16) | (dist + 256);
+      bit += (int32_t)(sh2 + (uint32_t)dcl + dx);
+    }
+  }
+  // Slots past the lane's token count.
+  for (int i = n; i < k; ++i, out += total) *out = 0;
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+inflate_extract_kernel(const uint32_t* __restrict__ words,
+                       long long words_stride, int nwords,
+                       const int32_t* __restrict__ seg,
+                       long long seg_tile_stride, long long seg_row_stride,
+                       const int32_t* __restrict__ bases, int ntiles,
+                       const int32_t* __restrict__ tables, int nblk, int k,
+                       int total, int32_t* __restrict__ out,
+                       unsigned long long* off_run) {
+  __shared__ int32_t s_rows[kRows * kTableWords];
+  __shared__ int32_t s_fast[kRows][2 * kFast];
+  __shared__ uint32_t s_win[kWinWords];
+  __shared__ int s_lo, s_hi;
+
+  // This CTA's tile t: the number of tiles before the last whose CTAs end
+  // at or before blockIdx.x (cta_base is nondecreasing; a tile without
+  // busy lanes has no CTA), counted 32 tiles at a time by a warp ballot.
+  const int32_t* lane_base = bases;
+  const int32_t* cta_base = bases + ntiles + 1;
+  const int cta = (int)blockIdx.x;
+  int t = 0;
+  for (int base = 0; base < ntiles - 1; base += 32) {
+    const int l = base + ((int)threadIdx.x & 31);
+    t += __popc(__ballot_sync(
+        0xffffffffu, l < ntiles - 1 && __ldg(cta_base + l + 1) <= cta));
+  }
+  const int32_t col0 = __ldg(lane_base + t);
+  const int used = __ldg(lane_base + t + 1) - col0;
+  const int lane = (cta - __ldg(cta_base + t)) * kThreads + (int)threadIdx.x;
+  const bool busy = lane < used;
+  const int32_t* tseg = seg + t * seg_tile_stride;
+  const int32_t* lseg = tseg + lane;
+  const int32_t* ttab = tables + (long long)t * nblk * kTableWords;
+  const uint32_t* w = words + t * words_stride;
+  const int blk = busy ? min(max(lseg[seg_row_stride], 0), nblk - 1) : 0;
+
+  // The run of block rows the CTA's busy lanes use (its first lane is
+  // always busy).
+  if (threadIdx.x == 0) {
+    s_lo = INT_MAX;
+    s_hi = 0;
+  }
+  __syncthreads();
+  const int wlo = __reduce_min_sync(0xffffffffu, busy ? blk : INT_MAX);
+  const int whi = __reduce_max_sync(0xffffffffu, busy ? blk : 0);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(&s_lo, wlo);
+    atomicMax(&s_hi, whi);
+  }
+  __syncthreads();
+  const int b0 = s_lo;
+  const int nrows = min(s_hi - b0 + 1, kRows);
+
+  // Stage the run's first nrows rows (contiguous in device memory), and
+  // the CTA's stream words: from its first lane's word to the next CTA's
+  // first lane's word + 2, at most kWinWords.
+  const int32_t* src = ttab + (long long)b0 * kTableWords;
+  for (int j = (int)threadIdx.x; j < nrows * kTableWords; j += kThreads)
+    s_rows[j] = __ldg(src + j);
+  const int lane0 = lane - (int)threadIdx.x;
+  const int w_lo = min(max(__ldg(tseg + lane0) >> 5, 0), nwords - 1);
+  int w_end = nwords;
+  if (lane0 + kThreads < used)
+    w_end = min(max((__ldg(tseg + lane0 + kThreads) >> 5) + 3, w_lo), w_end);
+  const int nwin = min(w_end - w_lo, kWinWords);
+  for (int j = (int)threadIdx.x; j < nwin; j += kThreads)
+    s_win[j] = __ldg(w + w_lo + j);
+  __syncthreads();
+  for (int r = 0; r < nrows; ++r) {
+    build_fast(s_rows + r * kTableWords + kFcL, kNL, s_fast[r]);
+    build_fast(s_rows + r * kTableWords + kFcD, kND, s_fast[r] + kFast);
+  }
+  __syncthreads();
+
+  if (!busy) return;
+  const int32_t bit = lseg[0];
+  const int32_t ntok = lseg[2 * seg_row_stride];
+  int32_t* o = out + col0 + lane;
+  const int slot = blk - b0;
+  if (slot < nrows) {
+    extract_lane<true>(w, nwords, s_win, w_lo, nwin,
+                       s_rows + slot * kTableWords, s_fast[slot], bit, ntok,
+                       k, o, total);
+  } else {
+    if (off_run != nullptr) atomicAdd(off_run, 1ull);
+    extract_lane<false>(w, nwords, s_win, w_lo, nwin,
+                        ttab + (long long)blk * kTableWords, nullptr, bit,
+                        ntok, k, o, total);
   }
 }
 
@@ -129,22 +329,28 @@ inflate_extract_kernel(const uint32_t* __restrict__ words, int nwords,
 
 extern "C" {
 
-// words: nwords >= 1 uint32 (the tile's stream words); seg_bit, seg_blk,
-// seg_ntok: nseg int32 each (bit offset into words, block row, tokens);
-// tables: nblk >= 1 rows of 382 int32; out: k * nseg int32, row i holding
-// every lane's token i.
-int zt_inflate_extract(const void* words, int nwords, const void* seg_bit,
-                       const void* seg_blk, const void* seg_ntok, int nseg,
-                       const void* tables, int nblk, int k, void* out,
+// words: ntiles rows of nwords >= 1 uint32 (the tiles' stream words), row
+// t at words + t * words_stride; seg: per tile three rows of int32 (bit
+// offset into the tile's words, block row, token count), tile t's row j at
+// seg + t * seg_tile_stride + j * seg_row_stride; bases: ntiles + 1 busy-
+// lane prefix sums, then ntiles + 1 CTA prefix sums (ceil(used / 128)),
+// ncta the last; tables: ntiles * nblk rows of 382 int32; out: k * total
+// int32, row i holding every busy lane's token i; off_run: null, or one
+// uint64 that counts the lanes whose block row was not staged.
+int zt_inflate_extract(const void* words, long long words_stride, int nwords,
+                       const void* seg, long long seg_tile_stride,
+                       long long seg_row_stride, const void* bases,
+                       int ntiles, int ncta, const void* tables, int nblk,
+                       int k, int total, void* out, void* off_run,
                        void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nseg > 0 && k > 0) {
-    const int grid = (nseg + kThreads - 1) / kThreads;
-    inflate_extract_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, nwords, (const int32_t*)seg_bit,
-        (const int32_t*)seg_blk, (const int32_t*)seg_ntok, nseg,
-        (const int32_t*)tables, nblk, k, (int32_t*)out);
+  if (ncta > 0 && k > 0) {
+    inflate_extract_kernel<<<ncta, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, words_stride, nwords, (const int32_t*)seg,
+        seg_tile_stride, seg_row_stride, (const int32_t*)bases, ntiles,
+        (const int32_t*)tables, nblk, k, total, (int32_t*)out,
+        (unsigned long long*)off_run);
   }
   return (int)cudaGetLastError();
 }

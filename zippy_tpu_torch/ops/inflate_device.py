@@ -7,15 +7,18 @@ The index-based tiled decode of the reference, on a CUDA card:
    stored spans, and the adler32 of the serial decode.
 2. The host planner (`_plan_tiles`) cuts the checkpoints into tiles of
    fixed capacity (output bytes, segments, blocks, stored spans, stream
-   words, match bytes), and `_tile_pack` packs each tile into one buffer,
-   uploaded from pinned memory without a host sync. The two capacity sets
-   are the reference's, so every tile can be held against its `_decode_tile`.
-3. On the card, per tile (`_decode_tile`): the per-block comparison tables
-   (`_cmp_tables`, torch ops), token extraction (kernel K4
-   `inflate_extract`, ops/inflate_kernels.py), and the LZ resolution
-   (`_resolve`, torch ops: one token scatter, a forward fill (`_ffill`),
-   stored-span copies, match-byte compaction and pointer doubling). Tiles
-   chain through a 32 KiB halo of decoded bytes, device to device.
+   words, match bytes), and `_tile_pack` packs each tile into one buffer.
+   The two capacity sets are the reference's, so every tile can be held
+   against its `_decode_tile`.
+3. On the card, per batch of up to _TILES_PER_LAUNCH tiles
+   (`_decode_batch`): the packs uploaded as one pinned buffer without a
+   host sync, the per-block comparison tables of every tile in one build
+   (`_cmp_tables`, torch ops), token extraction of every busy lane in one
+   launch of kernel K4 `inflate_extract` (ops/inflate_kernels.py), then per
+   tile the LZ resolution (`_resolve`, torch ops: one token scatter, a
+   forward fill (`_ffill`), stored-span copies, match-byte compaction and
+   pointer doubling). Tiles chain through a 32 KiB halo of decoded bytes,
+   device to device.
 4. Every tile's bytes land in one output buffer, whose adler32 (kernel K1)
    must equal the scan's, and for gzip whose crc32 (K2 + K3) must equal the
    trailer: a corrupt stream that passes the scan cannot return silent
@@ -48,6 +51,11 @@ from .inflate_scan import inflate_scan
 
 # Tokens per segment: the extraction runs this many dependent steps per lane.
 _EVERY = 32
+
+# Tiles per K4 launch: their packs go up as one buffer, their tables are
+# built together, and one launch extracts all their busy lanes. 32 CFG_L
+# tiles hold about a million busy lanes, several times the card's threads.
+_TILES_PER_LAUNCH = 32
 
 HALO = 32768  # DEFLATE window: matches never reach further back
 
@@ -321,38 +329,63 @@ def _buf_size(cfg: TileConfig) -> int:
             + (318 * cfg.nblk + 3) // 4)
 
 
-def _unpack(pack: torch.Tensor, cfg: TileConfig):
-    """Views of one tile's packed int32 buffer: words (nwords,), the segment
-    rows bit, block, ntok (each (nseg,)), seg_out (nseg,), and the code
-    lengths (nblk, 318) uint8. The stored-span table is skipped: the host
+def _unpack(packs: torch.Tensor, cfg: TileConfig):
+    """Views of a batch of packed int32 tile buffers (ntiles, _buf_size):
+    words (ntiles, nwords), the segment rows bit, block, ntok
+    (ntiles, 3, nseg), seg_out (ntiles, nseg), and the code lengths
+    (ntiles, nblk, 318) uint8. The stored-span table is skipped: the host
     hands the spans to `_resolve`."""
     off = 2
-    words = pack[off:off + cfg.nwords]
+    words = packs[:, off:off + cfg.nwords]
     off += cfg.nwords
-    seg = pack[off:off + 3 * cfg.nseg].view(3, cfg.nseg)
+    seg = packs[:, off:off + 3 * cfg.nseg].unflatten(1, (3, cfg.nseg))
     off += 3 * cfg.nseg
-    seg_out = pack[off:off + cfg.nseg]
+    seg_out = packs[:, off:off + cfg.nseg]
     off += cfg.nseg + 3 * cfg.nsto
-    lens8 = pack[off:off + (318 * cfg.nblk + 3) // 4].view(torch.uint8)
-    return (words, seg[0], seg[1], seg[2], seg_out,
-            lens8[:318 * cfg.nblk].view(cfg.nblk, 318))
+    lens8 = packs[:, off:off + (318 * cfg.nblk + 3) // 4].view(torch.uint8)
+    return (words, seg, seg_out,
+            lens8[:, :318 * cfg.nblk].unflatten(1, (cfg.nblk, 318)))
 
 
-def _decode_tile(pack, halo, nrounds: int, stored, *, k: int,
-                 cfg: TileConfig, stages=None) -> torch.Tensor:
-    """One tile: tables, extraction (K4), LZ resolution. `pack` is the
-    tile's packed buffer as int32 on the card, `halo` the 32 KiB before the
-    tile. Returns out uint8 (HALO + tile_out,): the tile's `used` bytes are
-    out[HALO:HALO + used], and out[used:used + HALO] is the next halo."""
-    dev = pack.device
-    words, seg_bit, seg_blk, seg_ntok, seg_out, lens8 = _unpack(pack, cfg)
-    with _stage(stages, "tables", dev):
-        tables = _block_tables(lens8)
-    with _stage(stages, "extract", dev):
-        packed = inflate_kernels.inflate_extract(words, seg_bit, seg_blk,
-                                                 seg_ntok, tables, k)
-    with _stage(stages, "resolve", dev):
-        return _resolve(packed, seg_out, words, stored, halo, nrounds, cfg)
+def _decode_batch(packs, halo, tiles, stored, *, k: int, cfg: TileConfig,
+                  stages=None):
+    """A batch of tiles: every tile's tables in one build, the extraction
+    of all their busy lanes in one K4 launch (none when no lane is busy),
+    then each tile's LZ resolution in order, the halo chained. `packs` is
+    the tiles' packed buffers (ntiles, _buf_size) int32 on the card, `halo`
+    the 32 KiB before the first tile, `tiles` their plan (`_Tile`: busy
+    lanes s1 - s0, output bytes `used`, depth) and `stored` their stored
+    spans, host ints. Yields each tile's out uint8 (HALO + tile_out,): its
+    `used` bytes are out[HALO:HALO + used], and out[used:used + HALO] is the
+    next halo."""
+    dev = packs.device
+    words, seg, seg_out, lens8 = _unpack(packs, cfg)
+    lanes = [t.s1 - t.s0 for t in tiles]
+    if any(lanes):
+        with _stage(stages, "tables", dev):
+            tables = _block_tables(lens8.reshape(-1, 318))
+        with _stage(stages, "extract", dev):
+            packed = inflate_kernels.inflate_extract(words, seg, lanes,
+                                                     tables, k)
+    else:
+        packed = torch.zeros(k, 0, dtype=torch.int32, device=dev)
+    col = 0
+    for i, tile in enumerate(tiles):
+        with _stage(stages, "resolve", dev):
+            out = _resolve(packed[:, col:col + lanes[i]],
+                           seg_out[i, :lanes[i]], words[i], stored[i], halo,
+                           _nrounds_for_depth(tile.depth, cfg), cfg)
+        col += lanes[i]
+        halo = out[tile.used:tile.used + HALO]
+        yield out
+
+
+def _decode_tile(pack, halo, tile, stored, *, k: int, cfg: TileConfig,
+                 stages=None) -> torch.Tensor:
+    """One tile, as a batch of one: `pack` its packed buffer (_buf_size,)
+    int32 on the card. Returns its out, as `_decode_batch` yields it."""
+    return next(_decode_batch(pack[None], halo, [tile], [stored], k=k,
+                              cfg=cfg, stages=stages))
 
 
 # ---------------------------------------------------------------------------
@@ -547,10 +580,28 @@ def build_decode_index(data: bytes, start_bit: int = 0, every: int = _EVERY):
     return inflate_scan(data, start_bit, every)
 
 
+def _upload_packs(packs: list, device: torch.device,
+                  keep: list) -> torch.Tensor:
+    """The tiles' packed buffers as the rows of one int32 tensor on
+    `device`: a CUDA upload goes from one pinned buffer without a host
+    sync; the pinned buffer is appended to `keep`, for the caller to hold
+    until it next synchronizes."""
+    cuda = device.type == "cuda"
+    host = torch.empty(len(packs), packs[0].shape[0], dtype=torch.int32,
+                       pin_memory=cuda)
+    for row, pack in zip(host.numpy(), packs):
+        row[:] = pack.view(np.int32)
+    if not cuda:
+        return host.to(device)
+    keep.append(host)
+    return host.to(device, non_blocking=True)
+
+
 def _run_tiles(data, index, device: torch.device, stages=None):
-    """Dispatch every tile, back to back with no host sync, into one output
-    buffer on `device`. Returns (buffer of total_out bytes, the pinned
-    upload buffers to hold until the next sync)."""
+    """Dispatch every tile, in batches of up to _TILES_PER_LAUNCH, back to
+    back with no host sync, into one output buffer on `device`. Returns
+    (buffer of total_out bytes, the pinned upload buffers to hold until the
+    next sync)."""
     total = int(index["total_out"])
     cfg = _pick_cfg(total)
     k = int(index["every"])
@@ -559,17 +610,20 @@ def _run_tiles(data, index, device: torch.device, stages=None):
     buf = torch.empty(total, dtype=torch.uint8, device=device)
     halo = torch.zeros(HALO, dtype=torch.uint8, device=device)
     keep: list = []
-    for tile in tiles:
-        nrounds = _nrounds_for_depth(tile.depth, cfg)
+    for b in range(0, len(tiles), _TILES_PER_LAUNCH):
+        batch = tiles[b:b + _TILES_PER_LAUNCH]
         with _stage(stages, "plan_pack", device):
-            pack = _tile_pack(data, index, tile, cfg, nrounds).view(np.int32)
-            stored = _tile_stored(index, tile)
+            packs = [_tile_pack(data, index, tile, cfg,
+                                _nrounds_for_depth(tile.depth, cfg))
+                     for tile in batch]
+            stored = [_tile_stored(index, tile) for tile in batch]
         with _stage(stages, "upload", device):
-            pack = _upload(pack, device, keep)
-        out = _decode_tile(pack, halo, nrounds, stored, k=k, cfg=cfg,
-                           stages=stages)
-        with _stage(stages, "resolve", device):
-            buf[tile.base:tile.base + tile.used] = out[HALO:HALO + tile.used]
+            packs = _upload_packs(packs, device, keep)
+        for tile, out in zip(batch, _decode_batch(
+                packs, halo, batch, stored, k=k, cfg=cfg, stages=stages)):
+            with _stage(stages, "resolve", device):
+                buf[tile.base:tile.base + tile.used] = \
+                    out[HALO:HALO + tile.used]
         halo = out[tile.used:tile.used + HALO]
     return buf, keep
 

@@ -2,18 +2,22 @@
 PyTorch version.
 
 K4 `inflate_extract` replaces the jnp/XLA `_extract` of
-zippy_tpu/ops/inflate_device.py (with `_cmp_decode` and `_rev15`): every
-segment lane of a tile decodes up to k sequential DEFLATE tokens from its
-bit offset with its block's comparison tables, and the tokens come back
-packed exactly as the reference packs them, (k, nseg) int32:
-`out_len << 16 | literal`, `out_len << 16 | (dist + 256)`, or 0 for slots
-past the lane's token count.
+zippy_tpu/ops/inflate_device.py (with `_cmp_decode` and `_rev15`) for a
+batch of tiles at once: every busy segment lane of every tile decodes up to
+k sequential DEFLATE tokens from its bit offset with its block's comparison
+tables, and the tokens come back packed exactly as the reference packs
+them, (k, total busy lanes) int32, tile after tile: `out_len << 16 |
+literal`, `out_len << 16 | (dist + 256)`, or 0 for slots past the lane's
+token count. A tile's busy lanes are the first `used` of its segment table;
+the reference's padding lanes past them hold only zeros.
 
 Tables are one (nblk, 382) int32 row per Huffman block (TABLE_WORDS): the
 litlen code's fc (16), off (16), E (288), then the distance code's fc (16),
 off (16), E (30), as ops/inflate_device._cmp_tables builds them. A lane
 reads its own block's row: the TPU version's one-hot matmul that copied the
-rows to every lane is not needed.
+rows to every lane is not needed. The kernel stages the rows its lanes use
+in shared memory with a first-level table of 2^FAST_BITS entries per code
+(`_fast_table_plain` is its plain version, for the tests).
 
 The wrapper launches K4 on CUDA tensors (or raises) and runs the plain
 version on CPU tensors. The kernel builds with nvcc at first CUDA use
@@ -37,6 +41,9 @@ FC_L, OFF_L, E_L = 0, 16, 32
 FC_D = E_L + LL_SYMS
 OFF_D, E_D = FC_D + 16, FC_D + 32
 TABLE_WORDS = E_D + D_SYMS          # 382
+# csrc/inflate.cu's kThreads (busy lanes per CTA) and kFastBits.
+LANES_PER_CTA = 128
+FAST_BITS = 9
 
 _M32 = 0xFFFFFFFF
 
@@ -47,9 +54,9 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(kernel_build.build("inflate.cu")))
     except OSError as e:
         raise ZippyError(f"cannot load the inflate kernel: {e}") from e
-    p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.zt_inflate_extract.argtypes = [p, i32, p, p, p, i32, p, i32, i32, p,
-                                       p, i32]
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.zt_inflate_extract.argtypes = [p, i64, i32, p, i64, i64, p, i32, i32,
+                                       p, i32, i32, i32, p, p, p, i32]
     lib.zt_inflate_extract.restype = i32
     return lib
 
@@ -65,7 +72,7 @@ def _rev15(x: torch.Tensor) -> torch.Tensor:
 
 def _cmp_decode(r, fc, off, flat, e_at, n: int):
     """One comparison decode across lanes: r the bit-reversed 15-bit window,
-    fc/off (nseg, 16) the lanes' boundary and offset rows, and each lane's
+    fc/off (nlanes, 16) the lanes' boundary and offset rows, and each lane's
     rank -> entry row of n entries at flat[e_at:]. Returns (entry, code
     length): the length is 1 + the number of exceeded boundaries, the entry
     that of rank code + off[len], 0 for a rank outside the row."""
@@ -76,29 +83,69 @@ def _cmp_decode(r, fc, off, flat, e_at, n: int):
     return torch.where(inside, flat[e_at + rank.clamp(0, n - 1)], 0), cl
 
 
-def _extract_plain(words, seg_bit, seg_blk, seg_ntok, tables,
-                   k: int) -> torch.Tensor:
+def _fast_table_plain(tables: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4's first-level tables, in the kernel's layout:
+    (nrows, 2, 2^FAST_BITS) int32, the litlen code's then the distance
+    code's, from tables (nrows, 382). Entry p is the comparison decode's
+    entry for the 15-bit windows whose first FAST_BITS code bits are p,
+    where the boundaries of lengths 1..FAST_BITS give a length cl <=
+    FAST_BITS; else 0, and the kernel takes the compares. With tables as
+    `_cmp_tables` builds them (fc[j + 1] >= 2 fc[j]) the other bits cannot
+    change such an entry, which is that of a symbol of length cl (E =
+    symbol | length, never 0)."""
+    t = tables.to(torch.int64)
+    dev = t.device
+    p = torch.arange(1 << FAST_BITS, device=dev)
+    lens = torch.arange(1, FAST_BITS + 1, device=dev)
+    out = []
+    for at, n in ((FC_L, LL_SYMS), (FC_D, D_SYMS)):
+        cl = 1 + ((p[:, None] >> (FAST_BITS - lens)) >= t[
+            :, None, at + 1:at + FAST_BITS + 1]).sum(-1)   # (nrows, 2^bits)
+        short = cl <= FAST_BITS
+        cl = cl.clamp(max=FAST_BITS)
+        rank = (p >> (FAST_BITS - cl)) + t[:, at + OFF_L:].gather(1, cl)
+        e = torch.where((rank >= 0) & (rank < n), t[:, at + E_L:].gather(
+            1, rank.clamp(0, n - 1)), 0)
+        out.append(torch.where(short, e, 0))
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+def _busy_lanes(used, device):
+    """(tile, lane) of every busy lane, tile after tile."""
+    counts = torch.tensor(used, dtype=torch.int64)
+    tile = torch.repeat_interleave(torch.arange(len(used)), counts)
+    lane = torch.arange(tile.numel()) - (torch.cumsum(counts, 0)
+                                         - counts)[tile]
+    return tile.to(device), lane.to(device)
+
+
+def _extract_plain(words, seg, used, tables, k: int) -> torch.Tensor:
     """Plain version of K4, step for step (int64 on the host: 32-bit words
-    masked, logical shifts)."""
-    nw, nblk = words.shape[0], tables.shape[0]
-    w = words.to(torch.int64) & _M32
-    flat = tables.to(torch.int64).reshape(-1)
-    blk = seg_blk.to(torch.int64).clamp(0, nblk - 1)
-    rows = tables.to(torch.int64)[:, :E_L][blk]           # (nseg, 32)
+    masked, logical shifts): each busy lane reads its own tile's words and
+    block rows."""
+    ntiles, nw = words.shape
+    nblk = tables.shape[0] // ntiles
+    tile, lane = _busy_lanes(used, words.device)
+    w = words.to(torch.int64).reshape(-1) & _M32
+    t64 = tables.to(torch.int64)
+    flat = t64.reshape(-1)
+    blk = seg[tile, 1, lane].to(torch.int64).clamp(0, nblk - 1) + tile * nblk
+    rows = t64[:, :E_L][blk]                              # (nlanes, 32)
     fc_l, off_l = rows[:, FC_L:OFF_L], rows[:, OFF_L:E_L]
-    rows = tables.to(torch.int64)[:, FC_D:E_D][blk]
+    rows = t64[:, FC_D:E_D][blk]
     fc_d, off_d = rows[:, :16], rows[:, 16:]
     e_l, e_d = blk * TABLE_WORDS + E_L, blk * TABLE_WORDS + E_D
-    bit = seg_bit.to(torch.int64)
-    ntok = seg_ntok.to(torch.int64)
+    wbase = tile * nw
+    bit = seg[tile, 0, lane].to(torch.int64)
+    ntok = seg[tile, 2, lane].to(torch.int64)
     packed = torch.zeros(k, bit.shape[0], dtype=torch.int32,
                          device=words.device)
     for i in range(k):
         active = i < ntok
         iw = (bit >> 5).clamp(0, nw - 1)
-        w0 = w[iw]
-        w1 = w[(iw + 1).clamp(max=nw - 1)]
-        w2 = w[(iw + 2).clamp(max=nw - 1)]
+        w0 = w[wbase + iw]
+        w1 = w[wbase + (iw + 1).clamp(max=nw - 1)]
+        w2 = w[wbase + (iw + 2).clamp(max=nw - 1)]
         sh = bit & 31
         lo = (w0 >> sh) | ((w1 << (32 - sh)) & _M32)
         hi = (w1 >> sh) | ((w2 << (32 - sh)) & _M32)
@@ -124,46 +171,91 @@ def _extract_plain(words, seg_bit, seg_blk, seg_ntok, tables,
 
 
 def _check(x: torch.Tensor, name: str, dim: int) -> None:
-    if x.dtype != torch.int32 or x.dim() != dim or not x.is_contiguous():
-        raise ZippyError(f"{name} must be a contiguous {dim}-D int32 tensor, "
-                         f"got {tuple(x.shape)} {x.dtype}")
+    """int32 of `dim` dimensions whose last one is contiguous (rows may lie
+    apart, as views into the tiles' packed buffers do)."""
+    if x.dtype != torch.int32 or x.dim() != dim or x.stride(-1) != 1 \
+            or min(x.stride()) < 0:
+        raise ZippyError(f"{name} must be a {dim}-D int32 tensor with "
+                         f"contiguous rows, got {tuple(x.shape)} {x.dtype} "
+                         f"strides {x.stride()}")
 
 
-def inflate_extract(words, seg_bit, seg_blk, seg_ntok, tables,
-                    k: int) -> torch.Tensor:
-    """Decode up to k tokens per segment lane: words (nwords,) int32 bit
-    patterns of the tile's stream; seg_bit, seg_blk, seg_ntok (nseg,) int32
-    (bit offset into words, table row, token count); tables (nblk, 382)
-    int32. Returns packed (k, nseg) int32. K4 on CUDA tensors, the plain
-    version on CPU tensors."""
-    for x, name, dim in ((words, "words", 1), (seg_bit, "seg_bit", 1),
-                         (seg_blk, "seg_blk", 1), (seg_ntok, "seg_ntok", 1),
-                         (tables, "tables", 2)):
-        _check(x, name, dim)
-    nseg = seg_bit.shape[0]
-    if seg_blk.shape[0] != nseg or seg_ntok.shape[0] != nseg:
-        raise ZippyError("the segment arrays differ in length")
-    if not words.numel() or tables.shape[0] < 1 \
-            or tables.shape[1] != TABLE_WORDS:
-        raise ZippyError(f"expected words and (nblk >= 1, {TABLE_WORDS}) "
+def inflate_extract(words, seg, used, tables, k: int,
+                    off_run=None) -> torch.Tensor:
+    """Decode up to k tokens per busy segment lane of a batch of tiles:
+    words (ntiles, nwords) int32 bit patterns of each tile's stream; seg
+    (ntiles, 3, nseg) int32, each tile's rows of bit offset into its words,
+    block row and token count; used, the busy lanes of each tile (host
+    ints, at most nseg each: its first `used` lanes); tables
+    (ntiles * nblk, 382) int32, tile t's blocks at rows t * nblk on. Rows
+    may be views into the tiles' packed buffers. Returns packed
+    (k, sum(used)) int32, tile t's lanes in the columns from
+    sum(used[:t]) on. K4 on CUDA tensors (one launch; none when no lane is
+    busy), the plain version on CPU tensors. `off_run`, a (1,) int64 CUDA
+    tensor, has K4 add the lanes whose block row it did not stage."""
+    _check(words, "words", 2)
+    _check(seg, "seg", 3)
+    _check(tables, "tables", 2)
+    ntiles, nwords = words.shape
+    nrows = tables.shape[0]
+    if not tables.is_contiguous() or tables.shape[1] != TABLE_WORDS \
+            or not ntiles or not nwords or not nrows or nrows % ntiles:
+        raise ZippyError(f"expected words (ntiles >= 1, nwords >= 1) and "
+                         f"contiguous (ntiles * nblk >= 1, {TABLE_WORDS}) "
                          f"tables, got {tuple(words.shape)} and "
                          f"{tuple(tables.shape)}")
+    if seg.shape[:2] != (ntiles, 3):
+        raise ZippyError(f"seg must be ({ntiles}, 3, nseg), got "
+                         f"{tuple(seg.shape)}")
+    nseg = seg.shape[2]
+    used = [int(u) for u in used]
+    if len(used) != ntiles or not all(0 <= u <= nseg for u in used):
+        raise ZippyError(f"expected {ntiles} busy-lane counts in 0..{nseg}, "
+                         f"got {used}")
     if not 1 <= k <= 1024:
         raise ZippyError(f"k {k} is not in 1..1024")
-    if len({x.device for x in (words, seg_bit, seg_blk, seg_ntok,
-                               tables)}) != 1:
+    if len({x.device for x in (words, seg, tables)}) != 1:
         raise ZippyError("the inputs lie on different devices")
     dev = words.device
     if dev.type == "cpu":
-        return _extract_plain(words, seg_bit, seg_blk, seg_ntok, tables, k)
+        return _extract_plain(words, seg, used, tables, k)
     if dev.type != "cuda":
         raise ZippyError(f"unsupported device {dev}")
-    out = torch.empty(k, nseg, dtype=torch.int32, device=dev)
+    if off_run is not None and (off_run.dtype != torch.int64
+                                or off_run.shape != (1,)
+                                or off_run.device != dev):
+        raise ZippyError("off_run must be a (1,) int64 tensor on the card")
+    out = torch.empty(k, sum(used), dtype=torch.int32, device=dev)
+    if out.shape[1]:
+        bases, ncta = _bases(used, dev)
+        _launch(words, seg, bases, ncta, tables, k, out, off_run)
+    return out
+
+
+def _bases(used: list[int], device: torch.device):
+    """The batch's busy-lane prefix sums, then its CTA prefix sums
+    (LANES_PER_CTA lanes a CTA), as one (2 * (ntiles + 1),) int32 tensor on
+    `device`, uploaded from pinned memory without a host sync; and the
+    number of CTAs."""
+    lanes, ctas = [0], [0]
+    for u in used:
+        lanes.append(lanes[-1] + u)
+        ctas.append(ctas[-1] + -(-u // LANES_PER_CTA))
+    host = torch.tensor(lanes + ctas, dtype=torch.int32).pin_memory()
+    return host.to(device, non_blocking=True), ctas[-1]
+
+
+def _launch(words, seg, bases, ncta: int, tables, k: int, out,
+            off_run=None) -> None:
+    """One K4 launch over checked CUDA tensors into out (k, total busy
+    lanes); `bases` and `ncta` as `_bases` gives them."""
+    dev = words.device
+    ntiles = words.shape[0]
     rc = _lib().zt_inflate_extract(
-        words.data_ptr(), words.numel(), seg_bit.data_ptr(),
-        seg_blk.data_ptr(), seg_ntok.data_ptr(), nseg, tables.data_ptr(),
-        tables.shape[0], k, out.data_ptr(),
+        words.data_ptr(), words.stride(0), words.shape[1], seg.data_ptr(),
+        seg.stride(0), seg.stride(1), bases.data_ptr(), ntiles, ncta,
+        tables.data_ptr(), tables.shape[0] // ntiles, k, out.shape[1],
+        out.data_ptr(), None if off_run is None else off_run.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
     kernel_build.check_launch(rc, "inflate_extract")
     LAUNCHES["inflate_extract"] += 1
-    return out
