@@ -16,10 +16,12 @@ non-zero exit and no result line):
    versions on the card, and adler32/crc32 against zlib, at 0 B to
    256 MiB + 7 and on one unaligned view; at the largest size the kernels'
    times (K2 also on all-zero rows, which read no shared-memory bank
-   twice) and the card's least time for the same work;
+   twice) and the card's least time for the same work; K3 against its
+   plain version at the edges of its lattice, blocks and meetings, on two
+   streams at once and replayed from a CUDA graph (`crc_combine_edges`);
    then the `crc32_call` line: host ms per synchronized crc32_device call
    at 64 MiB, 256 MiB + 7 and on an unaligned 64 MiB view, and the device
-   operations of one call (at most 5);
+   operations of one call (3: K2, K3, the 4-byte copy; 4 on the view);
 4. the compress path: compress() of a seeded 64 MiB mixed text/binary
    payload to gzip at level 6, from host bytes and from a CUDA tensor, and
    of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
@@ -50,7 +52,9 @@ launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles. A
 kernel's "launches" in the kernel line are those of the compress and
-decode runs together.
+decode runs together. The launch floor ("launch_floor_ms", on the
+`kernel_calls` line and in K3's row) is the same timing of a one-element
+zero_() on the card.
 
 Then the kernel table (one JSON line), the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -272,6 +276,69 @@ def crc32_call(tc, x: torch.Tensor, reps: int) -> dict:
             "kernels": trace["kernels"],
             "device_busy_ms": None if trace["device_busy_s"] is None
             else trace["device_busy_s"] * 1e3}
+
+
+def launch_floor_ms(dev) -> float:
+    """kernel_ms of the least kernel there is: an in-place zero_() of one
+    int32 on the card. A kernel whose work is below it is bound by its
+    launch, and its share of this floor says more than that of its bound."""
+    z = torch.empty(1, dtype=torch.int32, device=dev)
+    return kernel_ms(lambda: z.zero_(), 100)
+
+
+# K3's edges (full rows, + 1 for the last row): one row; one block's 64
+# lanes +- 1; one block's 4 rows a lane +- 1; one group of 32 blocks at 4
+# rows a lane +- 1 (two meetings from 8194 rows on); the largest grid's
+# lattice stride of 32768 lanes +- 1; the 64 MiB trailer's 131072 rows +- 1.
+COMBINE_EDGE_ROWS = (1, 64, 65, 66, 256, 257, 258, 8192, 8193, 8194, 32768,
+                     32769, 32770, 131071, 131072, 131073)
+
+
+def combine_edges_phase(ck, dev, gen) -> None:
+    """K3 against its plain version (torch.equal) on random row CRCs at the
+    edges of its lattice, blocks and meetings, each with a random last row
+    length, and at 131073 rows with last rows of 1, 3, 511 and 512 bytes;
+    then two calls at once on two streams, 50 times over, and one call
+    captured in a CUDA graph and replayed, each against the plain."""
+    def rand_crcs(nrows: int) -> torch.Tensor:
+        return torch.randint(0, 1 << 32, (nrows,), dtype=torch.int64,
+                             device=dev, generator=gen).to(torch.int32)
+
+    edges = []
+    cases = [(n, int(torch.randint(1, ck.CRC_ROW_BYTES + 1, (1,), device=dev,
+                                   generator=gen)))
+             for n in COMBINE_EDGE_ROWS]
+    for nrows, last in cases + [(131073, v) for v in (1, 3, 511, 512)]:
+        c = rand_crcs(nrows)
+        edges.append({"rows": nrows, "last_bytes": last,
+                      "blocks": 1 << ck._combine_lg(nrows - 1),
+                      "equal_plain": bool(torch.equal(
+                          ck.crc_combine(c, last),
+                          ck.crc_combine_plain(c, last)))})
+    a, b = rand_crcs(131072), rand_crcs(131073)
+    want_a, want_b = ck.crc_combine_plain(a), ck.crc_combine_plain(b, 7)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    same = True
+    for _ in range(50):
+        with torch.cuda.stream(streams[0]):
+            got_a = ck.crc_combine(a)
+        with torch.cuda.stream(streams[1]):
+            got_b = ck.crc_combine(b, 7)
+        torch.cuda.synchronize()
+        same &= bool(torch.equal(got_a, want_a) and torch.equal(got_b, want_b))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_g = ck.crc_combine(b, 7)
+    got_g.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    line = {"phase": "crc_combine_edges", "edges": edges,
+            "two_streams_equal_plain": same,
+            "graph_replay_equal_plain": bool(torch.equal(got_g, want_b))}
+    emit(line)
+    check(all(e["equal_plain"] for e in edges) and same
+          and line["graph_replay_equal_plain"], line)
 
 
 def _member_indexes(idev, gzip_format, blob: bytes, fmt: str) -> list:
@@ -625,6 +692,7 @@ def main() -> int:
                   if k.endswith(("_plain", "_zlib"))), row)
         del x, chunks, rows, s, w, s0, w0, r, r0, in_place, tail, rt
     torch.cuda.empty_cache()
+    combine_edges_phase(ck, dev, gen)
 
     # The whole crc32 call on a CUDA tensor: an aligned 64 MiB payload (no
     # tail), 256 MiB + 7 (a 7-byte tail row) and an unaligned 64 MiB view,
@@ -639,8 +707,10 @@ def main() -> int:
         calls.append(line)
         del x
     emit({"phase": "crc32_call", "calls": calls})
-    check(all(c["equal_zlib"] and c["device_ops"] is not None
-              and c["device_ops"] <= 5 for c in calls), calls)
+    # K2, K3 and the 4-byte copy; an unaligned view adds its aligned copy.
+    check(all(c["equal_zlib"] and c["device_ops"] == (3 if c["aligned"]
+                                                      else 4)
+              for c in calls), calls)
     torch.cuda.empty_cache()
 
     # Phase 4: the main path.
@@ -704,7 +774,8 @@ def main() -> int:
     nr = MAIN_BYTES // ck.CRC_ROW_BYTES
     rows = x_dev.view(nr, ck.CRC_ROW_BYTES)
     row_crcs = ck.crc_rows(rows)
-    kernels, calls = [], {}
+    floor_ms = launch_floor_ms(dev)
+    kernels, calls = [], {"launch_floor_ms": floor_ms}
     for name, replaces, fn, plain, work, err in (
             ("adler_chunks", "zippy_tpu/ops/pallas_checksums.py:32",
              lambda: ck.adler_chunks(chunks),
@@ -732,6 +803,7 @@ def main() -> int:
             "plain_ms": call_ms(plain, 3), "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
         calls[name + "_call_ms"] = call_ms(fn, 100)
+    kernels[-1]["launch_floor_ms"] = floor_ms  # K3: near the floor
     emit({"phase": "kernel_calls", **calls})
     check(all(k["max_abs_err"] == 0 for k in kernels), kernels)
     del x_dev, chunks, rows, row_crcs

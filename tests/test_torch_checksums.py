@@ -6,6 +6,8 @@ CUDA kernels themselves are held against those plain versions on the card
 by chip_smoke.py.
 """
 
+import pathlib
+import re
 import zlib
 
 import numpy as np
@@ -92,8 +94,8 @@ def test_crc_rows_tail_is_a_front_padded_row(tail):
 @pytest.mark.parametrize("nrows", [1, 2, 128, 2048, 1 << 18])
 def test_crc_combine_plain_matches_reference(nrows):
     """K3's plain version against zippy_tpu's log tree (which needs a power
-    of two), on random raw row CRCs: 2^18 rows take K3's Horner step twice
-    on each of its 2^17 threads."""
+    of two), on random raw row CRCs: 2^18 rows give each of K3's 2^15
+    lanes 8 rows."""
     c = np.random.default_rng(nrows).integers(0, 1 << 32, nrows,
                                               dtype=np.uint64)
     init = jc.crc_shift_register(0xFFFFFFFF, nrows * ck.CRC_ROW_BYTES)
@@ -117,6 +119,131 @@ def test_crc_combine_rows_any_row_count(nrows):
     init = jc.crc_shift_register(0xFFFFFFFF, len(data))
     raw = int(ck.crc_combine_plain(rows, ck.CRC_ROW_BYTES - 3))
     assert raw & 0xFFFFFFFF ^ init ^ 0xFFFFFFFF == zlib.crc32(data)
+
+
+# K3's edges (full rows, + 1 for the last row): one row; one block's 64
+# lanes +- 1; one block's 4 rows a lane +- 1 (2 blocks from 258 rows on);
+# one group of 32 blocks at 4 rows a lane +- 1 (two meetings from 8194
+# rows on); the largest grid's lattice stride of 32768 lanes +- 1; the
+# 64 MiB trailer's 131072 rows +- 1 (the largest grid at 4 rows a lane).
+# Each with a full last row, and the shorter last rows at a few of them.
+_ROW_EDGES = [1, 64, 65, 66, 256, 257, 258, 8192, 8193, 8194, 32768, 32769,
+              32770, 131071, 131072, 131073]
+_COMBINE_EDGES = ([(n, 512) for n in _ROW_EDGES]
+                  + [(n, last) for n in (1, 65, 258, 8194, 32769, 131073)
+                     for last in (1, 3, 511)])
+
+
+@pytest.mark.parametrize("nrows,last_bytes", _COMBINE_EDGES)
+def test_crc_combine_plain_at_kernel_edges(nrows, last_bytes):
+    """K3's plain version at the edges of its lattice, blocks and meetings:
+    against zippy_tpu's log tree on random row CRCs where the row count is
+    a power of two and the last row full, else against zlib.crc32 of random
+    data whose row CRCs come from zlib too."""
+    if nrows & (nrows - 1) == 0 and last_bytes == ck.CRC_ROW_BYTES:
+        c = np.random.default_rng(nrows).integers(0, 1 << 32, nrows,
+                                                  dtype=np.uint64)
+        init = jc.crc_shift_register(0xFFFFFFFF, nrows * ck.CRC_ROW_BYTES)
+        want = int(pc._crc_combine_rows(jnp.asarray(c.astype(np.uint32)),
+                                        jnp.uint32(init)))
+    else:
+        nbytes = (nrows - 1) * ck.CRC_ROW_BYTES + last_bytes
+        data = np.random.default_rng(nrows + last_bytes).integers(
+            0, 256, nbytes, dtype=np.uint8).tobytes()
+        view = memoryview(data)
+        # raw CRC = zlib's ^ the init register shifted over the bytes ^ ~0
+        row_raw = jc.crc_shift_register(0xFFFFFFFF, ck.CRC_ROW_BYTES) ^ 0xFFFFFFFF
+        c = np.array([zlib.crc32(view[i:i + ck.CRC_ROW_BYTES]) ^ row_raw
+                      for i in range(0, nbytes - last_bytes,
+                                     ck.CRC_ROW_BYTES)]
+                     + [zlib.crc32(view[nbytes - last_bytes:])
+                        ^ jc.crc_shift_register(0xFFFFFFFF, last_bytes)
+                        ^ 0xFFFFFFFF], dtype=np.uint64)
+        init = jc.crc_shift_register(0xFFFFFFFF, nbytes)
+        want = zlib.crc32(data)
+    rows = torch.from_numpy(c.astype(np.int64)).to(torch.int32)
+    got = ck.crc_combine_plain(rows, last_bytes)
+    assert got.dtype == torch.int32 and got.shape == (1,)
+    assert int(got) & 0xFFFFFFFF ^ init ^ 0xFFFFFFFF == want
+    assert torch.equal(ck.crc_combine(rows, last_bytes), got)
+
+
+def _cuda_constants() -> dict:
+    """The `constexpr int` constants of csrc/checksums.cu, evaluated."""
+    src = (pathlib.Path(ck.__file__).resolve().parent.parent / "csrc"
+           / "checksums.cu").read_text()
+    names: dict = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        names[name] = eval(expr.replace("/", "//"), {}, dict(names))
+    return names
+
+
+def test_table_constants_match_cuda_source():
+    """The table buffer's layout and K3's shape are the same numbers in
+    checksum_kernels.py and csrc/checksums.cu."""
+    cu = _cuda_constants()
+    assert cu["kSliceWords"] == ck.SLICE_WORDS
+    assert cu["kLaneWords"] == ck.LANE_WORDS
+    assert cu["kShiftOffset"] == ck.SHIFT_OFFSET
+    assert cu["kMap"] == ck.MAP_WORDS
+    assert cu["kShiftLevels"] == ck.SHIFT_LEVELS
+    assert cu["kDistanceMaps"] == ck.DISTANCE_MAPS
+    assert cu["kRowBytes"] == ck.CRC_ROW_BYTES
+    assert cu["kChunk"] == ck.CHUNK
+    assert cu["kCombineThreads"] == ck.COMBINE_THREADS
+    assert cu["kCombineMaxLg"] == ck.COMBINE_MAX_LG
+    assert cu["kGroupLg"] == ck.GROUP_LG
+    assert cu["kCombineSlots"] == ck.COMBINE_SLOTS
+    assert cu["kRowLevel"] == ck.ROW_LEVEL
+    assert cu["kTreeLevels"] == ck.TREE_LEVELS
+    assert cu["kBlockLevel"] == ck.BLOCK_LEVEL
+    # A block's tree has one level per halving of its lanes.
+    assert 1 << ck.TREE_LEVELS == ck.COMBINE_THREADS
+    assert ck.BLOCK_LEVEL == ck.ROW_LEVEL + ck.TREE_LEVELS
+    # The largest grid's Horner level is the last level; one distance map
+    # per block of the largest grid.
+    assert ck.SHIFT_LEVELS == ck.BLOCK_LEVEL + ck.COMBINE_MAX_LG + 1
+    assert ck.DISTANCE_MAPS == 1 << ck.COMBINE_MAX_LG
+    assert ck.DISTANCE_OFFSET == ck.SHIFT_OFFSET + ck.SHIFT_LEVELS * ck.MAP_WORDS
+    assert ck._crc_tables().size == (ck.DISTANCE_OFFSET
+                                     + ck.DISTANCE_MAPS * ck.MAP_WORDS)
+    # The edges above are the grid's.
+    lanes, steps = ck.COMBINE_THREADS, ck.COMBINE_MIN_STEPS
+    assert _ROW_EDGES[2] == lanes + 1
+    assert _ROW_EDGES[5] == lanes * steps + 1
+    assert _ROW_EDGES[8] == (lanes << ck.GROUP_LG) * steps + 1
+    assert _ROW_EDGES[11] == (lanes << ck.COMBINE_MAX_LG) + 1
+    assert _ROW_EDGES[14] == (lanes << ck.COMBINE_MAX_LG) * steps
+    assert [ck._combine_lg(n - 1) for n in _ROW_EDGES[4:10]] == [0, 0, 1, 5, 5, 6]
+
+
+def test_nibble_tables_apply_like_the_maps():
+    """K3's nibble tables in the buffer: shift level b gives the shift over
+    2^b bytes and distance map d the shift over d blocks, as zippy_tpu's
+    register shift gives them."""
+    _, _, levels, dist = ck._tables_i64(torch.device("cpu"))
+    v = np.random.default_rng(7).integers(0, 1 << 32, 16, dtype=np.uint64)
+    vt = torch.from_numpy(v.astype(np.int64))
+    block = ck.CRC_ROW_BYTES * ck.COMBINE_THREADS
+    for tabs, nbytes in ((levels[0], 1), (levels[9], 512),
+                         (levels[-1], 1 << (ck.SHIFT_LEVELS - 1)),
+                         (dist[0], 0), (dist[5], 5 * block),
+                         (dist[-1], (ck.DISTANCE_MAPS - 1) * block)):
+        got = ck._apply_nibbles(tabs, vt).numpy()
+        assert [int(g) for g in got] == [jc.crc_shift_register(int(x), nbytes)
+                                         for x in v]
+    per_word = dist[torch.arange(16) * 31]
+    assert torch.equal(ck._apply_nibbles(per_word, vt), torch.stack(
+        [ck._apply_nibbles(dist[31 * i], vt[i:i + 1])[0] for i in range(16)]))
+
+
+def test_stream_slots_differ_by_stream():
+    """K3's meeting words: one set per (device, stream), sets taken in
+    turn, so two streams never share one until COMBINE_SLOTS have come."""
+    a, b = ck._stream_slot(0, 0x1111), ck._stream_slot(0, 0x2222)
+    assert a != b and ck._stream_slot(0, 0x1111) == a
+    assert ck._stream_slot(1, 0x1111) not in (a, b)
+    assert 0 <= min(a, b) and max(a, b) < ck.COMBINE_SLOTS
 
 
 @pytest.mark.parametrize("n", [0, 1, 511, 512, 513, 4096 + 7, (1 << 20) + 3])

@@ -48,23 +48,53 @@
 // K3 zt_crc_combine replaces the jnp log-tree `_crc_combine_rows`
 //    (pallas_checksums.py:188). It folds nrows raw row CRCs, where every
 //    row is 512 bytes but the last, which has last_bytes (1..512), into the
-//    raw CRC of the whole. Bound: bytes, 4 per row read once. Each row costs
-//    one GF(2) product, 4 lookups at random banks, so one SM's shared
-//    memory would take about 0.03 ms for 131072 rows: the work is spread
-//    over up to 128 blocks. Design: 2^lg blocks of 1024 threads, L =
-//    1024 * 2^lg threads in all, at least one full row each when the rows
-//    allow. Thread g folds the rows g, g + L, ... (zero rows in front;
-//    coalesced reads) by Horner's rule with the shift over 512 L bytes,
-//    then shifts its sum over the rows behind it, 512 (L - 1 - g) bytes,
-//    by the set bits of L - 1 - g. Each block XORs its threads' sums (a
-//    warp reduction and one step through shared memory), shifts the result
-//    over last_bytes, and XORs it into the zeroed output with atomicXor;
-//    block 0 adds the last row. Shift levels: byte tables of the shift over
-//    2^b bytes, b = 0 .. 19 + lg (at most 27 levels, 108 KB of shared
-//    memory).
+//    raw CRC of the whole. Bound: bytes, 4 per row read once (0.00016 ms
+//    for 131072 rows), far below what one launch costs. Beyond the launch
+//    its time is a chain of dependent steps (row loads, table staging,
+//    table products, the blocks' meeting), and, on many rows, the lookups
+//    themselves: a fold of n values needs n - 1 GF(2) products, and one
+//    SM does them at a few hundred cycles per thousand, so the rows are
+//    spread over up to 512 blocks. Design: one launch of 2^lg blocks
+//    (lg <= 9) of 64 threads, L = 64 * 2^lg lanes, at least 4 rows a lane
+//    when the rows allow; no fill before it, one store of the result.
+//    - Tables: a product is 8 lookups in nibble tables, N[j][e] = M (e <<
+//      4j), 128 words a map. Each of its 8 tables sits in 16 distinct
+//      banks, so a warp's lookup never waits on a bank conflict (4 byte
+//      tables of 256 words do, about 3-way at random banks), and a block
+//      stages the 8 maps it reads in 4 KB, one 16-byte load a thread.
+//    - Lattice: lane g folds the full rows g, g + L, ... (zero rows in
+//      front up to a multiple of L; coalesced loads, 8 in flight) by
+//      Horner's rule with the shift over 512 L bytes.
+//    - Tree: each block folds its lanes' sums pairwise by levels; at level
+//      k the survivor takes shift(512 * 2^k bytes)(left) ^ right, with the
+//      same map for every active lane: levels 0-4 by shuffles in each
+//      warp, 5 in warp 0 over the two warps' sums.
+//    - Meeting: block b shifts its sum over the 2^lg - 1 - b blocks after
+//      it (one product: the buffer holds the map of every distance) and
+//      XORs it, with its bit of the group, into its group's 64-bit meeting
+//      word: low half the XOR of the parts, high half one bit for each of
+//      the group's up to 32 blocks. atomicXor returns the word as it was,
+//      so the block that completes the mask holds the group's sum with no
+//      second read and no fence; it clears the word and, over 32 blocks,
+//      meets the other groups' last blocks the same way in one more word.
+//      The last block applies the shift over the last row's bytes (32
+//      columns passed by value, one warp reduction), XORs in that row's
+//      CRC and stores the result.
+//    - Meeting words: one set per stream slot (checksum_kernels picks the
+//      slot of the caller's stream), zero when the module loads and left
+//      zero by every launch, so no fill runs before a launch. Calls on one
+//      stream run one after another; calls on two streams use two slots,
+//      and a CUDA graph replays the slot of the stream it was captured on.
+//    Measured on the H100 and not kept (bench_k3_designs.py): one
+//    thread-block cluster of up to 16 blocks meeting in distributed shared
+//    memory (too few SMs for the lookups), a cooperative grid with
+//    grid.sync, a last-block ticket behind __threadfence with the parts in
+//    global memory (two fences and a second read in the tail), and byte
+//    tables (8x the staging); PERF.md has the numbers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -76,12 +106,13 @@ constexpr int kAdlerThreads = kThreadsPerChunk * kChunksPerBlock;
 
 // The crc table buffer (checksum_kernels._crc_tables), in uint32 words:
 // slice tables D[16][256], lane tables S[32][4][256] (lane l: the shift
-// over 16 (31 - l) bytes), shift levels L[27][4][256] (the shift over 2^b
-// bytes).
+// over 16 (31 - l) bytes), shift levels N[25][8][16] (level b: the nibble
+// tables of the shift over 2^b bytes; K3 reads levels 9 and up), distance
+// maps N[512][8][16] (map d: the shift over d of K3's blocks).
 constexpr int kTable = 4 * 256;                 // one map's 4 byte tables
+constexpr int kMap = 8 * 16;                    // one map's 8 nibble tables
 constexpr int kSliceWords = 16 * 256;
 constexpr int kLaneWords = 32 * kTable;
-constexpr int kShiftLevels = 27;
 constexpr int kShiftOffset = kSliceWords + kLaneWords;
 constexpr int kLaneStride = kTable + 1;         // in shared: one bank apart
 
@@ -90,9 +121,31 @@ constexpr int kCrcThreads = 1024;
 constexpr int kCrcWarps = kCrcThreads / 32;
 constexpr size_t kCrcSmem = (kSliceWords + 32 * kLaneStride) * 4;
 
-constexpr int kCombineThreads = 1024;
-constexpr int kCombineMaxLg = 7;                // at most 2^7 blocks
-constexpr size_t kCombineSmem = kShiftLevels * kTable * 4;
+constexpr int kCombineThreads = 64;
+constexpr int kCombineWarps = kCombineThreads / 32;
+constexpr int kCombineMaxLg = 9;                // at most 512 blocks
+constexpr int kGroupLg = 5;                     // blocks meet in groups of 32
+constexpr int kGroups = 1 << (kCombineMaxLg - kGroupLg);
+constexpr int kCombineSlots = 1024;             // meeting word sets
+constexpr int kRowLevel = 9;                    // the shift over one row
+constexpr int kTreeLevels = 6;                  // levels 9-14: a block's tree
+constexpr int kBlockLevel = kRowLevel + kTreeLevels;  // over 64 rows
+constexpr int kShiftLevels = kBlockLevel + kCombineMaxLg + 1;
+constexpr int kDistanceMaps = 1 << kCombineMaxLg;
+constexpr int kRowBatch = 8;                    // Horner row loads in flight
+// Staged maps: the tree's, the Horner step's, the block's distance map.
+constexpr int kStagedMaps = kTreeLevels + 2;
+static_assert(1 << kTreeLevels == kCombineThreads, "one level per halving");
+static_assert(kCombineMaxLg >= kGroupLg && kGroups <= 32, "two meetings");
+
+// K3's meeting words: [slot][0] meets the groups, [slot][1 + g] the blocks
+// of group g. Zero at load; each launch leaves its slot's words zero.
+__device__ unsigned long long g_meet[kCombineSlots][1 + kGroups];
+
+// The shift over the last row's bytes as 32 columns, passed by value.
+struct LastColumns {
+  uint32_t col[32];
+};
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -215,47 +268,124 @@ crc_rows_kernel(const uint4* __restrict__ rows, long long nrows,
   }
 }
 
+// M v for a map M given as 8 nibble tables t[j * 16 + e].
+__device__ __forceinline__ uint32_t apply_nibbles(const uint32_t* t,
+                                                  uint32_t v) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r ^= t[16 * j + ((v >> (4 * j)) & 15u)];
+  return r;
+}
+
+// One pairwise level of the fold across a warp: lanes that are multiples of
+// 2 * span take M left ^ right, right being the sum `span` lanes on.
+__device__ __forceinline__ uint32_t fold_level(const uint32_t* map,
+                                               uint32_t v, int lane,
+                                               int span) {
+  const uint32_t right = __shfl_down_sync(kFull, v, span);
+  return lane % (2 * span) == 0 ? apply_nibbles(map, v) ^ right : v;
+}
+
+// Warp-wide: XOR `part` (lane 0's) and the bit of `member` (< members <=
+// 32) into a meeting word. Returns whether this call completed the
+// members' mask; then `part` becomes the XOR of every member's part, and
+// the word is cleared for the next launch on this slot.
+__device__ __forceinline__ bool meet(unsigned long long* word, uint32_t& part,
+                                     unsigned member, unsigned members,
+                                     int lane) {
+  unsigned long long old = 0;
+  if (lane == 0)
+    old = atomicXor(word, (unsigned long long)(1u << member) << 32 | part);
+  old = __shfl_sync(kFull, old, 0);
+  if (((unsigned)(old >> 32) | 1u << member) != kFull >> (32 - members))
+    return false;
+  part ^= (uint32_t)old;
+  if (lane == 0) *word = 0;
+  return true;
+}
+
+// levels: the table buffer's shift levels, then its distance maps.
 __global__ void __launch_bounds__(kCombineThreads)
-crc_combine_kernel(const uint32_t* __restrict__ crcs, long long nrows,
-                   int last_bytes, int lg, const uint32_t* __restrict__ levels,
+crc_combine_kernel(const uint32_t* __restrict__ crcs, long long nrows, int lg,
+                   const uint4* __restrict__ levels,
+                   const __grid_constant__ LastColumns last, int slot,
                    uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t lv[];
-  __shared__ uint32_t part[kCombineThreads / 32];
-  for (int i = threadIdx.x; i < (20 + lg) * kTable; i += kCombineThreads)
-    lv[i] = levels[i];
-  __syncthreads();
+  __shared__ uint4 staged[kStagedMaps * kMap / 4];
+  __shared__ uint32_t warp_sums[kCombineWarps];
+  const uint32_t* maps = reinterpret_cast<const uint32_t*>(staged);
+  const unsigned block = blockIdx.x;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+
   // The full rows 0 .. nrows - 2, with zero rows in front up to a multiple
-  // of the 1024 * 2^lg threads: thread g takes padded rows g + lanes * j.
+  // of the L lanes: lane g takes padded rows g + L j, j < steps. The first
+  // batch of rows, and the last row, load while the block stages.
   const long long lanes = (long long)kCombineThreads << lg;
-  const long long g = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
   const long long nfull = nrows - 1;
   const long long steps = (nfull + lanes - 1) / lanes;
-  const long long first = g - (steps * lanes - nfull);
-  const uint32_t* horner = lv + (19 + lg) * kTable;  // 512 * lanes bytes
-  uint32_t acc = 0;
-  for (long long j = 0; j < steps; ++j) {
-    const long long i = first + j * lanes;
-    acc = apply_tables(horner, acc) ^ (i >= 0 ? __ldg(crcs + i) : 0u);
-  }
-  const long long behind = lanes - 1 - g;  // rows after this thread's
-  for (int b = 0; b < 10 + lg; ++b)
-    if ((behind >> b) & 1) acc = apply_tables(lv + (9 + b) * kTable, acc);
-  acc = __reduce_xor_sync(kFull, acc);
-  const int t = threadIdx.x;
-  if (t % 32 == 0) part[t / 32] = acc;
-  __syncthreads();
-  if (t < 32) {
-    uint32_t f = __reduce_xor_sync(kFull, part[t]);
-    if (t == 0) {
-      // The shift over the last row is linear: each block applies it to
-      // its own part before the parts meet.
+  const long long first =
+      (long long)block * kCombineThreads + t - (steps * lanes - nfull);
+  const uint32_t last_row = warp == 0 ? __ldg(crcs + nfull) : 0u;
+  uint32_t batch[kRowBatch];
+  auto load = [&](long long j0) {
 #pragma unroll
-      for (int b = 0; b < 10; ++b)
-        if ((last_bytes >> b) & 1) f = apply_tables(lv + b * kTable, f);
-      if (blockIdx.x == 0) f ^= __ldg(crcs + nrows - 1);
-      atomicXor(out, f);
+    for (int q = 0; q < kRowBatch; ++q) {
+      const long long i = first + (j0 + q) * lanes;
+      batch[q] = j0 + q < steps && i >= 0 ? __ldg(crcs + i) : 0u;
     }
+  };
+  load(0);
+  // Staged: levels 9-14 (the tree), 15 + lg (512 L bytes: the Horner
+  // step), then the distance map of the 2^lg - 1 - block blocks after it.
+  constexpr int kVecs = kMap / 4;  // uint4s per map
+  const int after = (1 << lg) - 1 - (int)block;
+  for (int i = t; i < kStagedMaps * kVecs; i += kCombineThreads) {
+    const int s = i / kVecs;
+    const int map = s < kTreeLevels    ? kRowLevel + s
+                    : s == kTreeLevels ? kBlockLevel + lg
+                                       : kShiftLevels + after;
+    staged[i] = __ldg(levels + map * kVecs + i % kVecs);
   }
+  __syncthreads();
+
+  const uint32_t* horner = maps + kTreeLevels * kMap;
+  uint32_t acc = 0;
+  for (long long j0 = 0; j0 < steps; j0 += kRowBatch) {
+    uint32_t rows[kRowBatch];
+#pragma unroll
+    for (int q = 0; q < kRowBatch; ++q) rows[q] = batch[q];
+    if (j0 + kRowBatch < steps) load(j0 + kRowBatch);
+#pragma unroll
+    for (int q = 0; q < kRowBatch; ++q)
+      if (j0 + q < steps)
+        acc = (j0 + q ? apply_nibbles(horner, acc) : 0u) ^ rows[q];
+  }
+
+  // The block's tree: levels 0-4 in each warp, 5 in warp 0.
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+    acc = fold_level(maps + k * kMap, acc, lane, 1 << k);
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp != 0) return;
+  acc = lane < kCombineWarps ? warp_sums[lane] : 0u;
+#pragma unroll
+  for (int k = 5; k < kTreeLevels; ++k)
+    acc = fold_level(maps + k * kMap, acc, lane, 1 << (k - 5));
+  acc = __shfl_sync(kFull, acc, 0);  // the block's sum, in every lane
+
+  // The meeting: the block's part, then in its group, then over the groups.
+  if (lg > 0) {
+    acc = apply_nibbles(horner + kMap, acc);
+    const int group_lg = lg < kGroupLg ? lg : kGroupLg;
+    const unsigned members = 1u << group_lg;
+    const unsigned member = block % members, group = block >> group_lg;
+    if (!meet(&g_meet[slot][1 + group], acc, member, members, lane) ||
+        (lg > kGroupLg &&
+         !meet(&g_meet[slot][0], acc, group, 1u << (lg - kGroupLg), lane)))
+      return;
+  }
+  acc = __reduce_xor_sync(kFull, (acc >> lane) & 1u ? last.col[lane] : 0u);
+  if (lane == 0) *out = acc ^ last_row;
 }
 
 // Blocks for a persistent grid: as many as fit on every SM, and no more
@@ -317,23 +447,24 @@ int zt_crc_rows(const void* rows, long long nrows, const void* tail,
   return (int)cudaGetLastError();
 }
 
-// crcs: nrows >= 1 int32 raw row CRCs; last_bytes: the last row's length,
-// 1..512; levels: the table buffer's shift levels; out: one int32, zero
-// before the launch (the blocks XOR their parts into it).
-int zt_crc_combine(const void* crcs, long long nrows, int last_bytes,
-                   const void* levels, void* out, void* stream, int device) {
+// crcs: nrows >= 1 int32 raw row CRCs (the last row may be short); lg:
+// log2 of the blocks, 0..9, from checksum_kernels (so that the plain
+// version folds in the same order); levels: the table buffer's shift
+// levels and distance maps, 16-byte aligned; last: the 32 uint32 host columns of the shift
+// over the last row's bytes; slot: the caller's stream's meeting words,
+// 0..1023; out: one int32, written once.
+int zt_crc_combine(const void* crcs, long long nrows, int lg,
+                   const void* levels, const uint32_t* last, int slot,
+                   void* out, void* stream, int device) {
+  if (nrows < 1 || lg < 0 || lg > kCombineMaxLg || slot < 0 ||
+      slot >= kCombineSlots)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(crc_combine_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kCombineSmem);
-  if (err != cudaSuccess) return (int)err;
-  int lg = 0;  // 2^lg blocks: enough threads for one full row each
-  while (lg < kCombineMaxLg && ((long long)kCombineThreads << lg) < nrows - 1)
-    ++lg;
-  crc_combine_kernel<<<1u << lg, kCombineThreads, (20 + lg) * kTable * 4,
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)crcs, nrows, last_bytes, lg, (const uint32_t*)levels,
+  LastColumns cols;
+  memcpy(cols.col, last, sizeof(cols.col));
+  crc_combine_kernel<<<1u << lg, kCombineThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)crcs, nrows, lg, (const uint4*)levels, cols, slot,
       (uint32_t*)out);
   return (int)cudaGetLastError();
 }

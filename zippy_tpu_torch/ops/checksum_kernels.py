@@ -49,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.zt_adler_chunks.argtypes = [p, i64, p, p, p, i32]
     lib.zt_crc_rows.argtypes = [p, i64, p, i32, p, p, p, i32]
-    lib.zt_crc_combine.argtypes = [p, i64, i32, p, p, p, i32]
+    lib.zt_crc_combine.argtypes = [p, i64, i32, p, p, i32, p, p, i32]
     for fn in (lib.zt_adler_chunks, lib.zt_crc_rows, lib.zt_crc_combine):
         fn.restype = i32
     return lib
@@ -127,17 +127,48 @@ def combine_chunks(s_c: torch.Tensor, w_c: torch.Tensor, n: int,
 # Word offsets in the table buffer; csrc/checksums.cu has the same layout.
 SLICE_WORDS = 16 * 256
 LANE_WORDS = 32 * 4 * 256
-SHIFT_LEVELS = 27
 SHIFT_OFFSET = SLICE_WORDS + LANE_WORDS
+MAP_WORDS = 8 * 16         # one map's nibble tables
+SHIFT_LEVELS = 25          # up to K3's Horner level 15 + COMBINE_MAX_LG
+DISTANCE_MAPS = 512        # K3's distance maps, one per block of its grid
+DISTANCE_OFFSET = SHIFT_OFFSET + SHIFT_LEVELS * MAP_WORDS
+
+
+def _nibble_tables(cols: np.ndarray) -> np.ndarray:
+    """(..., 32) uint32 columns of GF(2) maps -> (..., 8, 16) nibble
+    tables, N[j][e] = M (e << 4j): M v is the XOR of N[j][(v >> 4j) & 15]
+    over j."""
+    e = np.arange(16, dtype=np.uint32)[:, None]
+    bits = (e >> np.arange(4, dtype=np.uint32)) & 1          # (16, 4)
+    c = cols.reshape(cols.shape[:-1] + (8, 1, 4))
+    return np.bitwise_xor.reduce(c * bits, axis=-1)
+
+
+def _distance_columns(unit_bytes: int, count: int) -> np.ndarray:
+    """(count, 32) uint32: row d holds the columns of the shift over d
+    units of `unit_bytes`; count is a power of two."""
+    cols = checksums._shift_cols(0)[None]
+    step = checksums._shift_cols(unit_bytes)
+    while len(cols) < count:
+        cols = np.concatenate([cols, checksums._apply_cols(step, cols)])
+        step = checksums._apply_cols(step, step)
+    return cols
 
 
 @functools.cache
 def _crc_tables() -> np.ndarray:
     """Every crc table, one uint32 buffer: the slice tables (16, 256), the
-    lane tables (32, 4, 256) and the shift levels (27, 4, 256)."""
-    return np.concatenate([checksums.crc_slice_tables().ravel(),
-                           checksums.crc_lane_tables().ravel(),
-                           checksums.crc_shift_tables(SHIFT_LEVELS).ravel()])
+    lane tables (32, 4, 256), then as nibble tables of 128 words a map the
+    shift levels (25, 8, 16), level b the shift over 2^b bytes, and K3's
+    distance maps (512, 8, 16), map d the shift over d of its blocks."""
+    levels = np.stack([checksums._shift_cols(1 << b)
+                       for b in range(SHIFT_LEVELS)])
+    return np.concatenate([
+        checksums.crc_slice_tables().ravel(),
+        checksums.crc_lane_tables().ravel(),
+        _nibble_tables(levels).ravel(),
+        _nibble_tables(_distance_columns(CRC_ROW_BYTES * COMBINE_THREADS,
+                                         DISTANCE_MAPS)).ravel()])
 
 
 @functools.cache
@@ -147,17 +178,23 @@ def _tables_on(device: torch.device) -> torch.Tensor:
 
 
 def _tables_i64(device: torch.device):
-    """The plain versions' view of the buffer: (slice, lane, shift) int64."""
+    """The plain versions' view of the buffer, int64: (slice, lane, shift
+    levels, distance maps)."""
     t = _tables_on(device).to(torch.int64) & 0xFFFFFFFF
     return (t[:SLICE_WORDS].view(16, 256),
             t[SLICE_WORDS:SHIFT_OFFSET].view(32, 4, 256),
-            t[SHIFT_OFFSET:].view(SHIFT_LEVELS, 4, 256))
+            t[SHIFT_OFFSET:DISTANCE_OFFSET].view(SHIFT_LEVELS, 8, 16),
+            t[DISTANCE_OFFSET:].view(DISTANCE_MAPS, 8, 16))
 
 
-def _apply_tables(tabs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """M v for int64 32-bit words v, M given as (4, 256) byte tables."""
-    return (tabs[0][v & 255] ^ tabs[1][(v >> 8) & 255]
-            ^ tabs[2][(v >> 16) & 255] ^ tabs[3][(v >> 24) & 255])
+def _apply_nibbles(tabs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M v for int64 32-bit words v, M given as (8, 16) nibble tables, or
+    one map per word of a 1-D v as (len(v), 8, 16)."""
+    j = torch.arange(8, device=v.device)
+    idx = (v.unsqueeze(-1) >> (4 * j)) & 15
+    if tabs.dim() == 2:
+        return _xor_reduce(tabs[j, idx])
+    return _xor_reduce(tabs.gather(-1, idx.unsqueeze(-1)).squeeze(-1))
 
 
 def _xor_reduce(v: torch.Tensor) -> torch.Tensor:
@@ -188,7 +225,7 @@ def crc_rows_plain(rows: torch.Tensor, tail=None) -> torch.Tensor:
         pad = torch.zeros(CRC_ROW_BYTES - tail.numel(), dtype=torch.uint8,
                           device=rows.device)
         rows = torch.cat([rows, torch.cat([pad, tail]).view(1, -1)])
-    slice_t, lane_t, _ = _tables_i64(rows.device)
+    slice_t, lane_t, _, _ = _tables_i64(rows.device)
     b = rows.view(rows.shape[0], 32, 16).to(torch.int64)
     pos = torch.arange(15, -1, -1, device=rows.device)
     v = _xor_reduce(slice_t[pos, b])                      # (nrows, 32)
@@ -231,27 +268,56 @@ def crc_rows(rows: torch.Tensor, tail=None) -> torch.Tensor:
 # K3: the crc32 row fold
 # ---------------------------------------------------------------------------
 
-COMBINE_THREADS = 1024   # K3's threads per block
-COMBINE_MAX_LG = 7       # K3 runs at most 2^7 blocks
+COMBINE_THREADS = 64     # K3's threads per block
+COMBINE_MAX_LG = 9       # K3 runs at most 2^9 blocks (DISTANCE_MAPS)
+COMBINE_MIN_STEPS = 4    # rows a lane, where the blocks allow
+GROUP_LG = 5             # K3's blocks meet in groups of 2^5
+COMBINE_SLOTS = 1024     # K3's sets of meeting words, one per stream
+ROW_LEVEL = 9            # shift level of one row (2^9 bytes)
+TREE_LEVELS = 6          # a block's tree: levels 9-14
+BLOCK_LEVEL = ROW_LEVEL + TREE_LEVELS  # shift level of one block's rows
 
 
 def _combine_lg(nfull: int) -> int:
-    """log2 of K3's blocks: enough threads for one full row each, at most
-    2^7 blocks (csrc/checksums.cu, zt_crc_combine)."""
+    """log2 of K3's blocks: enough lanes for COMBINE_MIN_STEPS full rows
+    each, at most 2^COMBINE_MAX_LG blocks."""
     lg = 0
-    while lg < COMBINE_MAX_LG and (COMBINE_THREADS << lg) < nfull:
+    while (lg < COMBINE_MAX_LG
+           and (COMBINE_THREADS << lg) * COMBINE_MIN_STEPS < nfull):
         lg += 1
     return lg
 
 
+@functools.cache
+def _last_columns(last_bytes: int) -> np.ndarray:
+    """The shift over the last row's bytes as 32 uint32 columns."""
+    return np.ascontiguousarray(checksums._shift_cols(last_bytes),
+                                dtype=np.uint32)
+
+
+_stream_slots: dict = {}
+
+
+def _stream_slot(device: int, stream: int) -> int:
+    """K3's meeting words for a stream: calls on one stream run one after
+    another and share a set; streams take sets in turn, so calls on two
+    streams at once use two sets (unless COMBINE_SLOTS streams came
+    between them)."""
+    return _stream_slots.setdefault((device, stream),
+                                    len(_stream_slots) % COMBINE_SLOTS)
+
+
 def crc_combine_plain(row_crcs: torch.Tensor,
                       last_bytes: int = CRC_ROW_BYTES) -> torch.Tensor:
-    """Plain version of K3, step for step: each of the L = 1024 * 2^lg
-    threads folds the full rows g, g + L, ... (zero rows in front) by
-    Horner's rule and shifts its sum over the rows behind it; the XOR of
-    the sums is shifted over the last row's `last_bytes` and XORed with
-    that row's CRC. (1,) int32 bit pattern."""
-    _, _, lv = _tables_i64(row_crcs.device)
+    """Plain version of K3, step for step. Lattice: each of the L = 64 *
+    2^lg lanes folds the full rows g, g + L, ... (zero rows in front) by
+    Horner's rule. Tree: each block's 64 lane sums fold pairwise, at level
+    k the left one shifted over 512 * 2^k bytes. Meeting: block b's sum
+    shifted over the 2^lg - 1 - b blocks after it by its distance map,
+    XORed in groups of 32, the groups' sums XORed; the whole shifted over
+    the last row's `last_bytes` and XORed with that row's CRC. (1,) int32
+    bit pattern."""
+    _, _, lv, dist = _tables_i64(row_crcs.device)
     c = row_crcs.to(torch.int64) & 0xFFFFFFFF
     nfull = c.shape[0] - 1
     lg = _combine_lg(nfull)
@@ -259,18 +325,19 @@ def crc_combine_plain(row_crcs: torch.Tensor,
     steps = -(-nfull // lanes)
     lattice = torch.cat([c.new_zeros(steps * lanes - nfull),
                          c[:nfull]]).view(steps, lanes)
-    acc = c.new_zeros(lanes)
-    for j in range(steps):
-        acc = _apply_tables(lv[19 + lg], acc) ^ lattice[j]
-    behind = lanes - 1 - torch.arange(lanes, device=c.device)
-    for b in range(10 + lg):
-        acc = torch.where((behind >> b) & 1 == 1,
-                          _apply_tables(lv[9 + b], acc), acc)
-    f = _xor_reduce(acc)
-    for b in range(10):
-        if (last_bytes >> b) & 1:
-            f = _apply_tables(lv[b], f)
-    return _as_int32((f ^ c[nfull]).view(1))
+    acc = lattice[0] if steps else c.new_zeros(lanes)
+    for j in range(1, steps):
+        acc = _apply_nibbles(lv[BLOCK_LEVEL + lg], acc) ^ lattice[j]
+    for k in range(TREE_LEVELS):
+        acc = _apply_nibbles(lv[ROW_LEVEL + k], acc[0::2]) ^ acc[1::2]
+    acc = _apply_nibbles(dist[(1 << lg) - 1 - torch.arange(
+        1 << lg, device=c.device)], acc)
+    groups = _xor_reduce(acc.view(-1, 1 << min(lg, GROUP_LG)))
+    whole = _xor_reduce(groups)
+    cols = torch.from_numpy(_last_columns(last_bytes).astype(np.int64))
+    bits = (whole >> torch.arange(32, device=c.device)) & 1
+    return _as_int32((_xor_reduce(cols.to(c.device) * bits)
+                      ^ c[nfull]).view(1))
 
 
 def crc_combine(row_crcs: torch.Tensor,
@@ -288,13 +355,16 @@ def crc_combine(row_crcs: torch.Tensor,
         return crc_combine_plain(row_crcs, last_bytes)
     if row_crcs.device.type != "cuda":
         raise ZippyError(f"unsupported device {row_crcs.device}")
-    out = torch.zeros(1, dtype=torch.int32, device=row_crcs.device)
+    out = torch.empty(1, dtype=torch.int32, device=row_crcs.device)
     tables = _tables_on(row_crcs.device)
+    device = row_crcs.device.index or 0
+    stream = torch.cuda.current_stream(row_crcs.device).cuda_stream
     rc = _lib().zt_crc_combine(
-        row_crcs.data_ptr(), row_crcs.numel(), last_bytes,
-        tables.data_ptr() + 4 * SHIFT_OFFSET, out.data_ptr(),
-        torch.cuda.current_stream(row_crcs.device).cuda_stream,
-        row_crcs.device.index or 0)
+        row_crcs.data_ptr(), row_crcs.numel(),
+        _combine_lg(row_crcs.numel() - 1),
+        tables.data_ptr() + 4 * SHIFT_OFFSET,
+        _last_columns(last_bytes).ctypes.data, _stream_slot(device, stream),
+        out.data_ptr(), stream, device)
     kernel_build.check_launch(rc, "crc_combine")
     LAUNCHES["crc_combine"] += 1
     return out
