@@ -21,7 +21,8 @@ non-zero exit and no result line):
    streams at once and replayed from a CUDA graph (`crc_combine_edges`);
    then the `crc32_call` line: host ms per synchronized crc32_device call
    at 64 MiB, 256 MiB + 7 and on an unaligned 64 MiB view, and the device
-   operations of one call (3: K2, K3, the 4-byte copy; 4 on the view);
+   operations of one call (3: K2, K3, the 4-byte copy of the raw CRC,
+   which the host finishes; 4 on the view);
 4. the compress path: compress() of a seeded 64 MiB mixed text/binary
    payload to gzip at level 6, from host bytes and from a CUDA tensor, and
    of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
@@ -44,15 +45,30 @@ non-zero exit and no result line):
    row K4 read from device memory rather than shared memory; and one K4
    launch over the 64 MiB stream's batch timed, with its bound for the
    busy lanes and for the padded segment tables it wrote before;
-6. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9,
+6. the indexed serving format (`indexed` lines), at 1 MiB and 8 MiB
+   members of the 64 MiB payload at level 6: compress_device_indexed's
+   seconds beside phase 4's single-member compress, the stream's size and
+   its sidecars' share, CPython's decode of it; uncompress_device (bytes
+   and array=True) and uncompress() equal to the input with no scan call,
+   their seconds beside the scanned uncompress() of phase 4's stream and
+   CPython's decompress; the launch counts of one array=True decode (one
+   K1 and one K2 + K3 per non-empty member, K4 once per batch with a busy
+   lane); the dispatch of every member under
+   torch.cuda.set_sync_debug_mode("error") up to the one verification
+   fetch; K4 against its plain version on every batch of that decode (at
+   1 MiB members its tiles are CFG_S's, at 8 MiB CFG_L's); the same stream
+   decoded the other way, every member scanned (member_indexes) and then
+   decoded given its index; a flipped member crc raising ZippyError;
+7. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9,
    and the same decode.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles. A
-kernel's "launches" in the kernel line are those of the compress and
-decode runs together. The launch floor ("launch_floor_ms", on the
+kernel's "launches" in the kernel line are those of the compress run,
+the decode run and the indexed decode runs together, each counted from
+zero just before its run. The launch floor ("launch_floor_ms", on the
 `kernel_calls` line and in K3's row) is the same timing of a one-element
 zero_() on the card.
 
@@ -390,39 +406,53 @@ def _k4_inputs(idev, blob: bytes, index, dev, keep: list):
         b += len(batch)
 
 
+def k4_against_plain(idev, ik, label: str, blob: bytes, indexes, dev):
+    """K4 against its plain version (torch.equal) on every batch of tiles
+    of each decode index of one stream, batched as the decode batches
+    them, with the tile sizes it met and the lanes whose block row K4 did
+    not stage. Returns the stream's line and its first batch with a busy
+    lane (cfg, batch, ends, words, seg, used, tables, k, plain, index)."""
+    line = {"run": label, "tiles": 0, "batches": 0, "busy_lanes": 0,
+            "tile_bytes": [], "equal_plain": True, "max_abs_err": 0}
+    off_run = torch.zeros(1, dtype=torch.int64, device=dev)
+    keep: list = []
+    first = None
+    for _, index in indexes:
+        k = index["every"]
+        for cfg, batch, ends, words, seg, used, tables in _k4_inputs(
+                idev, blob, index, dev, keep):
+            line["tiles"] += len(batch)
+            if cfg.tile_out not in line["tile_bytes"]:
+                line["tile_bytes"].append(cfg.tile_out)
+            if not sum(used):
+                continue
+            line["batches"] += 1
+            line["busy_lanes"] += sum(used)
+            got = ik.inflate_extract(words, seg, used, tables, k, off_run)
+            plain = ik._extract_plain(words, seg, used, tables, k)
+            line["equal_plain"] &= bool(torch.equal(got, plain))
+            line["max_abs_err"] = max(line["max_abs_err"], int(
+                (got.long() - plain.long()).abs().max()))
+            if first is None:
+                first = (cfg, batch, ends, words, seg, used, tables, k,
+                         plain, index)
+            del got
+    line["off_run_lanes"] = int(off_run.item())
+    return line, first
+
+
 def k4_phase(idev, ik, streams, all_indexes, dev) -> dict:
-    """K4 against its plain version on every tile of every stream, in the
-    decode's batches, with the lanes whose block row K4 did not stage; then
+    """K4 against its plain version on every tile of every stream; then
     one launch over the first stream's first batch timed, with its bound
     for the busy lanes and for the padded segment tables. Returns K4's row
     for the kernel line (launches filled in by the caller)."""
     lines, first = [], None
     for label, blob, _, _ in streams:
-        line = {"run": label, "tiles": 0, "batches": 0, "busy_lanes": 0,
-                "equal_plain": True, "max_abs_err": 0}
-        off_run = torch.zeros(1, dtype=torch.int64, device=dev)
-        keep: list = []
-        for _, index in all_indexes[label]:
-            k = index["every"]
-            for cfg, batch, ends, words, seg, used, tables in _k4_inputs(
-                    idev, blob, index, dev, keep):
-                line["tiles"] += len(batch)
-                if not sum(used):
-                    continue
-                line["batches"] += 1
-                line["busy_lanes"] += sum(used)
-                got = ik.inflate_extract(words, seg, used, tables, k, off_run)
-                plain = ik._extract_plain(words, seg, used, tables, k)
-                line["equal_plain"] &= bool(torch.equal(got, plain))
-                line["max_abs_err"] = max(line["max_abs_err"], int(
-                    (got.long() - plain.long()).abs().max()))
-                if first is None:
-                    first = (cfg, batch, ends, words, seg, used, tables, k,
-                             plain, index, label)
-                del got
-        line["off_run_lanes"] = int(off_run.item())
+        line, batch = k4_against_plain(idev, ik, label, blob,
+                                       all_indexes[label], dev)
         lines.append(line)
-        del keep
+        if first is None and batch is not None:
+            first = (*batch, label)
     emit({"phase": "inflate_extract_streams", "streams": lines})
     check(all(line["equal_plain"] for line in lines), "K4 differs from plain")
 
@@ -602,6 +632,162 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
     return launches, row
 
 
+INDEXED_MEMBERS = (1 << 20, 8 << 20)
+
+
+def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
+    """Phase 6, the indexed serving format, at each of INDEXED_MEMBERS.
+    Returns the kernel launches of its counted array=True decodes and K4's
+    largest difference from its plain version on their batches."""
+    from zippy_tpu_torch import api, common
+    from zippy_tpu_torch import gzip_format as gf
+    from zippy_tpu_torch.ops import inflate_device as idev
+    from zippy_tpu_torch.ops import inflate_kernels as ik
+    from zippy_tpu_torch.ops import kernel_build as kb
+
+    # The scanned decode of phase 4's single-member stream and CPython's,
+    # timed here beside the indexed decodes.
+    t0 = time.perf_counter()
+    check(api.uncompress(gz6) == data, "scanned uncompress")
+    scanned_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(gzip.decompress(gz6) == data, "CPython")
+    cpython_s = time.perf_counter() - t0
+
+    # Every scan and every member decode of the runs below is counted; the
+    # member decodes keep the index each was given.
+    scan, acc = idev.build_decode_index, idev.inflate_device_array_acc
+    scans, given = [0], []
+
+    def counted_scan(*args, **kwargs):
+        scans[0] += 1
+        return scan(*args, **kwargs)
+
+    def kept_acc(data, index, *args, **kwargs):
+        given.append(index)
+        return acc(data, index, *args, **kwargs)
+
+    total, k4_err = dict.fromkeys(kb.LAUNCHES, 0), 0
+    for member_size in INDEXED_MEMBERS:
+        label = f"{member_size >> 20} MiB members"
+        t0 = time.perf_counter()
+        blob = gf.compress_device_indexed(data, 6, member_size=member_size)
+        compress_s = time.perf_counter() - t0
+        spans = gf._zt_spans(blob)
+        check(spans is not None, label + ": the ZT lengths do not chain")
+        members = [(n, gf._member_zx(blob, pos) is not None)
+                   for pos, n in spans]
+        sidecar_bytes = sum(n for n, side in members if side)
+        t0 = time.perf_counter()
+        check(gzip.decompress(blob) == data, label + " CPython")
+        line = {"phase": "indexed", "run": label, "bytes": len(data),
+                "compressed_bytes": len(blob),
+                "data_members": sum(not side for _, side in members),
+                "sidecar_members": sum(side for _, side in members),
+                "sidecar_share": sidecar_bytes / len(blob),
+                "compress_s": compress_s,
+                "single_member_compress_s": single_compress_s,
+                "cpython_decompress_s": time.perf_counter() - t0,
+                "scanned_uncompress_s": scanned_s,
+                "scanned_cpython_decompress_s": cpython_s}
+        idev.build_decode_index = counted_scan
+        idev.inflate_device_array_acc = kept_acc
+        try:
+            for name, fn in (
+                    ("uncompress_device_bytes",
+                     lambda: gf.uncompress_device(blob)),
+                    ("uncompress_device_array",
+                     lambda: gf.uncompress_device(blob, array=True)),
+                    ("uncompress", lambda: api.uncompress(blob))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                line[name + "_s"] = time.perf_counter() - t0
+                if name.endswith("array"):
+                    check(all(buf.shape == (n,) for buf, n in out), name)
+                    out = b"".join(buf.cpu().numpy().tobytes()
+                                   for buf, _ in out)
+                line[name + "_equal_input"] = out == data
+                check(out == data, f"{label} {name}")
+            line["scan_calls"] = scans[0]
+            check(scans[0] == 0, f"{label}: {scans[0]} scans")
+
+            # One array=True decode counted: one K1 and one K2 + K3 per
+            # non-empty member, K4 once per batch with a busy lane.
+            given.clear()
+            torch.cuda.synchronize()
+            for key in kb.LAUNCHES:
+                kb.LAUNCHES[key] = 0
+            gf.uncompress_device(blob, array=True)
+            launches = dict(kb.LAUNCHES)
+        finally:
+            idev.build_decode_index = scan
+            idev.inflate_device_array_acc = acc
+        busy = sum(int(index["total_out"]) > 0 for index in given)
+        want = {"adler_chunks": busy, "crc_rows": busy, "crc_combine": busy,
+                "inflate_extract": sum(_k4_launches(idev, index)
+                                       for index in given)}
+        line["launches"] = launches
+        line["launches_expected"] = want
+        for key in total:
+            total[key] += launches[key]
+        check(launches == want and all(launches.values()), line)
+
+        # K4 against its plain version on every batch of that decode, at
+        # the tile size its members took.
+        k4_line, _ = k4_against_plain(idev, ik, label, blob,
+                                      [(None, index) for index in given], dev)
+        line["inflate_extract_vs_plain"] = k4_line
+        k4_err = max(k4_err, k4_line["max_abs_err"])
+        check(k4_line["equal_plain"], line)
+        del given[:]
+
+        # The same stream decoded the other way: every member scanned, then
+        # each decoded given its index, one sync a member.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        indexes = gf.member_indexes(blob)
+        line["scanned_members_scan_s"] = time.perf_counter() - t0
+        out = gf.uncompress_gzip_device_all(blob, indexes=indexes)
+        line["scanned_members_s"] = time.perf_counter() - t0
+        check(out == data, label + " scanned members")
+        del indexes, out
+
+        # Every member dispatched with no host sync, then the one fetch.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = gf._dispatch_members(blob, dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        parts = gf._verify_members(pending)
+        del pending
+        line["no_sync_dispatch_members"] = len(parts)
+        line["no_sync_equal_input"] = b"".join(
+            buf.cpu().numpy().tobytes() for buf, _ in parts) == data
+        del parts
+        check(line["no_sync_equal_input"], label + " no-sync dispatch")
+
+        # A flipped crc in the second data member's trailer.
+        second = [i for i, (_, side) in enumerate(members) if not side][1]
+        end = sum(n for n, _ in members[:second + 1])
+        bad = bytearray(blob)
+        bad[end - 5] ^= 0xFF
+        raised = []
+        for array in (False, True):
+            try:
+                gf.uncompress_device(bytes(bad), array=array)
+                raised.append(False)
+            except common.ZippyError:
+                raised.append(True)
+        line["flipped_crc_raises_ZippyError"] = raised
+        emit(line)
+        check(all(raised), line)
+        del blob, bad
+        torch.cuda.empty_cache()
+    return total, k4_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -707,7 +893,7 @@ def main() -> int:
         calls.append(line)
         del x
     emit({"phase": "crc32_call", "calls": calls})
-    # K2, K3 and the 4-byte copy; an unaligned view adds its aligned copy.
+    # K2, K3, the 4-byte copy; an unaligned view adds its aligned copy.
     check(all(c["equal_zlib"] and c["device_ops"] == (3 if c["aligned"]
                                                       else 4)
               for c in calls), calls)
@@ -818,7 +1004,14 @@ def main() -> int:
     kernels.append(k4)
     check(k4["max_abs_err"] == 0, k4)
 
-    # Phase 6: CPU and CUDA bytes.
+    # Phase 6: the indexed serving format.
+    indexed_launches, k4_err = indexed_phase(
+        dev, data, blobs["gzip L6 host bytes"], runs[0]["seconds"])
+    for row in kernels:
+        row["launches"] += indexed_launches[row["name"]]
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_err)
+
+    # Phase 7: CPU and CUDA bytes.
     piece = data[:256 << 10]
     same = {}
     for level in (1, 6, 9):

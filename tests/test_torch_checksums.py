@@ -54,7 +54,9 @@ def test_adler_chunks_match_pallas_kernel(nchunks):
 
     n, total = nchunks * ck.CHUNK - 77, nchunks * ck.CHUNK
     ref = pc._combine_chunks(s_ref, w_ref, jnp.uint32(n), jnp.uint32(total))
-    assert ck.combine_chunks(s, w, n, total) == int(ref)
+    got = ck.combine_chunks(s, w, n, total)
+    assert got.shape == (1,) and got.dtype == torch.int64
+    assert int(got) == int(ref)
 
 
 @pytest.mark.parametrize("nrows", [128, 2048])
@@ -244,6 +246,36 @@ def test_stream_slots_differ_by_stream():
     assert a != b and ck._stream_slot(0, 0x1111) == a
     assert ck._stream_slot(1, 0x1111) not in (a, b)
     assert 0 <= min(a, b) and max(a, b) < ck.COMBINE_SLOTS
+
+
+def test_stream_slots_run_out_rather_than_wrap(monkeypatch):
+    """With every slot taken, a new stream raises ZippyError; it never
+    takes a slot another stream holds (which mixed two streams' sums)."""
+    monkeypatch.setattr(ck, "_stream_slots", {})
+    slots = [ck._stream_slot(0, 0x10000 + s) for s in range(ck.COMBINE_SLOTS)]
+    assert sorted(slots) == list(range(ck.COMBINE_SLOTS))
+    with pytest.raises(ZippyError, match="slots"):
+        ck._stream_slot(0, 0x10000 + ck.COMBINE_SLOTS)
+    assert ck._stream_slot(0, 0x10000) == slots[0]  # known streams keep theirs
+
+
+@pytest.mark.parametrize("n", [0, 1, 513, 100000])
+def test_checksum_tensors_stay_on_the_device(n):
+    """adler32_tensor and crc32_tensor: (1,) int64 on the payload's device,
+    equal to zlib; crc32_raw_tensor: the raw CRC that crc32_finish turns
+    into the crc32."""
+    data = _data(n)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    a, c = tc.adler32_tensor(x), tc.crc32_tensor(x)
+    for t in (a, c):
+        assert t.shape == (1,) and t.dtype == torch.int64
+        assert t.device == x.device
+    assert (int(a), int(c)) == (zlib.adler32(data), zlib.crc32(data))
+    assert int(tc.crc32_tensor(data, device="cpu")) == zlib.crc32(data)
+    # The raw CRC is K3's int32 bit pattern, finished on the host.
+    raw = tc.crc32_raw_tensor(x)
+    assert raw.shape == (1,) and raw.dtype == torch.int32
+    assert tc.crc32_finish(int(raw), n) == zlib.crc32(data)
 
 
 @pytest.mark.parametrize("n", [0, 1, 511, 512, 513, 4096 + 7, (1 << 20) + 3])

@@ -100,10 +100,11 @@ def adler_chunks(chunks: torch.Tensor):
 
 
 def combine_chunks(s_c: torch.Tensor, w_c: torch.Tensor, n: int,
-                   total_padded: int) -> int:
+                   total_padded: int) -> torch.Tensor:
     """adler32 of the first n bytes from the per-chunk residues of the
-    zero-padded input (the tail of zippy_tpu's `_combine_chunks`). int64
-    sums of residues cannot overflow, so no interleaved mods are needed."""
+    zero-padded input (the tail of zippy_tpu's `_combine_chunks`), as a
+    (1,) int64 tensor on their device, with no host sync. int64 sums of
+    residues cannot overflow, so no interleaved mods are needed."""
     m = MOD
     s_c = s_c.to(torch.int64)
     w_c = w_c.to(torch.int64)
@@ -117,7 +118,7 @@ def combine_chunks(s_c: torch.Tensor, w_c: torch.Tensor, n: int,
     w_real = (w_padded + (m - (pad * s_total) % m)) % m
     s1 = (1 + s_total) % m
     s2 = (n % m + w_real) % m
-    return int((s2 << 16) | s1)
+    return ((s2 << 16) | s1).view(1)
 
 
 # ---------------------------------------------------------------------------
@@ -300,11 +301,16 @@ _stream_slots: dict = {}
 
 def _stream_slot(device: int, stream: int) -> int:
     """K3's meeting words for a stream: calls on one stream run one after
-    another and share a set; streams take sets in turn, so calls on two
-    streams at once use two sets (unless COMBINE_SLOTS streams came
-    between them)."""
-    return _stream_slots.setdefault((device, stream),
-                                    len(_stream_slots) % COMBINE_SLOTS)
+    another and share a set; each new stream takes a set of its own, so
+    calls on two streams at once never share one. When all COMBINE_SLOTS
+    sets are taken, a new stream raises ZippyError rather than share."""
+    key = (device, stream)
+    if key not in _stream_slots:
+        if len(_stream_slots) >= COMBINE_SLOTS:
+            raise ZippyError(f"crc_combine: all {COMBINE_SLOTS} stream slots "
+                             "are taken; a new stream would share one")
+        _stream_slots[key] = len(_stream_slots)
+    return _stream_slots[key]
 
 
 def crc_combine_plain(row_crcs: torch.Tensor,
@@ -345,7 +351,12 @@ def crc_combine(row_crcs: torch.Tensor,
     """Raw CRC of the whole from the raw CRCs of its rows: every row is 512
     bytes except the last, which has `last_bytes` (1..512). (n,) int32 ->
     (1,) int32 bit pattern. K3 on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    CPU tensor.
+
+    K3's blocks meet in a set of words kept per stream (`_stream_slot`),
+    which every launch leaves zero. A CUDA graph that captures this call
+    replays its capture stream's set: one captured graph must not replay
+    on two streams at once, nor beside a call on its capture stream."""
     if (row_crcs.dtype != torch.int32 or row_crcs.dim() != 1
             or not row_crcs.numel() or not row_crcs.is_contiguous()):
         raise ZippyError("expected a non-empty contiguous 1-D int32 tensor")

@@ -13,7 +13,11 @@ CUDA kernels of ops/checksum_kernels.py:
   raw space), and kernel K3 folds the rows into the raw CRC of the whole.
   Every GF(2) map on the card is 4 byte tables (`_byte_tables`).
 
-A CUDA tensor stays on the card: only the 4-byte result comes back.
+A CUDA tensor stays on the card. `adler32_tensor` and `crc32_tensor` leave
+the result there too, as a (1,) int64 tensor, so callers can batch their
+fetches. `crc32_raw_tensor` leaves K3's raw CRC, with no work after K3:
+`crc32_finish` turns its fetched value into the crc32 on the host, as
+`crc32_device` does; `adler32_device` fetches adler32_tensor.
 """
 
 from __future__ import annotations
@@ -176,15 +180,16 @@ def crc_shift_tables(levels: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def adler32_device(data, device=None) -> int:
-    """Adler-32 on the card (bytes or a 1-D uint8 tensor). A tensor runs on
-    its own device; bytes go to `device` (None: CUDA)."""
+def adler32_tensor(data, device=None) -> torch.Tensor:
+    """Adler-32 on the card as a (1,) int64 tensor on the payload's device,
+    with no host sync (bytes or a 1-D uint8 tensor; a tensor runs on its own
+    device, bytes go to `device`, None meaning CUDA)."""
     from . import checksum_kernels as ck
 
     x = as_u8_tensor(data, device)
     n = x.shape[0]
     if n == 0:
-        return 1
+        return torch.ones(1, dtype=torch.int64, device=x.device)
     nchunks = -(-n // ck.CHUNK)
     padded = torch.zeros(nchunks * ck.CHUNK, dtype=torch.uint8, device=x.device)
     padded[:n] = x
@@ -192,24 +197,59 @@ def adler32_device(data, device=None) -> int:
     return ck.combine_chunks(s_c, w_c, n, nchunks * ck.CHUNK)
 
 
-def crc32_device(data, device=None) -> int:
-    """CRC-32 on the card (bytes or a 1-D uint8 tensor). A tensor runs on
-    its own device; bytes go to `device` (None: CUDA).
+def crc32_raw_tensor(data, device=None) -> torch.Tensor:
+    """The raw CRC (init 0, no final inversion) on the card as K3's (1,)
+    int32 bit pattern on the payload's device, with no host sync (bytes or
+    a 1-D uint8 tensor, placed as for adler32_tensor).
 
     The payload is read in place when it is contiguous and 16-byte aligned,
     else from one aligned copy: K2 takes its full rows and its tail (one
-    front-padded row), K3 folds them, and 4 bytes come back."""
+    front-padded row) and K3 folds them."""
     from . import checksum_kernels as ck
 
     x = as_u8_tensor(data, device)
     n = x.shape[0]
     if n == 0:
-        return 0
+        return torch.zeros(1, dtype=torch.int32, device=x.device)
     if not x.is_contiguous() or x.data_ptr() % 16:
         x = x.clone(memory_format=torch.contiguous_format)
     row = ck.CRC_ROW_BYTES
     full = n // row
     rows, tail = x[:full * row].view(full, row), x[full * row:]
-    raw = int(ck.crc_combine(ck.crc_rows(rows, tail), n - full * row or row))
-    raw &= 0xFFFFFFFF
-    return raw ^ crc_shift_register(0xFFFFFFFF, n) ^ 0xFFFFFFFF
+    return ck.crc_combine(ck.crc_rows(rows, tail), n - full * row or row)
+
+
+def _crc_mix(nbytes: int) -> int:
+    """What turns the raw CRC of n bytes into their crc32: the initial
+    register shifted over n bytes, with the final inversion. It depends
+    only on n, so it stays on the host."""
+    return crc_shift_register(0xFFFFFFFF, nbytes) ^ 0xFFFFFFFF
+
+
+def crc32_finish(raw: int, nbytes: int) -> int:
+    """crc32 of n bytes from their raw CRC (a fetched crc32_raw_tensor)."""
+    return (raw & 0xFFFFFFFF) ^ _crc_mix(nbytes)
+
+
+def crc32_tensor(data, device=None) -> torch.Tensor:
+    """CRC-32 on the card as a (1,) int64 tensor on the payload's device,
+    with no host sync (bytes or a 1-D uint8 tensor, placed as for
+    adler32_tensor): crc32_raw_tensor with the host constant of
+    crc32_finish XORed in on the card."""
+    x = as_u8_tensor(data, device)
+    raw = crc32_raw_tensor(x)
+    mix = _crc_mix(x.shape[0])
+    mix -= (mix >> 31) << 32                    # as an int32 bit pattern
+    return (raw ^ mix).view(torch.uint32).to(torch.int64)
+
+
+def adler32_device(data, device=None) -> int:
+    """Adler-32 on the card (bytes or a 1-D uint8 tensor), fetched."""
+    return int(adler32_tensor(data, device))
+
+
+def crc32_device(data, device=None) -> int:
+    """CRC-32 on the card (bytes or a 1-D uint8 tensor): K3's raw CRC
+    fetched (4 bytes) and finished on the host."""
+    x = as_u8_tensor(data, device)
+    return crc32_finish(int(crc32_raw_tensor(x)), x.shape[0])

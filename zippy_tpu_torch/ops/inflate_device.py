@@ -25,11 +25,12 @@ The index-based tiled decode of the reference, on a CUDA card:
    garbage. The reference folds the checksums tile by tile
    (`_combine_checksums`, `_crc_shift_device`); one pass over the whole
    output gives the same values with fewer launches, so those two are not
-   ported.
+   ported. `inflate_device_array_acc` leaves the sums asked for on the
+   card, so the members of a stream dispatch back to back and verify with
+   one fetch.
 
-Not ported: the `mesh` argument (multi-GPU comes with the parallel layers),
-`warmup` (PyTorch compiles nothing), and `inflate_device_array_acc` (only
-the indexed serving format uses it). Every gather and scatter of the
+Not ported: the `mesh` argument (multi-GPU comes with the parallel layers)
+and `warmup` (PyTorch compiles nothing). Every gather and scatter of the
 reference that XLA would clamp or drop is clamped, or sent to one spare
 trailing slot, here.
 """
@@ -628,35 +629,69 @@ def _run_tiles(data, index, device: torch.device, stages=None):
     return buf, keep
 
 
-def _verify_adler(index, buf: torch.Tensor) -> None:
-    if checksums.adler32_device(buf) != int(index["adler"]):
+def check_sums(total: int, got_adler: int, got_crc, want_adler: int,
+               want_crc=None, want_isize=None) -> None:
+    """The decode's gates on fetched sums: a non-empty output's adler32
+    against the scan's, then for a gzip member (want_crc given) its crc32
+    against the trailer and its length against ISIZE mod 2^32."""
+    if total and got_adler != want_adler:
         raise ZippyError(
             "Device decode verification failed (output checksum does not "
             "match the scan)")
+    if want_crc is None:
+        return
+    if got_crc != want_crc:
+        raise ZippyError("Checksum verification failed")
+    if want_isize != total & 0xFFFFFFFF:
+        raise ZippyError("Size verification failed")
+
+
+def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
+                             adler: bool = True, crc: bool = True):
+    """Decode a raw DEFLATE stream into a uint8 tensor on `device` (None:
+    the CUDA card; "cpu" runs the plain versions) and leave the checksums
+    asked for there: nothing is fetched and the host does not wait for the
+    card. `index` is the result of build_decode_index; its offsets are
+    absolute in `data`.
+
+    Returns (buf, total, adler_t, crc_t, keep): buf holds exactly the total
+    decoded bytes (a zero-length tensor for an empty stream); adler_t is
+    the (1,) int64 adler32 (K1) and crc_t the (1,) int32 raw CRC (K2 + K3,
+    finished on the host by checksums.crc32_finish), each None unless asked
+    for; keep holds the pinned upload buffers, for the caller to hold until
+    it next synchronizes. With a `stages` dict, each stage's synchronized
+    seconds are added to it."""
+    dev = resolve_device(device)
+    total = int(index["total_out"])
+    if total:
+        buf, keep = _run_tiles(data, index, dev, stages)
+    else:
+        buf, keep = torch.empty(0, dtype=torch.uint8, device=dev), []
+    with _stage(stages, "checksums", dev):
+        adler_t = checksums.adler32_tensor(buf) if adler else None
+        crc_t = checksums.crc32_raw_tensor(buf) if crc else None
+    return buf, total, adler_t, crc_t, keep
 
 
 def inflate_device_array(data: bytes, index=None, start_bit: int = 0,
                          verify: bool = True, device=None, stages=None):
-    """Decode a raw DEFLATE stream into a uint8 tensor on `device` (None:
-    the CUDA card; "cpu" runs the plain versions). Returns (tensor, total):
-    the tensor holds exactly the total_out decoded bytes. `index` is the
-    result of build_decode_index (scanned here when omitted).
+    """Decode a raw DEFLATE stream into a uint8 tensor on `device`, as
+    inflate_device_array_acc does, scanning it first when `index` is
+    omitted. Returns (tensor, total): the tensor holds exactly the
+    total_out decoded bytes.
 
-    verify=True checks the output's adler32 (K1) against the scan's and
-    raises ZippyError on a mismatch: the integrity gate of raw DEFLATE,
-    which has no checksum of its own. With a `stages` dict, each stage's
-    synchronized seconds are added to it."""
+    verify=True fetches the output's adler32 (K1) and raises ZippyError if
+    it differs from the scan's: the integrity gate of raw DEFLATE, which
+    has no checksum of its own. Neither sum is computed otherwise."""
     dev = resolve_device(device)
     if index is None:
         with _stage(stages, "scan", dev):
             index = build_decode_index(data, start_bit)
-    total = int(index["total_out"])
-    if total == 0:
-        return torch.empty(0, dtype=torch.uint8, device=dev), 0
-    buf, keep = _run_tiles(data, index, dev, stages)
+    buf, total, adler_t, _, keep = inflate_device_array_acc(
+        data, index, dev, stages, adler=verify, crc=False)
     if verify:
         with _stage(stages, "checksums", dev):
-            _verify_adler(index, buf)
+            check_sums(total, int(adler_t), None, int(index["adler"]))
     # Held to here; without the gate's sync, torch's pinned-memory cache
     # keeps a freed upload buffer until its copy has run.
     del keep
@@ -706,8 +741,9 @@ def uncompress_zlib_device(blob: bytes, index=None, device=None) -> bytes:
 def uncompress_gzip_device(blob: bytes, index=None, device=None,
                            pos: int = 0) -> bytes:
     """Decode the gzip member at byte `pos` of `blob` on the card. The
-    output's crc32 (K2 + K3) is checked against the trailer and its length
-    against ISIZE mod 2^32, after the adler32 gate."""
+    output's adler32 and crc32 come back in one fetch: the adler32 gate,
+    then the crc32 against the trailer and the length against ISIZE mod
+    2^32; the bytes are fetched once the gates pass."""
     hdr = gzip_format.parse_header(blob, pos)
     if index is None:
         index = build_decode_index(blob, hdr["data_offset"] * 8)
@@ -716,14 +752,10 @@ def uncompress_gzip_device(blob: bytes, index=None, device=None,
         raise ZippyError("Invalid gzip data")
     want_crc = int.from_bytes(blob[tpos:tpos + 4], "little")
     want_isize = int.from_bytes(blob[tpos + 4:tpos + 8], "little")
-    total = int(index["total_out"])
-    payload, got_crc = b"", 0
-    if total:
-        buf, _ = inflate_device_array(blob, index, device=device)
-        got_crc = checksums.crc32_device(buf)
-        payload = _fetch(buf)
-    if got_crc != want_crc:
-        raise ZippyError("Checksum verification failed")
-    if want_isize != total & 0xFFFFFFFF:
-        raise ZippyError("Size verification failed")
-    return payload
+    buf, total, adler_t, crc_t, keep = inflate_device_array_acc(
+        blob, index, device)
+    got_adler, raw_crc = torch.cat([adler_t, crc_t]).tolist()
+    del keep
+    check_sums(total, got_adler, checksums.crc32_finish(raw_crc, total),
+               int(index["adler"]), want_crc, want_isize)
+    return _fetch(buf)
