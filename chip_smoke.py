@@ -21,8 +21,9 @@ non-zero exit and no result line):
    streams at once and replayed from a CUDA graph (`crc_combine_edges`);
    then the `crc32_call` line: host ms per synchronized crc32_device call
    at 64 MiB, 256 MiB + 7 and on an unaligned 64 MiB view, and the device
-   operations of one call (3: K2, K3, the 4-byte copy of the raw CRC,
-   which the host finishes; 4 on the view);
+   operations of one call, the most that three traces of it saw (3: K2,
+   K3, the 4-byte copy of the raw CRC, which the host finishes; 4 on the
+   view, whose aligned copy comes first);
 4. the compress path: compress() of a seeded 64 MiB mixed text/binary
    payload to gzip at level 6, from host bytes and from a CUDA tensor, and
    of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
@@ -60,17 +61,35 @@ non-zero exit and no result line):
    decoded the other way, every member scanned (member_indexes) and then
    decoded given its index; a flipped member crc raising ZippyError;
 7. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9,
-   and the same decode.
+   and the same decode;
+8. the multi-device layers (`parallel` lines), over default_devices() and
+   over [cuda:0, cuda:0] (two shares on one card): deflate_sharded of the
+   64 MiB payload at level 6 equal to phase 4's gzip L6 body, with seconds
+   and peak memory; compress_gzip_sharded L1 and compress_zlib_sharded L9
+   of 8 MiB decoded by CPython; crc32_sharded/adler32_sharded at 0 B,
+   64 MiB and 256 MiB + 7 against zlib; inflate_device(devices=[cuda:0,
+   cuda:0]) of the 64 MiB body; the launches of these runs, counted from
+   zero (K1-K3 once per device share, K4 once per share with busy lanes
+   per batch), then K1-K3 on each 64 MiB share and K4 on each share of
+   every batch against their plain versions; two ranks spawned on gloo
+   and cuda:0 (compress_gzip_all_hosts at level 6 of two 4 MiB shards,
+   the same stream on both, decoded by CPython and by
+   uncompress_gzip_all_hosts on the card); in a fresh process, warmup()
+   cold and warm, then profiling.trace taken once around a decode, the
+   process's first profiler session, naming K4's kernel; and the current
+   device unchanged after every call. On a host with two cards or more
+   the lists differ, the current device is checked after launches on
+   other cards, and two more ranks run on NCCL, each on its own card.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles. A
 kernel's "launches" in the kernel line are those of the compress run,
-the decode run and the indexed decode runs together, each counted from
-zero just before its run. The launch floor ("launch_floor_ms", on the
-`kernel_calls` line and in K3's row) is the same timing of a one-element
-zero_() on the card.
+the decode run, the indexed decode runs and phase 8's run together, each
+counted from zero just before its run. The launch floor
+("launch_floor_ms", on the `kernel_calls` line and in K3's row) is the
+same timing of a one-element zero_() on the card.
 
 Then the kernel table (one JSON line), the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -80,6 +99,9 @@ from __future__ import annotations
 
 import gzip
 import json
+import pathlib
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -88,6 +110,8 @@ import zlib
 import numpy as np
 import torch
 
+ROOT = pathlib.Path(__file__).resolve().parent
+SCRATCH = ROOT / "build" / "smoke"   # rank shards and streams, the trace
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer instructions (add, multiply-add, logic, shift) outside the
 # tensor cores: 64 per clock per SM, 132 SMs, 1.98 GHz boost clock. The data
@@ -96,6 +120,7 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 SEED = 20261016
 MAIN_BYTES = 64 << 20
 ZLIB_BYTES = 8 << 20
+BIG_BYTES = (256 << 20) + 7    # phase 8's largest checksum payload
 
 
 def emit(obj) -> None:
@@ -181,38 +206,49 @@ def kernel_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Host seconds inside a profile before fn() starts and after the card has
+# finished it. The profiler keeps only the device events that lie inside its
+# window, and a trace on the H100 once lacked the copy that opens an
+# unaligned crc32_device call, issued at once after the profiler started.
+TRACE_MARGIN_S = 0.005
+
+
 def device_trace(fn) -> dict:
     """fn() under torch.profiler's CUDA tracing: wall seconds, the device
     operations it ran (kernels, copies, fills), their summed seconds, the
     share of the wall time in which the card ran none, and the six
     operation names with the most device ms (name, ms, count). A profile
     on the H100 has come back without any device event; the trace is then
-    taken again, up to three times. The device numbers are null
-    where the profiler saw no device work."""
+    taken again, up to three times, and "tries" counts the profiles
+    taken. The device numbers are null where the profiler saw no device
+    work. The wall time leaves out the TRACE_MARGIN_S on either side."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for tries in range(1, 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            time.sleep(TRACE_MARGIN_S)
         ops = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA]
         if ops:
             break
     if not ops:
-        return {"wall_s": wall, "device_ops": None, "kernels": None,
-                "device_busy_s": None, "device_idle_share": None}
+        return {"wall_s": wall, "tries": tries, "device_ops": None,
+                "kernels": None, "device_busy_s": None,
+                "device_idle_share": None}
     busy = sum(e.time_range.elapsed_us() for e in ops) / 1e6
     by_name: dict = {}
     for e in ops:
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return {"wall_s": wall, "device_ops": len(ops),
+    return {"wall_s": wall, "tries": tries, "device_ops": len(ops),
             "kernels": sum(1 for e in ops
                            if not e.name.startswith(("Memcpy", "Memset"))),
             "device_busy_s": busy,
@@ -276,20 +312,30 @@ def extract_work(words: int, nblk: int, nseg: int, lanes: int, k: int,
             LITERAL_OPS * literals + MATCH_OPS * matches)
 
 
+CALL_TRACES = 3
+
+
 def crc32_call(tc, x: torch.Tensor, reps: int) -> dict:
     """Host-clock ms per crc32_device(x) call, x a CUDA tensor (each call
     ends in a copy of the result to the host, so it is synchronized), and
-    the device operations of one call from a trace."""
+    the device operations of one call from CALL_TRACES traces of it, each
+    trace's count listed. A trace can miss an event but not add one (no
+    other work runs on the card), so the call's count is the most that a
+    trace saw, and its other numbers are that trace's."""
     tc.crc32_device(x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         tc.crc32_device(x)
     ms = (time.perf_counter() - t0) / reps * 1e3
-    trace = device_trace(lambda: tc.crc32_device(x))
+    traces = [device_trace(lambda: tc.crc32_device(x))
+              for _ in range(CALL_TRACES)]
+    trace = max(traces, key=lambda t: t["device_ops"] or 0)
     return {"bytes": x.numel(), "aligned": x.data_ptr() % 16 == 0,
             "ms": ms, "device_ops": trace["device_ops"],
+            "device_ops_per_trace": [t["device_ops"] for t in traces],
             "kernels": trace["kernels"],
+            "trace_tries": [t["tries"] for t in traces],
             "device_busy_ms": None if trace["device_busy_s"] is None
             else trace["device_busy_s"] * 1e3}
 
@@ -788,6 +834,318 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
     return total, k4_err
 
 
+RANK_WORKER = r"""
+import json, sys, time
+import torch
+from zippy_tpu_torch.parallel import distributed
+
+rank, coord, scratch, backend = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                 sys.argv[4])
+shard = open(f"{scratch}/shard{rank}", "rb").read()
+distributed.initialize(coord, 2, rank, backend=backend)
+# gloo: both ranks on cuda:0; NCCL: the default, the rank's own card.
+devices = [torch.device("cuda", 0)] if backend == "gloo" else None
+t0 = time.perf_counter()
+stream = distributed.compress_gzip_all_hosts(shard, 6, devices=devices)
+sec = time.perf_counter() - t0
+open(f"{scratch}/stream{rank}", "wb").write(stream)
+print(json.dumps({"rank": rank, "backend": torch.distributed.get_backend(),
+                  "seconds": sec, "stream_bytes": len(stream),
+                  "current_device": torch.cuda.current_device()}))
+torch.distributed.destroy_process_group()
+"""
+
+FRESH_WORKER = r"""
+import json, os, sys, time
+import torch
+scratch = sys.argv[1]
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+context_s = time.perf_counter() - t0
+import zippy_tpu_torch as zt
+t0 = time.perf_counter()
+calls = zt.warmup()
+cold_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+zt.warmup()
+warm_s = time.perf_counter() - t0
+# This process's first profiler session, taken once.
+body = open(f"{scratch}/body", "rb").read()
+t0 = time.perf_counter()
+with zt.profiling.trace(f"{scratch}/trace"):
+    with zt.profiling.annotate("chip_smoke decode"):
+        out = zt.uncompress(body, zt.dfDeflate)
+trace_s = time.perf_counter() - t0
+(name,) = os.listdir(f"{scratch}/trace")
+text = open(f"{scratch}/trace/{name}").read()
+print(json.dumps({"calls": calls, "cold_s": cold_s, "warm_s": warm_s,
+                  "cuda_context_s": context_s, "traced_decode_s": trace_s,
+                  "traced_decode_bytes": len(out),
+                  "trace_bytes": len(text),
+                  "names_inflate_extract_kernel":
+                      "inflate_extract_kernel" in text,
+                  "names_annotation": "chip_smoke decode" in text,
+                  "current_device": torch.cuda.current_device()}))
+"""
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_workers(argvs: list, timeout: int) -> list:
+    """Run one `python -c` process per argv at once from the repo root;
+    return (returncode, stdout, stderr) of each, killing any still running
+    at the timeout."""
+    procs = [subprocess.Popen([sys.executable, "-c", *argv], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+def multi_host(data: bytes, backend: str) -> dict:
+    """Two ranks on `backend`, each compressing its own 4 MiB shard with
+    compress_gzip_all_hosts at level 6 (a fresh port on a lost bind race);
+    both streams read back here and decoded."""
+    from zippy_tpu_torch.parallel import distributed
+
+    shards = [data[:4 << 20], data[4 << 20:8 << 20]]
+    for rank, shard in enumerate(shards):
+        (SCRATCH / f"shard{rank}").write_bytes(shard)
+    for attempt in range(3):
+        coord = f"localhost:{_free_port()}"
+        results = _run_workers([[RANK_WORKER, str(rank), coord, str(SCRATCH),
+                                 backend] for rank in range(2)], 600)
+        if all(rc == 0 for rc, _, _ in results):
+            break
+        raced = any("Address already in use" in err for _, _, err in results)
+        if not (raced and attempt < 2):
+            break
+    for rc, _, err in results:
+        check(rc == 0, f"rank failed: {err[-2000:]}")
+    streams = [(SCRATCH / f"stream{rank}").read_bytes() for rank in range(2)]
+    want = shards[0] + shards[1]
+    t0 = time.perf_counter()
+    back = distributed.uncompress_gzip_all_hosts(streams[0])
+    line = {"ranks": [json.loads(out.strip().splitlines()[-1])
+                      for _, out, _ in results],
+            "same_stream_on_both_ranks": streams[0] == streams[1],
+            "cpython_equal_concatenation": gzip.decompress(streams[0]) == want,
+            "uncompress_gzip_all_hosts_s": time.perf_counter() - t0,
+            "uncompress_gzip_all_hosts_equal": back == want}
+    check(line["same_stream_on_both_ranks"]
+          and line["cpython_equal_concatenation"]
+          and line["uncompress_gzip_all_hosts_equal"]
+          and all(r["current_device"] == 0 and r["backend"] == backend
+                  for r in line["ranks"]), line)
+    return line
+
+
+def share_kernels_vs_plain(ck, x: torch.Tensor) -> int:
+    """K1 on a share's padded chunks, K2 on its rows and tail, and K3 on
+    their CRCs, each against its plain version: the largest difference."""
+    n = x.shape[0]
+    nch = -(-n // ck.CHUNK)
+    chunks = torch.zeros(nch * ck.CHUNK, dtype=torch.uint8, device=x.device)
+    chunks[:n] = x
+    chunks = chunks.view(nch, ck.CHUNK)
+    full = n // ck.CRC_ROW_BYTES
+    rows = x[:full * ck.CRC_ROW_BYTES].view(full, ck.CRC_ROW_BYTES)
+    tail = x[full * ck.CRC_ROW_BYTES:]
+    crcs = ck.crc_rows(rows, tail)
+    last = n - full * ck.CRC_ROW_BYTES or ck.CRC_ROW_BYTES
+    pairs = list(zip(ck.adler_chunks(chunks), ck.adler_chunks_plain(chunks)))
+    pairs += [(crcs, ck.crc_rows_plain(rows, tail)),
+              (ck.crc_combine(crcs, last), ck.crc_combine_plain(crcs, last))]
+    return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+
+
+def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
+    """Phase 8, the multi-device layers. Returns the kernel launches of its
+    counted run and the largest differences of K1-K3 and of K4 from their
+    plain versions on the shares ([k1-k3, k4])."""
+    from zippy_tpu_torch import gzip_format, parallel
+    from zippy_tpu_torch.ops import checksum_kernels as ck
+    from zippy_tpu_torch.ops import inflate_device as idev
+    from zippy_tpu_torch.ops import inflate_kernels as ik
+    from zippy_tpu_torch.ops import kernel_build as kb
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    current = torch.cuda.current_device()
+
+    def nshares(n: int, devs: list) -> int:
+        """The checksums' non-empty shares: of whole 1 MiB rows."""
+        return min(len(devs), -(-n // (1 << 20)))
+
+    def same_device(what: str) -> None:
+        check(torch.cuda.current_device() == current,
+              f"{what} changed the current device")
+
+    lists = {"default_devices": parallel.default_devices(),
+             "cuda:0 x2": [torch.device("cuda", 0)] * 2}
+    body = gz6[gzip_format.parse_header(gz6)["data_offset"]:-8]
+    small = data[:ZLIB_BYTES]
+    big = np.random.default_rng(SEED).integers(
+        0, 256, BIG_BYTES, dtype=np.uint8).tobytes()
+    torch.cuda.synchronize()
+    for key in kb.LAUNCHES:
+        kb.LAUNCHES[key] = 0
+    want = dict.fromkeys(kb.LAUNCHES, 0)
+
+    # Encode: every list's stream equals the single-device body.
+    for name, devs in lists.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = parallel.deflate_sharded(data, 6, devs)
+        line = {"phase": "parallel", "run": f"deflate_sharded L6 64 MiB, "
+                f"{name}", "devices": [str(d) for d in devs],
+                "seconds": time.perf_counter() - t0,
+                "peak_device_GiB": torch.cuda.max_memory_allocated() / 2**30,
+                "compressed_bytes": len(got),
+                "equal_single_device_body": got == body}
+        emit(line)
+        check(line["equal_single_device_body"], line)
+        same_device("deflate_sharded")
+    two = lists["cuda:0 x2"]
+
+    # Containers on 8 MiB over two shares.
+    line = {"phase": "parallel", "run": "containers 8 MiB, cuda:0 x2"}
+    for fmt, fn, level, back in (
+            ("gzip", parallel.compress_gzip_sharded, 1, gzip.decompress),
+            ("zlib", parallel.compress_zlib_sharded, 9, zlib.decompress)):
+        t0 = time.perf_counter()
+        blob = fn(small, level, two)
+        line[f"{fmt}_L{level}_seconds"] = time.perf_counter() - t0
+        line[f"{fmt}_L{level}_ratio"] = len(blob) / len(small)
+        line[f"{fmt}_L{level}_cpython_equal"] = back(blob) == small
+        same_device(fmt)
+    for key in ("crc_rows", "crc_combine", "adler_chunks"):
+        want[key] += nshares(len(small), two)
+    emit(line)
+    check(all(v for k, v in line.items() if k.endswith("equal")), line)
+
+    # Checksums: every list, three sizes, against zlib.
+    sums = []
+    for n, payload in ((0, b""), (MAIN_BYTES, data), (len(big), big)):
+        for name, devs in lists.items():
+            t0 = time.perf_counter()
+            crc = parallel.crc32_sharded(payload, devs)
+            crc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            adler = parallel.adler32_sharded(payload, devs)
+            adler_s = time.perf_counter() - t0
+            shares = nshares(n, devs)
+            for key in ("crc_rows", "crc_combine", "adler_chunks"):
+                want[key] += shares
+            sums.append({"bytes": n, "devices": name, "shares": shares,
+                         "crc32_s": crc_s, "adler32_s": adler_s,
+                         "crc32_equal_zlib": crc == zlib.crc32(payload),
+                         "adler32_equal_zlib": adler == zlib.adler32(payload)})
+            same_device("checksums")
+    emit({"phase": "parallel", "run": "checksums", "calls": sums})
+    check(all(s["crc32_equal_zlib"] and s["adler32_equal_zlib"]
+              for s in sums), sums)
+
+    # Decode: the 64 MiB body given its index, in turns with no devices
+    # (one K4 launch a batch) and over each list (one a share with lanes).
+    index = idev.build_decode_index(body)
+    cfg = idev._pick_cfg(index["total_out"])
+    batch_lanes = [sum(t.s1 - t.s0 for t in batch)
+                   for batch in _batches(idev, idev._plan_tiles(index, cfg))]
+    decodes = {"devices=None": None, **lists}
+    seconds = {name: [] for name in decodes}
+    for _ in range(2):
+        for name, devs in decodes.items():
+            t0 = time.perf_counter()
+            out = idev.inflate_device(body, index, devices=devs)
+            seconds[name].append(time.perf_counter() - t0)
+            check(out == data, f"decode over {name}")
+            same_device("inflate_device")
+            want["adler_chunks"] += 1
+            want["inflate_extract"] += sum(min(len(devs or [dev]), lanes)
+                                           for lanes in batch_lanes if lanes)
+    launches = dict(kb.LAUNCHES)
+    line = {"phase": "parallel", "run": "decode 64 MiB body given its "
+            "index", "seconds": seconds,
+            "tiles": len(idev._plan_tiles(index, cfg)),
+            "batches_with_busy_lanes": sum(1 for n in batch_lanes if n),
+            "launches": launches, "launches_expected": want}
+    emit(line)
+    check(launches == want, line)
+
+    # Outside the counted run: each kernel on each share of each list
+    # against its plain version, and K4's shares against its one launch.
+    k13_err = max(share_kernels_vs_plain(ck, x) for devs in lists.values()
+                  for _, x in parallel.blocks._shares(
+                      np.frombuffer(data, np.uint8), devs, 1 << 20))
+    keep: list = []
+    k4_err, equal, shares = 0, True, 0
+    for _, _, _, words, seg, used, tables in _k4_inputs(idev, body, index,
+                                                        dev, keep):
+        if not sum(used):
+            continue
+        k = index["every"]
+        whole = ik.inflate_extract(words, seg, used, tables, k)
+        for devs in lists.values():
+            parts = []
+            for sdev, w, s, u, t in idev.lane_shares(words, seg, used,
+                                                     tables, devs):
+                got = ik.inflate_extract(w, s, u, t, k)
+                plain = ik._extract_plain(w, s, u, t, k)
+                equal &= bool(torch.equal(got, plain))
+                k4_err = max(k4_err, int((got.long() - plain.long())
+                                         .abs().max()))
+                parts.append(got.to(dev))
+                shares += 1
+                same_device(f"K4 on {sdev}")
+            equal &= bool(torch.equal(torch.cat(parts, dim=1), whole))
+    del keep
+    line = {"phase": "parallel", "run": "kernels on shares",
+            "k4_shares": shares, "k1_k3_max_abs_err": k13_err,
+            "k4_max_abs_err": k4_err,
+            "k4_shares_equal_plain_and_one_launch": equal}
+    emit(line)
+    check(k13_err == 0 and k4_err == 0 and equal, line)
+
+    # Multi-host: two ranks on gloo and cuda:0; on a host with two cards
+    # or more also on NCCL, each rank on its own card.
+    emit({"phase": "parallel", "run": "compress_gzip_all_hosts, 2 ranks, "
+          "gloo, cuda:0", **multi_host(data, "gloo")})
+    if torch.cuda.device_count() >= 2:
+        emit({"phase": "parallel", "run": "compress_gzip_all_hosts, 2 ranks, "
+              "nccl, a card each", **multi_host(data, "nccl")})
+    same_device("multi-host")
+
+    # A fresh process (the libraries already built): warmup() twice, then
+    # one trace of a decode of the 64 MiB body, its first profiler session,
+    # taken once: it names K4's kernel and the annotation.
+    (SCRATCH / "body").write_bytes(body)
+    ((rc, out, err),) = _run_workers([[FRESH_WORKER, str(SCRATCH)]], 600)
+    check(rc == 0, f"fresh process failed: {err[-2000:]}")
+    line = {"phase": "parallel", "run": "warmup() and profiling.trace in a "
+            "fresh process", **json.loads(out.strip().splitlines()[-1])}
+    emit(line)
+    check(line["current_device"] == current
+          and line["calls"] == 3 * torch.cuda.device_count()
+          and line["traced_decode_bytes"] == len(data)
+          and line["names_inflate_extract_kernel"]
+          and line["names_annotation"], line)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, [k13_err, k4_err]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -815,7 +1173,6 @@ def main() -> int:
               ".log").read_text().splitlines()
               if "registers" in line or "spill" in line]
               for name in kb.CUDA_SOURCES}})
-
     # Phase 3: K1, K2 and K3 against their plain versions and zlib.
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1024,6 +1381,14 @@ def main() -> int:
             == api.uncompress(b, common.dfDeflate) == piece)
     emit({"phase": "cpu_vs_cuda", "bytes": len(piece), "identical": same})
     check(all(same.values()), same)
+
+    # Phase 8: the multi-device layers.
+    parallel_launches, (k13_err, k4_err) = parallel_phase(
+        dev, data, blobs["gzip L6 host bytes"])
+    for row in kernels:
+        row["launches"] += parallel_launches[row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 k4_err if row is k4 else k13_err)
 
     emit({"kernels": kernels})
     print(card, flush=True)

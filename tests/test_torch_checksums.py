@@ -356,3 +356,25 @@ def test_wrappers_check_their_input():
         ck.crc_combine(torch.zeros(0, dtype=torch.int32))
     with pytest.raises(ZippyError):
         ck.crc_combine(torch.zeros(3, dtype=torch.int32), 513)
+
+
+def test_cuda_libraries_are_keyed_by_their_headers(tmp_path, monkeypatch):
+    """A .cu library's name changes with the shared header it includes, so
+    an edit to csrc/device_scope.cuh rebuilds both CUDA libraries; the
+    host scan's name does not depend on it. Builds nothing."""
+    from zippy_tpu_torch.ops import kernel_build as kb
+
+    for name in kb.CUDA_SOURCES + kb.HOST_SOURCES + kb.CUDA_HEADERS:
+        text = (kb.CSRC / name).read_text()
+        if name.endswith(".cu"):
+            assert '#include "device_scope.cuh"' in text
+        (tmp_path / name).write_text(text)
+    monkeypatch.setattr(kb, "CSRC", tmp_path)
+    before = {name: kb.library_path(name)
+              for name in kb.CUDA_SOURCES + kb.HOST_SOURCES}
+    (tmp_path / "device_scope.cuh").write_text("// edited\n")
+    after = {name: kb.library_path(name) for name in before}
+    for name in kb.CUDA_SOURCES:
+        assert after[name] != before[name]
+    for name in kb.HOST_SOURCES:
+        assert after[name] == before[name]

@@ -177,3 +177,28 @@ def test_import_with_scan_pulls_in_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_member_indexes_of_64_members_equal_each_member_alone():
+    """Each member of a 64-member stream is scanned in place with buffers
+    sized from the bytes after its start, not from the whole stream; its
+    index equals that of the member scanned alone, shifted to its offset.
+    The last member (9 MiB of zeros, over a thousand segments in 9 KB)
+    outgrows its first buffers and takes the retry with exact sizes."""
+    from zippy_tpu_torch import gzip_format
+
+    members = [gzip.compress(mixed_payload(3000 + 97 * i, i), 6)
+               for i in range(63)] + [gzip.compress(bytes(9 << 20), 9)]
+    got = gzip_format.member_indexes(b"".join(members))
+    assert [p for p, _ in got] == list(np.cumsum([0] + [len(m) for m in
+                                                        members])[:-1])
+    assert got[-1][1]["segments"].shape[0] > 1024
+    for (pos, index), member in zip(got, members):
+        alone = port.build_decode_index(
+            member, gzip_format.parse_header(member)["data_offset"] * 8)
+        alone["segments"][:, 0] += pos * 8
+        alone["stored"][:, 0] += pos
+        alone["end_bit"] += pos * 8
+        assert index.keys() == alone.keys()
+        for key, value in alone.items():
+            assert np.array_equal(index[key], value), (pos, key)

@@ -64,6 +64,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_devices(devices) -> list[torch.device]:
+    """A non-empty list of devices (a device may repeat), each resolved as
+    resolve_device does. A CUDA device without an index gets the current
+    one, so that per-device caches and launches never see an unindexed
+    "cuda", which would mean whichever device is current at the time."""
+    out = []
+    for d in devices:
+        dev = resolve_device(d)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        out.append(dev)
+    if not out:
+        raise ZippyError("expected at least one device")
+    return out
+
+
 def as_u8_tensor(data, device=None) -> torch.Tensor:
     """The payload as a 1-D uint8 tensor: a tensor stays where it is; bytes,
     bytearray, memoryview or str (UTF-8) go to `device` in one upload."""

@@ -96,6 +96,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kChunk = 1024;
@@ -414,7 +416,8 @@ extern "C" {
 // data: nchunks * 1024 bytes, 16-byte aligned; s_out, w_out: nchunks int32.
 int zt_adler_chunks(const void* data, long long nchunks, void* s_out,
                     void* w_out, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope scope;
+  cudaError_t err = scope.enter(device);
   if (err != cudaSuccess) return (int)err;
   if (nchunks > 0) {
     const long long grid = (nchunks + kChunksPerBlock - 1) / kChunksPerBlock;
@@ -431,7 +434,8 @@ int zt_adler_chunks(const void* data, long long nchunks, void* s_out,
 int zt_crc_rows(const void* rows, long long nrows, const void* tail,
                 int tail_len, void* out, const void* tables, void* stream,
                 int device) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope scope;
+  cudaError_t err = scope.enter(device);
   if (err != cudaSuccess) return (int)err;
   const long long total = nrows + (tail_len > 0 ? 1 : 0);
   if (total > 0) {
@@ -459,7 +463,8 @@ int zt_crc_combine(const void* crcs, long long nrows, int lg,
   if (nrows < 1 || lg < 0 || lg > kCombineMaxLg || slot < 0 ||
       slot >= kCombineSlots)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope scope;
+  cudaError_t err = scope.enter(device);
   if (err != cudaSuccess) return (int)err;
   LastColumns cols;
   memcpy(cols.col, last, sizeof(cols.col));

@@ -75,6 +75,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 // Offsets inside one block's table row (int32 words).
@@ -343,7 +345,8 @@ int zt_inflate_extract(const void* words, long long words_stride, int nwords,
                        int ntiles, int ncta, const void* tables, int nblk,
                        int k, int total, void* out, void* off_run,
                        void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope scope;
+  cudaError_t err = scope.enter(device);
   if (err != cudaSuccess) return (int)err;
   if (ncta > 0 && k > 0) {
     inflate_extract_kernel<<<ncta, kThreads, 0, (cudaStream_t)stream>>>(

@@ -24,13 +24,14 @@ or as int32 bit patterns where only XOR and bit tests touch them.
 from __future__ import annotations
 
 import functools
+import itertools
 import time
 
 import numpy as np
 import torch
 
 from .. import tables
-from ..common import ZippyError, check_level, resolve_device
+from ..common import ZippyError, check_level, resolve_devices
 
 BLOCK = 1 << 16                 # device block size
 HIST = 32768                    # cross-block history window (read-only prefix)
@@ -879,13 +880,43 @@ def deflate_array(x: torch.Tensor, level: int, block_size: int = BLOCK, *,
             or x.dim() != 1):
         raise ZippyError("deflate_array expects a 1-D uint8 tensor")
     check_level(level)
-    return _deflate_tensor(x, level, max(level, 1), block_size, stages)
+    return deflate_runs(x, level, max(level, 1), block_size, [x.device],
+                        stages)
 
 
-def _deflate_tensor(x: torch.Tensor, level: int, matcher_level: int,
-                    block_size: int, stages: dict | None) -> bytes:
-    """The stream of `deflate_array` and `deflate`: `level` sets the block
-    format (0 stored, -2 literals only), `matcher_level` the matcher."""
+def _encode_run(buf: torch.Tensor, b0: int, nrows: int, n: int,
+                block_size: int, hist: int, params: dict,
+                clock: _StageClock):
+    """Encode blocks b0 .. b0 + nrows - 1 of an n-byte payload on buf's
+    device, a group of _group_size blocks at a time. `buf` holds their
+    rows: from `hist` bytes before block b0 (zeros before the payload) to
+    PAD bytes past the last block (zeros past the payload). A generator:
+    each step issues one group, with no host sync, and yields (its first
+    block, its result tensors) unfetched."""
+    dev = buf.device
+    rows = buf.unfold(0, hist + block_size + PAD, block_size)
+    gmax = _group_size(params["k"], block_size)
+    for i in range(0, nrows, gmax):
+        g = min(gmax, nrows - i)
+        starts = torch.arange(b0 + i, b0 + i + g, dtype=torch.int64,
+                              device=dev) * block_size
+        yield b0 + i, _encode_group(
+            rows[i:i + g].contiguous(), (n - starts).clamp(max=block_size),
+            starts.clamp(max=hist), hist=hist, clock=clock, **params)
+
+
+def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
+                 block_size: int, devices: list[torch.device],
+                 stages: dict | None = None) -> bytes:
+    """The stream of `deflate_array`, `deflate` and
+    parallel.deflate_sharded. The blocks of `x` (a 1-D uint8 tensor on any
+    device) go to `devices` in contiguous runs, one a device (a device may
+    repeat); each run gets one copy of its bytes, with the HIST bytes before
+    it and PAD after it, on its device. Every run's next group is issued
+    before any is fetched, then the host splices the blocks in block order,
+    so the stream is the same at every device count. `level` sets the block
+    format (0 stored, -2 literals only), `matcher_level` the matcher;
+    `stages` (one device) gets each stage's wall seconds."""
     if not MIN_BLOCK <= block_size <= (1 << 17) - HIST:
         raise ZippyError(f"block_size must lie in [{MIN_BLOCK}, "
                          f"{(1 << 17) - HIST}]")
@@ -898,45 +929,44 @@ def _deflate_tensor(x: torch.Tensor, level: int, matcher_level: int,
         return bytes(out.out)
     lits_only = level == -2
     k, lazy, min3 = _level_params(1 if lits_only else matcher_level)
-    dev = x.device
-    clock = _StageClock(stages, dev)
+    params = {"k": k, "lazy": lazy, "min3": min3, "lits_only": lits_only}
+    clock = _StageClock(stages, devices[0])
     nblocks = -(-n // block_size)
     hist = HIST if nblocks > 1 else 0
-    row_len = hist + block_size + PAD
-    padded = torch.zeros(hist + nblocks * block_size + PAD, dtype=torch.uint8,
-                         device=dev)
-    padded[hist:hist + n] = x
-    rows_all = padded.unfold(0, row_len, block_size)       # (nblocks, row_len)
-    gmax = _group_size(k, block_size)
-    for bi in range(0, nblocks, gmax):
-        g = min(gmax, nblocks - bi)
-        starts = np.arange(bi, bi + g, dtype=np.int64) * block_size
-        lens_np = np.minimum(block_size, n - starts)
-        res = _encode_group(
-            rows_all[bi:bi + g].contiguous(),
-            torch.from_numpy(lens_np).to(dev),
-            torch.from_numpy(np.minimum(hist, starts)).to(dev),
-            k=k, lazy=lazy, hist=hist, min3=min3, lits_only=lits_only,
-            clock=clock)
-        meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
-                          res["ll_lens"], res["d_lens"], res["cl_lens"]],
-                         dim=1).cpu().numpy()
-        nbits = meta[:, 1]
-        nwords = max(1, int(-(-int(nbits.max()) // 32)))
-        words = _to_i32(res["words"][:, :nwords]).cpu().numpy().view("<u4")
+    bounds = [nblocks * i // len(devices) for i in range(len(devices) + 1)]
+    runs = []
+    for dev, b0, b1 in zip(devices, bounds, bounds[1:]):
+        if b0 == b1:
+            continue
+        lo = b0 * block_size - hist        # may lie before the payload
+        src = x[max(lo, 0):min(b1 * block_size + PAD, n)]
+        buf = torch.zeros(hist + (b1 - b0) * block_size + PAD,
+                          dtype=torch.uint8, device=dev)
+        buf[max(lo, 0) - lo:max(lo, 0) - lo + len(src)] = src
+        runs.append(_encode_run(buf, b0, b1 - b0, n, block_size, hist,
+                                params, clock))
+    fetched = []
+    for issued in itertools.zip_longest(*runs):
+        for b0, res in filter(None, issued):
+            meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
+                              res["ll_lens"], res["d_lens"], res["cl_lens"]],
+                             dim=1).cpu().numpy()
+            nwords = max(1, -(-int(meta[:, 1].max()) // 32))
+            fetched.append((b0, meta, _to_i32(res["words"][:, :nwords])
+                            .cpu().numpy().view("<u4")))
         clock.mark("fetch")
-        for j in range(g):
-            b = bi + j
-            blen = int(lens_np[j])
+    for b0, meta, words in sorted(fetched, key=lambda f: f[0]):
+        for j in range(meta.shape[0]):
+            b = b0 + j
+            s = b * block_size
+            blen = min(block_size, n - s)
             mode = int(meta[j, 0])
-            raw = None
-            if mode == 0:  # stored: fetch only its raw bytes
-                s = hist + b * block_size
-                raw = padded[s:s + blen].cpu().numpy()
+            # A stored block fetches only its own bytes.
+            raw = x[s:s + blen].cpu().numpy() if mode == 0 else None
             _assemble_block(out, mode, meta[j, 2:288], meta[j, 288:318],
-                            meta[j, 318:337], words[j], int(nbits[j]), raw,
+                            meta[j, 318:337], words[j], int(meta[j, 1]), raw,
                             blen, b == nblocks - 1)
-        clock.mark("splice")
+    clock.mark("splice")
     return bytes(out.out)
 
 
@@ -948,6 +978,5 @@ def deflate(data, level: int, block_size: int = BLOCK,
     check_level(level)
     if isinstance(data, str):
         data = data.encode("utf-8")
-    arr = np.frombuffer(data, dtype=np.uint8)
-    x = torch.from_numpy(arr.copy()).to(resolve_device(device))
-    return _deflate_tensor(x, level, level, block_size, None)
+    x = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).copy())
+    return deflate_runs(x, level, level, block_size, resolve_devices([device]))

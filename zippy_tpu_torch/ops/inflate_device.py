@@ -29,10 +29,12 @@ The index-based tiled decode of the reference, on a CUDA card:
    card, so the members of a stream dispatch back to back and verify with
    one fetch.
 
-Not ported: the `mesh` argument (multi-GPU comes with the parallel layers)
-and `warmup` (PyTorch compiles nothing). Every gather and scatter of the
-reference that XLA would clamp or drop is clamped, or sent to one spare
-trailing slot, here.
+The reference's `mesh=` is `devices=` here (`lane_shares`): each batch's
+busy lanes are split over a list of devices, K4 runs on each share, and the
+tokens come back to the first device, which resolves as above. The
+reference's `warmup` is `zippy_tpu_torch.warmup`. Every gather and scatter
+of the reference that XLA would clamp or drop is clamped, or sent to one
+spare trailing slot, here.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from .. import gzip_format
-from ..common import ZippyError, resolve_device
+from ..common import ZippyError, resolve_device, resolve_devices
 from . import checksums, inflate_kernels
 from .inflate_scan import inflate_scan
 
@@ -348,17 +350,61 @@ def _unpack(packs: torch.Tensor, cfg: TileConfig):
             lens8[:, :318 * cfg.nblk].unflatten(1, (cfg.nblk, 318)))
 
 
+def lane_shares(words, seg, used, tables, devices) -> list:
+    """Split a batch's busy lanes (tile after tile, as K4 packs them) into
+    one contiguous range a device, balanced by lane count, and place each
+    range's inputs on its device: (device, words, seg, used, tables) for
+    each range with a lane. A range holds the rows of the tiles it touches;
+    where it starts inside a tile, that tile's segment rows are shifted so
+    that its lanes start at 0 (K4 decodes the first `used` lanes of each
+    tile's rows). The ranges' K4 outputs, side by side in device order, are
+    the batch's."""
+    total = sum(used)
+    starts = np.cumsum([0] + list(used))
+    nblk = tables.shape[0] // words.shape[0]
+    out = []
+    for i, dev in enumerate(devices):
+        a = total * i // len(devices)
+        b = total * (i + 1) // len(devices)
+        if a == b:
+            continue
+        t0 = int(np.searchsorted(starts, a, side="right")) - 1
+        t1 = int(np.searchsorted(starts, b, side="left"))
+        lo = a - int(starts[t0])
+        share_used = [min(b, int(starts[t + 1])) - max(a, int(starts[t]))
+                      for t in range(t0, t1)]
+        share_seg = seg[t0:t1]
+        if lo:
+            share_seg = share_seg.clone()
+            share_seg[0, :, :share_used[0]] = seg[t0, :, lo:lo + share_used[0]]
+        out.append((dev, words[t0:t1].to(dev), share_seg.to(dev), share_used,
+                    tables[t0 * nblk:t1 * nblk].to(dev)))
+    return out
+
+
+def _extract(words, seg, used, tables, k: int, devices=None):
+    """K4 over a batch's busy lanes: one launch on the batch's device, or
+    with `devices` one launch a device on its lane share, the outputs
+    brought back to the batch's device in lane order."""
+    if devices is None:
+        return inflate_kernels.inflate_extract(words, seg, used, tables, k)
+    parts = [inflate_kernels.inflate_extract(w, s, u, t, k)
+             for _, w, s, u, t in lane_shares(words, seg, used, tables,
+                                              devices)]
+    return torch.cat([p.to(words.device) for p in parts], dim=1)
+
+
 def _decode_batch(packs, halo, tiles, stored, *, k: int, cfg: TileConfig,
-                  stages=None):
+                  stages=None, devices=None):
     """A batch of tiles: every tile's tables in one build, the extraction
-    of all their busy lanes in one K4 launch (none when no lane is busy),
-    then each tile's LZ resolution in order, the halo chained. `packs` is
-    the tiles' packed buffers (ntiles, _buf_size) int32 on the card, `halo`
-    the 32 KiB before the first tile, `tiles` their plan (`_Tile`: busy
-    lanes s1 - s0, output bytes `used`, depth) and `stored` their stored
-    spans, host ints. Yields each tile's out uint8 (HALO + tile_out,): its
-    `used` bytes are out[HALO:HALO + used], and out[used:used + HALO] is the
-    next halo."""
+    of all their busy lanes in one K4 launch (none when no lane is busy;
+    with `devices`, one a device with a lane share, `_extract`), then each
+    tile's LZ resolution in order, the halo chained. `packs` is the tiles'
+    packed buffers (ntiles, _buf_size) int32 on the card, `halo` the 32 KiB
+    before the first tile, `tiles` their plan (`_Tile`: busy lanes s1 - s0,
+    output bytes `used`, depth) and `stored` their stored spans, host ints.
+    Yields each tile's out uint8 (HALO + tile_out,): its `used` bytes are
+    out[HALO:HALO + used], and out[used:used + HALO] is the next halo."""
     dev = packs.device
     words, seg, seg_out, lens8 = _unpack(packs, cfg)
     lanes = [t.s1 - t.s0 for t in tiles]
@@ -366,8 +412,7 @@ def _decode_batch(packs, halo, tiles, stored, *, k: int, cfg: TileConfig,
         with _stage(stages, "tables", dev):
             tables = _block_tables(lens8.reshape(-1, 318))
         with _stage(stages, "extract", dev):
-            packed = inflate_kernels.inflate_extract(words, seg, lanes,
-                                                     tables, k)
+            packed = _extract(words, seg, lanes, tables, k, devices)
     else:
         packed = torch.zeros(k, 0, dtype=torch.int32, device=dev)
     col = 0
@@ -598,11 +643,12 @@ def _upload_packs(packs: list, device: torch.device,
     return host.to(device, non_blocking=True)
 
 
-def _run_tiles(data, index, device: torch.device, stages=None):
+def _run_tiles(data, index, device: torch.device, stages=None, devices=None):
     """Dispatch every tile, in batches of up to _TILES_PER_LAUNCH, back to
-    back with no host sync, into one output buffer on `device`. Returns
-    (buffer of total_out bytes, the pinned upload buffers to hold until the
-    next sync)."""
+    back with no host sync, into one output buffer on `device` (with
+    `devices`, each batch's extraction split over them). Returns (buffer
+    of total_out bytes, the pinned upload buffers to hold until the next
+    sync)."""
     total = int(index["total_out"])
     cfg = _pick_cfg(total)
     k = int(index["every"])
@@ -621,7 +667,8 @@ def _run_tiles(data, index, device: torch.device, stages=None):
         with _stage(stages, "upload", device):
             packs = _upload_packs(packs, device, keep)
         for tile, out in zip(batch, _decode_batch(
-                packs, halo, batch, stored, k=k, cfg=cfg, stages=stages)):
+                packs, halo, batch, stored, k=k, cfg=cfg, stages=stages,
+                devices=devices)):
             with _stage(stages, "resolve", device):
                 buf[tile.base:tile.base + tile.used] = \
                     out[HALO:HALO + tile.used]
@@ -646,13 +693,29 @@ def check_sums(total: int, got_adler: int, got_crc, want_adler: int,
         raise ZippyError("Size verification failed")
 
 
+def _placement(device, devices):
+    """(the device that resolves and holds the output, the extraction
+    devices or None). With `devices` the output is on the first of them;
+    `device`, if given too, must be that one."""
+    if devices is None:
+        return resolve_device(device), None
+    devices = resolve_devices(devices)
+    if device is not None and resolve_devices([device])[0] != devices[0]:
+        raise ZippyError("device must be the first of devices")
+    return devices[0], devices
+
+
 def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
-                             adler: bool = True, crc: bool = True):
+                             adler: bool = True, crc: bool = True,
+                             devices=None):
     """Decode a raw DEFLATE stream into a uint8 tensor on `device` (None:
     the CUDA card; "cpu" runs the plain versions) and leave the checksums
     asked for there: nothing is fetched and the host does not wait for the
     card. `index` is the result of build_decode_index; its offsets are
-    absolute in `data`.
+    absolute in `data`. With `devices` (a list; a device may repeat), each
+    batch's token extraction is split over them, balanced by busy lanes,
+    and the output, the LZ resolution and the checksums are on the first:
+    the bytes are those of the one-device decode.
 
     Returns (buf, total, adler_t, crc_t, keep): buf holds exactly the total
     decoded bytes (a zero-length tensor for an empty stream); adler_t is
@@ -661,10 +724,10 @@ def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
     for; keep holds the pinned upload buffers, for the caller to hold until
     it next synchronizes. With a `stages` dict, each stage's synchronized
     seconds are added to it."""
-    dev = resolve_device(device)
+    dev, devices = _placement(device, devices)
     total = int(index["total_out"])
     if total:
-        buf, keep = _run_tiles(data, index, dev, stages)
+        buf, keep = _run_tiles(data, index, dev, stages, devices)
     else:
         buf, keep = torch.empty(0, dtype=torch.uint8, device=dev), []
     with _stage(stages, "checksums", dev):
@@ -674,7 +737,8 @@ def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
 
 
 def inflate_device_array(data: bytes, index=None, start_bit: int = 0,
-                         verify: bool = True, device=None, stages=None):
+                         verify: bool = True, device=None, stages=None,
+                         devices=None):
     """Decode a raw DEFLATE stream into a uint8 tensor on `device`, as
     inflate_device_array_acc does, scanning it first when `index` is
     omitted. Returns (tensor, total): the tensor holds exactly the
@@ -683,12 +747,12 @@ def inflate_device_array(data: bytes, index=None, start_bit: int = 0,
     verify=True fetches the output's adler32 (K1) and raises ZippyError if
     it differs from the scan's: the integrity gate of raw DEFLATE, which
     has no checksum of its own. Neither sum is computed otherwise."""
-    dev = resolve_device(device)
+    dev, devices = _placement(device, devices)
     if index is None:
         with _stage(stages, "scan", dev):
             index = build_decode_index(data, start_bit)
     buf, total, adler_t, _, keep = inflate_device_array_acc(
-        data, index, dev, stages, adler=verify, crc=False)
+        data, index, dev, stages, adler=verify, crc=False, devices=devices)
     if verify:
         with _stage(stages, "checksums", dev):
             check_sums(total, int(adler_t), None, int(index["adler"]))
@@ -704,11 +768,12 @@ def _fetch(buf: torch.Tensor, stages=None) -> bytes:
 
 
 def inflate_device(data: bytes, index=None, start_bit: int = 0,
-                   verify: bool = True, device=None, stages=None) -> bytes:
+                   verify: bool = True, device=None, stages=None,
+                   devices=None) -> bytes:
     """Decode a raw DEFLATE stream on the card; as inflate_device_array,
     with the bytes fetched to the host."""
     buf, _ = inflate_device_array(data, index, start_bit, verify, device,
-                                  stages)
+                                  stages, devices)
     return _fetch(buf, stages)
 
 

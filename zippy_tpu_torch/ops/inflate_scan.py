@@ -44,12 +44,16 @@ def inflate_scan(data: bytes, start_bit: int, every: int) -> dict:
     if every < 1 or start_bit < 0:
         raise ZippyError("Invalid compressed data")
     lib = _lib()
-    seg_cap = max(1024, 2 * len(data) // every)
+    # Sized from the bytes from start_bit on (a member of a long stream
+    # needs no more) and left unfilled: the scan writes every row it
+    # counts, and only those are read. A stream that needs more takes the
+    # exact sizes from a second call.
+    seg_cap = max(1024, 2 * max(len(data) - start_bit // 8, 0) // every)
     sto_cap, blk_cap = 256, 256
     while True:
-        seg = np.zeros((seg_cap, 6), np.int64)
-        sto = np.zeros((sto_cap, 3), np.int64)
-        lens = np.zeros((blk_cap, 318), np.uint8)
+        seg = np.empty((seg_cap, 6), np.int64)
+        sto = np.empty((sto_cap, 3), np.int64)
+        lens = np.empty((blk_cap, 318), np.uint8)
         counts = np.zeros(7, np.int64)
         rc = lib.zt_inflate_scan(
             data, len(data), start_bit, every, seg.ctypes.data, seg_cap,

@@ -1,6 +1,7 @@
 """Build the port's native libraries and count its kernel launches.
 
-* csrc/checksums.cu (K1-K3) and csrc/inflate.cu (K4): nvcc for sm_90a.
+* csrc/checksums.cu (K1-K3) and csrc/inflate.cu (K4): nvcc for sm_90a;
+  both include csrc/device_scope.cuh.
 * csrc/inflate_scan.cpp (the decode's host scan): the host C++ compiler.
 
 Each library is built at first use into build/kernels/ under a name keyed by
@@ -23,6 +24,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 CUDA_SOURCES = ("checksums.cu", "inflate.cu")
+CUDA_HEADERS = ("device_scope.cuh",)
 HOST_SOURCES = ("inflate_scan.cpp",)
 
 # Kernel launches per wrapper: one per launch, counted nowhere else.
@@ -52,9 +54,14 @@ def _command(src: pathlib.Path, out: pathlib.Path) -> list[str]:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library of csrc/`name` lives, keyed by its source's hash."""
+    """Where the library of csrc/`name` lives, keyed by the hash of its
+    source and, for a .cu source, of the headers it may include."""
     src = CSRC / name
-    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha1(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in CUDA_HEADERS:
+            digest.update((CSRC / header).read_bytes())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"libzt_{src.stem}-{tag}.so"
 
 
