@@ -79,15 +79,32 @@ non-zero exit and no result line):
    process's first profiler session, naming K4's kernel; and the current
    device unchanged after every call. On a host with two cards or more
    the lists differ, the current device is checked after launches on
-   other cards, and two more ranks run on NCCL, each on its own card.
+   other cards, and two more ranks run on NCCL, each on its own card;
+9. the archive layer (`archives` lines), on a tree of 1,024 files in 64
+   directories (log-normal sizes, median 16 KiB, sigma 1.5, clipped to
+   [1 B, 8 MiB] and scaled to 64 MiB, cut from phase 4's payload, 1 file
+   in 16 random bytes) and 8 empty files: create_zip_archive's seconds,
+   ratio, rows and groups of its one batched encode, peak memory and
+   launches, every entry read back by CPython's zipfile; 16 sampled
+   entries' streams equal to deflate(entry, 1) alone, with those per-entry
+   calls' seconds beside the batched call's; extract_all (seconds, the
+   tree equal); a flipped central-directory crc32 raising ZippyError and
+   leaving no destination; extract_file of a multi-block entry; the v1
+   ZipArchive (add_dir, write_zip_archive, open) read by zipfile and the
+   port; a .tgz from the v1 Tarball read by CPython's tarfile and
+   extracted by tarballs.extract_all; the launches of all that, counted
+   from zero; torch.profiler traces of create_zip_archive and
+   extract_all_zip of the tree's first 128 files; then K4 against its
+   plain version on every batch of 8 sampled entries' decodes and K1-K3
+   on 8 entries against theirs.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles. A
 kernel's "launches" in the kernel line are those of the compress run,
-the decode run, the indexed decode runs and phase 8's run together, each
-counted from zero just before its run. The launch floor
+the decode run, the indexed decode runs, phase 8's run and phase 9's run
+together, each counted from zero just before its run. The launch floor
 ("launch_floor_ms", on the `kernel_calls` line and in K3's row) is the
 same timing of a one-element zero_() on the card.
 
@@ -102,6 +119,7 @@ import json
 import pathlib
 import shutil
 import socket
+import struct
 import subprocess
 import sys
 import time
@@ -1146,6 +1164,307 @@ def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
     return launches, [k13_err, k4_err]
 
 
+ARCHIVE_FILES = 1024
+ARCHIVE_DIRS = 64
+ARCHIVE_EMPTY = 8
+ARCHIVE_MEDIAN = 16 << 10
+ARCHIVE_SIGMA = 1.5
+ARCHIVE_MAX = 8 << 20
+TRACE_FILES = 128
+
+
+def archive_tree(data: bytes) -> dict:
+    """Phase 9's tree, {path: contents}: ARCHIVE_FILES files over
+    ARCHIVE_DIRS directories whose sizes are log-normal (median
+    ARCHIVE_MEDIAN, sigma ARCHIVE_SIGMA) clipped to [1, ARCHIVE_MAX] and
+    scaled so that they hold len(data) bytes, cut from `data` at seeded
+    offsets, except 1 file in 16 of random bytes (stored blocks); and
+    ARCHIVE_EMPTY empty files. The shape of a zip of a source tree or a
+    dataset shard."""
+    rng = np.random.default_rng(SEED)
+    sizes = rng.lognormal(np.log(ARCHIVE_MEDIAN), ARCHIVE_SIGMA,
+                          ARCHIVE_FILES)
+    for _ in range(20):
+        sizes = np.clip(sizes * len(data) / sizes.sum(), 1, ARCHIVE_MAX)
+    sizes = sizes.astype(np.int64)
+    room = np.flatnonzero(sizes < ARCHIVE_MAX)
+    sizes[room[np.argmax(sizes[room])]] += len(data) - sizes.sum()
+    tree = {}
+    for i, n in enumerate(sizes.tolist()):
+        name = f"d{i % ARCHIVE_DIRS:02d}/f{i:04d}.bin"
+        if i % 16 == 15:
+            tree[name] = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        else:
+            off = int(rng.integers(0, len(data) - n + 1))
+            tree[name] = data[off:off + n]
+    for i in range(ARCHIVE_EMPTY):
+        tree[f"d{i * ARCHIVE_DIRS // ARCHIVE_EMPTY:02d}/empty{i}.txt"] = b""
+    return tree
+
+
+def _zip_stream(blob: bytes, info) -> bytes:
+    """An entry's stored bytes in a zip, from its local header."""
+    pos = info.header_offset
+    name_len, extra_len = struct.unpack_from("<HH", blob, pos + 26)
+    start = pos + 30 + name_len + extra_len
+    return blob[start:start + info.compress_size]
+
+
+def _read_tree(root: pathlib.Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in root.rglob("*") if p.is_file()}
+
+
+def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
+    """Phase 9, the archive layer. Returns the kernel launches of its
+    counted run and the largest differences of K1-K3 and of K4 from their
+    plain versions on its sampled entries."""
+    import io
+    import tarfile
+    import zipfile
+
+    import zippy_tpu_torch as zt
+    from zippy_tpu_torch import common, tarballs, ziparchives
+    from zippy_tpu_torch.ops import checksum_kernels as ck
+    from zippy_tpu_torch.ops import deflate_device as td
+    from zippy_tpu_torch.ops import inflate_device as idev
+    from zippy_tpu_torch.ops import inflate_kernels as ik
+    from zippy_tpu_torch.ops import kernel_build as kb
+
+    root = SCRATCH / "archives"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    tree = archive_tree(data)
+    build_s = time.perf_counter() - t0
+    names = list(tree)
+    nonempty = [n for n in names if tree[n]]
+    payloads = [tree[n] for n in nonempty]
+    total = sum(map(len, payloads))
+    gmax = td._group_size(td._level_params(1)[0], td.BLOCK)
+    rows = {h: sum(1 for _ in td._entry_rows(payloads, td.BLOCK, h))
+            for h in (0, td.HIST)}
+    groups = sum(-(-r // gmax) for r in rows.values())
+    torch.cuda.synchronize()
+    launches = dict.fromkeys(kb.LAUNCHES, 0)
+
+    def counted(fn):
+        """fn() with the launches counted from zero; returns (result,
+        seconds, the step's launches) and adds them to the phase's."""
+        torch.cuda.synchronize()
+        for key in kb.LAUNCHES:
+            kb.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        step_launches = dict(kb.LAUNCHES)
+        for key in launches:
+            launches[key] += step_launches[key]
+        return out, sec, step_launches
+
+    # Zip, current API: one batched encode of every entry.
+    torch.cuda.reset_peak_memory_stats()
+    blob, create_s, create_l = counted(lambda: zt.create_zip_archive(tree))
+    with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+        infos = {i.filename: i for i in zf.infolist()}
+        zipfile_equal = (set(infos) == set(names)
+                         and all(zf.read(n) == tree[n] for n in names))
+    line = {"phase": "archives", "run": "create_zip_archive",
+            "files": len(names), "empty_files": len(names) - len(nonempty),
+            "bytes": total, "zip_bytes": len(blob),
+            "ratio": len(blob) / total, "tree_build_s": build_s,
+            "seconds": create_s, "MB_per_s": total / create_s / 1e6,
+            "rows_one_block": rows[0], "rows_multi_block": rows[td.HIST],
+            "rows_per_group": gmax, "groups": groups,
+            "peak_device_GiB": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": create_l,
+            "launches_expected": {"adler_chunks": 0,
+                                  "crc_rows": len(nonempty),
+                                  "crc_combine": len(nonempty),
+                                  "inflate_extract": 0},
+            "zipfile_equal": zipfile_equal}
+    emit(line)
+    check(zipfile_equal and create_l == line["launches_expected"], line)
+
+    # 16 sampled entries, each encoded alone: the smallest, multi-block
+    # ones across the sizes (the largest included) and random ones.
+    by_size = sorted(nonempty, key=lambda n: len(tree[n]))
+    multi = [n for n in by_size if len(tree[n]) > td.BLOCK]
+    rand = [n for n in nonempty if int(n[-8:-4]) % 16 == 15]
+    sample = by_size[:4] + [multi[i * (len(multi) - 1) // 9]
+                            for i in range(10)] + rand[:2]
+    sample = list(dict.fromkeys(sample))
+    per_entry = []
+    for name in sample:
+        t0 = time.perf_counter()
+        alone = td.deflate(tree[name], 1)
+        sec = time.perf_counter() - t0
+        stream = _zip_stream(blob, infos[name])
+        per_entry.append({"name": name, "bytes": len(tree[name]),
+                          "blocks": -(-len(tree[name]) // td.BLOCK),
+                          "stream_bytes": len(stream), "seconds": sec,
+                          "equal_deflate_alone": stream == alone})
+    mean_s = sum(e["seconds"] for e in per_entry) / len(per_entry)
+    line = {"phase": "archives", "run": "per-entry sample",
+            "entries": per_entry, "per_entry_mean_s": mean_s,
+            "batched_s_per_entry": create_s / len(names),
+            "per_entry_over_batched": mean_s / (create_s / len(names)),
+            "per_entry_estimate_s": mean_s * len(nonempty),
+            "random_entries_stored": [e["stream_bytes"] > e["bytes"]
+                                      for e in per_entry
+                                      if e["name"] in rand]}
+    emit(line)
+    check(all(e["equal_deflate_alone"] for e in per_entry)
+          and any(line["random_entries_stored"]), line)
+
+    # extract_all, extract_file and a flipped central-directory crc32.
+    zpath = root / "tree.zip"
+    zpath.write_bytes(blob)
+    dest = root / "zip_out"
+    _, extract_s, extract_l = counted(
+        lambda: zt.extract_all_zip(zpath, dest))
+    equal = _read_tree(dest) == tree
+    shutil.rmtree(dest)
+    t0 = time.perf_counter()
+    for name in nonempty:
+        idev.build_decode_index(_zip_stream(blob, infos[name]))
+    scan_s = time.perf_counter() - t0
+    big = max(nonempty, key=lambda n: len(tree[n]))
+
+    def one_file():
+        with zt.open_zip_archive(zpath) as reader:
+            return reader.extract_file(big)
+    got, file_s, file_l = counted(one_file)
+    victim = sample[5]
+    cd = blob.index(victim.encode(), blob.index(b"PK\x01\x02")) - 46
+    bad = bytearray(blob)
+    bad[cd + 16] ^= 0x01
+    bad_path = root / "bad.zip"
+    bad_path.write_bytes(bytes(bad))
+    bad_dest = root / "bad_out"
+
+    def flipped():
+        try:
+            zt.extract_all_zip(bad_path, bad_dest)
+        except common.ZippyError:
+            return True
+        return False
+    raised, flipped_s, _ = counted(flipped)
+    line = {"phase": "archives", "run": "extract_all_zip",
+            "seconds": extract_s, "MB_per_s": total / extract_s / 1e6,
+            "equal_tree": equal, "scan_only_s": scan_s,
+            "launches": extract_l,
+            "launches_expected_k1_k3": len(nonempty),
+            "extract_file_bytes": len(tree[big]), "extract_file_s": file_s,
+            "extract_file_equal": got == tree[big],
+            "extract_file_launches": file_l,
+            "flipped_cd_crc32_raises_ZippyError": raised,
+            "flipped_s": flipped_s,
+            "flipped_leaves_no_dest": not bad_dest.exists()}
+    emit(line)
+    check(equal and got == tree[big] and raised
+          and line["flipped_leaves_no_dest"]
+          and all(extract_l[k] == len(nonempty) for k in
+                  ("adler_chunks", "crc_rows", "crc_combine"))
+          and extract_l["inflate_extract"] > 0, line)
+
+    # The v1 ZipArchive and the v1 Tarball, from the tree on disk.
+    src = root / "tree"
+    for name, contents in tree.items():
+        (src / name).parent.mkdir(parents=True, exist_ok=True)
+        (src / name).write_bytes(contents)
+    want = {f"tree/{k}": v for k, v in tree.items()}
+    v1 = zt.ZipArchive()
+    v1.add_dir(str(src))
+    v1_path = root / "v1.zip"
+    _, v1_write_s, v1_write_l = counted(
+        lambda: v1.write_zip_archive(str(v1_path)))
+    back = zt.ZipArchive()
+    _, v1_open_s, v1_open_l = counted(lambda: back.open(v1_path))
+    with zipfile.ZipFile(v1_path) as zf:
+        v1_zipfile = {n: zf.read(n) for n in zf.namelist()
+                      if not n.endswith("/")} == want
+    line = {"phase": "archives", "run": "ZipArchive v1",
+            "zip_bytes": v1_path.stat().st_size, "write_s": v1_write_s,
+            "open_s": v1_open_s, "write_launches": v1_write_l,
+            "open_launches": v1_open_l, "zipfile_equal": v1_zipfile,
+            "open_equal": {k: e.contents for k, e in back.contents.items()
+                           if e.kind == "file"} == want}
+    emit(line)
+    check(line["zipfile_equal"] and line["open_equal"], line)
+    del v1, back
+
+    tball = zt.Tarball()
+    tball.add_dir(str(src))
+    tgz = root / "tree.tgz"
+    _, tgz_write_s, tgz_write_l = counted(
+        lambda: tball.write_tarball(str(tgz)))
+    with tarfile.open(tgz) as tf:
+        tar_equal = {m.name: tf.extractfile(m).read() for m in tf
+                     if m.isfile()} == want
+    tar_dest = root / "tar_out"
+    _, tgz_extract_s, tgz_extract_l = counted(
+        lambda: tarballs.extract_all(tgz, tar_dest))
+    line = {"phase": "archives", "run": "tgz (Tarball v1, L6)",
+            "tgz_bytes": tgz.stat().st_size, "write_s": tgz_write_s,
+            "write_MB_per_s": total / tgz_write_s / 1e6,
+            "write_launches": tgz_write_l, "tarfile_equal": tar_equal,
+            "extract_all_s": tgz_extract_s,
+            "extract_MB_per_s": total / tgz_extract_s / 1e6,
+            "extract_launches": tgz_extract_l,
+            "extract_equal_tree": _read_tree(tar_dest / "tree") == tree}
+    emit(line)
+    check(tar_equal and line["extract_equal_tree"], line)
+    del tball
+    phase_launches = dict(launches)
+    emit({"phase": "archives", "run": "launches", **phase_launches})
+    check(all(v > 0 for v in phase_launches.values()), phase_launches)
+
+    # Outside the counted run: the batched encode and the extract of the
+    # tree's first TRACE_FILES files traced (device operations, the card's
+    # idle share, the top kernels). The whole tree's traces hold about
+    # 660,000 device events, whose processing took minutes.
+    part = dict(list(tree.items())[:TRACE_FILES])
+    part_zip = root / "part.zip"
+    label = f"{len(part)} files, {sum(map(len, part.values()))} bytes"
+    emit({"phase": "trace", "run": f"create_zip_archive, {label}",
+          **device_trace(lambda: part_zip.write_bytes(
+              zt.create_zip_archive(part)))})
+    emit({"phase": "trace", "run": f"extract_all_zip, {label}",
+          **device_trace(lambda: zt.extract_all_zip(part_zip,
+                                                    root / "part_out"))})
+    check(_read_tree(root / "part_out") == part, "traced extract")
+
+    # K4 on every batch of 8 sampled entries' decodes and K1-K3 on 8
+    # entries, against their plain versions.
+    k4_lines, k4_err = [], 0
+    for name in [n for n in sample if n not in rand][-8:]:
+        stream = _zip_stream(blob, infos[name])
+        k4_line, _ = k4_against_plain(idev, ik, name, stream,
+                                      [(None, idev.build_decode_index(
+                                          stream))], dev)
+        k4_lines.append(k4_line)
+        k4_err = max(k4_err, k4_line["max_abs_err"])
+    k13_err = max(share_kernels_vs_plain(ck, torch.from_numpy(
+        np.frombuffer(tree[n], np.uint8).copy()).to(dev))
+        for n in sample[-8:])
+    line = {"phase": "archives", "run": "kernels against plain",
+            "k4_entries": [{k: v for k, v in ln.items()
+                            if k in ("run", "tiles", "batches", "busy_lanes",
+                                     "equal_plain", "max_abs_err")}
+                           for ln in k4_lines],
+            "k4_max_abs_err": k4_err, "k1_k3_entries": len(sample[-8:]),
+            "k1_k3_max_abs_err": k13_err}
+    emit(line)
+    check(k4_err == 0 and k13_err == 0
+          and all(ln["equal_plain"] and ln["batches"] for ln in k4_lines),
+          line)
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return phase_launches, k13_err, k4_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1387,6 +1706,13 @@ def main() -> int:
         dev, data, blobs["gzip L6 host bytes"])
     for row in kernels:
         row["launches"] += parallel_launches[row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 k4_err if row is k4 else k13_err)
+
+    # Phase 9: the archive layer.
+    archive_launches, k13_err, k4_err = archive_phase(dev, data)
+    for row in kernels:
+        row["launches"] += archive_launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  k4_err if row is k4 else k13_err)
 

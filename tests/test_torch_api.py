@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 import zippy_tpu  # noqa: E402
 import zippy_tpu_torch as zt  # noqa: E402
 from zippy_tpu_torch import gzip_format  # noqa: E402
-from _torch_parity import mixed_payload  # noqa: E402
+from zippy_tpu_torch.ops import deflate_device as td  # noqa: E402
+from _torch_parity import mixed_payload, shared_depth  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -49,6 +50,32 @@ def test_gzip_member_framing_matches_reference():
     assert gzip.decompress(got) == data
     padded = zt.compress(data, 6, zt.dfGzip, device="cpu")
     assert padded[3] & 0x08 and gzip.decompress(padded) == data   # FNAME
+
+
+def _body(blob: bytes, fmt: str) -> bytes:
+    """The raw DEFLATE body of a gzip, zlib or raw stream."""
+    if fmt == "dfGzip":
+        return blob[gzip_format.parse_header(blob)["data_offset"]:-8]
+    return blob[2:-4] if fmt == "dfZlib" else blob
+
+
+@pytest.mark.parametrize("fmt", ["dfGzip", "dfZlib", "dfDeflate"])
+def test_default_level_runs_level_6_matcher_on_host_bytes(fmt, shared_depth):
+    """Level -1 of host bytes runs level 6's matcher, as zippy_tpu's device
+    route does; a tensor at -1 keeps level 1's (deflate_array)."""
+    words = [b"alpha", b"beta", b"gamma", b"delta", b"epsilon", b"zeta",
+             b"eta", b"theta", b"iota", b"kappa", b"lambda", b"mu"]
+    rng = np.random.default_rng(43)
+    data = b" ".join(words[i] for i in (rng.zipf(1.3, 3000) - 1) % 12)
+    l1 = td.deflate(data, 1, device="cpu")
+    l6 = td.deflate(data, 6, device="cpu")
+    assert l1 != l6
+    got = _body(zt.compress(data, -1, getattr(zt, fmt), device="cpu"), fmt)
+    ref = _body(zippy_tpu.compress(data, -1, getattr(zippy_tpu, fmt),
+                                   engine_name="device"), fmt)
+    assert got == l6 == ref
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    assert _body(zt.compress(x, -1, getattr(zt, fmt)), fmt) == l1
 
 
 def test_compress_inputs():

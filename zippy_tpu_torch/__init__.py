@@ -5,10 +5,15 @@ NVIDIA H100, with the checksum kernels and the decode's token extraction
 hand-written in CUDA (csrc/checksums.cu, csrc/inflate.cu), and the indexed
 gzip formats: ZT member lengths (compress_indexed, uncompress_parallel) and
 ZX decode-index sidecars, decoded with no host scan (compress_device_indexed,
-uncompress_device). `parallel` spreads the encode and the checksums over a
-list of devices and gathers members across processes (torch.distributed);
-`profiling` traces a block; `warmup` takes the first-call costs up front.
-Entry points run on the CUDA card unless the caller passes device="cpu".
+uncompress_device). The archive layer reads and writes zip files
+(ZipArchiveReader, open_zip_archive, create_zip_archive, extract_all_zip;
+the v1 ZipArchive) and tarballs (extract_all_tarball; the v1 Tarball,
+create_tarball), with an archive's entries encoded together in shared
+device groups and decoded in one dispatch pass. `parallel` spreads the
+encode and the checksums over a list of devices and gathers members across
+processes (torch.distributed); `profiling` traces a block; `warmup` takes
+the first-call costs up front. Entry points run on the CUDA card unless
+the caller passes device="cpu".
 """
 
 from . import profiling
@@ -19,6 +24,15 @@ from .gzip_format import (
     uncompress_device,
     uncompress_parallel,
 )
+from .tarballs import extract_all as extract_all_tarball
+from .tarballs_v1 import Tarball, TarballEntry, create_tarball
+from .ziparchives import (
+    ZipArchiveReader,
+    create_zip_archive,
+    extract_all as extract_all_zip,
+    open_zip_archive,
+)
+from .ziparchives_v1 import ArchiveEntry, ZipArchive
 from .common import (
     BestCompression,
     BestSpeed,
@@ -84,6 +98,9 @@ def warmup(max_bytes: int = 16 << 20, levels=(1, -1), decode: bool = True,
 __all__ = [
     "compress", "uncompress", "compress_indexed", "uncompress_parallel",
     "compress_device_indexed", "uncompress_device", "warmup", "profiling",
+    "ZipArchiveReader", "open_zip_archive", "create_zip_archive",
+    "extract_all_zip", "ZipArchive", "ArchiveEntry", "Tarball",
+    "TarballEntry", "create_tarball", "extract_all_tarball",
     "CompressedDataFormat", "ZippyError",
     "dfDetect", "dfZlib", "dfGzip", "dfDeflate",
     "NoCompression", "BestSpeed", "BestCompression", "DefaultCompression",

@@ -41,16 +41,18 @@ def compress(
     The payload is uploaded once to `device` (None: the CUDA card; "cpu"
     runs the plain PyTorch versions); a tensor stays on its own device. The
     deflate body and the trailer checksum both run there; only framing
-    happens on the host."""
+    happens on the host. Level -1 runs level 6's matcher on host bytes and
+    level 1's on a tensor, as zippy_tpu's device route does."""
     check_level(level)
     engine.check_engine(engine_name)
     if data_format not in (dfGzip, dfZlib, dfDeflate):
         raise ZippyError(f"Invalid data format {data_format}")
-    x = as_u8_tensor(src, device)
-
     if data_format == dfGzip:
-        return gzip_format.write_member(x, level, engine_name=engine_name)
-    body = engine.deflate(x, level, engine_name)
+        return gzip_format.write_member(src, level, engine_name=engine_name,
+                                        device=device)
+    x = as_u8_tensor(src, device)
+    body = engine.deflate(x, level, engine_name,
+                          engine.matcher_level(src, level))
     if data_format == dfDeflate:
         return body
     cmf = (7 << 4) | 8                       # CINFO 7 (32 KiB window), CM 8

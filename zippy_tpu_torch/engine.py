@@ -25,13 +25,23 @@ def check_engine(engine: str) -> None:
                          "zippy_tpu_torch; use engine 'auto' or 'device'")
 
 
-def deflate(data, level: int, engine: str = "auto") -> bytes:
-    """Raw DEFLATE encode on the device pipeline."""
+def matcher_level(src, level: int) -> int:
+    """The matcher `level` runs for `src`, as zippy_tpu's device route picks
+    it: host bytes run the level's own (level -1 as level 6), and a tensor
+    runs level 1's at level -1 (zippy_tpu's deflate_array)."""
+    return max(level, 1) if isinstance(src, torch.Tensor) else level
+
+
+def deflate(data, level: int, engine: str = "auto",
+            matcher: int | None = None) -> bytes:
+    """Raw DEFLATE encode on the device pipeline. `matcher` is the level
+    whose matcher runs (None: matcher_level(data, level)); a caller that
+    uploaded host bytes itself passes matcher_level of those bytes."""
     from .ops import deflate_device
 
     check_engine(engine)
     if isinstance(data, torch.Tensor):
-        return deflate_device.deflate_array(data, level)
+        return deflate_device.deflate_array(data, level, matcher=matcher)
     return deflate_device.deflate(data, level)
 
 

@@ -59,7 +59,8 @@ def write_member(
 
     The payload goes to the device once (a tensor stays where it is): the
     deflate body and the crc32 both run there; only the header and trailer
-    bytes assemble on the host."""
+    bytes assemble on the host. Level -1 runs level 6's matcher on host
+    bytes and level 1's on a tensor (engine.matcher_level)."""
     engine.check_engine(engine_name)
     x = as_u8_tensor(src, device)
     flg = 0
@@ -75,7 +76,8 @@ def write_member(
         npad = os.urandom(1)[0] % 26
         fields += bytes(97 + i for i in range(npad)) + b"\x00"
     header = struct.pack("<2sBBIBB", GZIP_MAGIC, 8, flg, 0, 0, 0)
-    body = engine.deflate(x, level, engine_name)
+    body = engine.deflate(x, level, engine_name,
+                          engine.matcher_level(src, level))
     trailer = struct.pack("<II", engine.crc32(x, engine_name),
                           int(x.shape[0]) & 0xFFFFFFFF)
     return header + fields + body + trailer

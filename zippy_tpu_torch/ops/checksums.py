@@ -27,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from ..common import as_u8_tensor
+from ..common import as_u8_tensor, resolve_device
 
 ADLER_MOD = 65521
 CRC32_POLY = 0xEDB88320  # reflected polynomial
@@ -217,6 +217,40 @@ def crc32_raw_tensor(data, device=None) -> torch.Tensor:
     full = n // row
     rows, tail = x[:full * row].view(full, row), x[full * row:]
     return ck.crc_combine(ck.crc_rows(rows, tail), n - full * row or row)
+
+
+def upload_packed(payloads, device) -> tuple[list, list]:
+    """Each payload (bytes-like) as a 1-D uint8 tensor on `device`, all from
+    one upload with no host sync. The payloads lie at 16-byte aligned
+    offsets of one host buffer, so that K2 reads each in place; for a card
+    the buffer is pinned and returned in keep, to hold until the caller
+    next synchronizes. Returns (tensors, keep)."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    offs, total = [], 0
+    for p in payloads:
+        offs.append(total)
+        total += -(-len(p) // 16) * 16
+    host = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=cuda)
+    h = host.numpy()
+    for off, p in zip(offs, payloads):
+        h[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    buf = host.to(dev, non_blocking=True)
+    return [buf[off:off + len(p)] for off, p in zip(offs, payloads)], (
+        [host] if cuda else [])
+
+
+def crc32_many(payloads, device=None) -> list[int]:
+    """The crc32 of each payload (bytes-like) on `device` (None: the CUDA
+    card): the non-empty ones from one upload (upload_packed), K2 + K3 a
+    payload with no host sync between them, and one fetch of every raw CRC.
+    An empty payload's crc32 is 0, with no device work."""
+    sizes = [len(p) for p in payloads]
+    views, keep = upload_packed([p for p in payloads if len(p)], device)
+    raws = iter(torch.cat([crc32_raw_tensor(v) for v in views]).tolist()
+                if views else [])
+    del keep
+    return [crc32_finish(next(raws), n) if n else 0 for n in sizes]
 
 
 def _crc_mix(nbytes: int) -> int:

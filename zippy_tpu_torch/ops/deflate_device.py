@@ -866,7 +866,8 @@ def _group_size(k: int, block_size: int) -> int:
 
 
 def deflate_array(x: torch.Tensor, level: int, block_size: int = BLOCK, *,
-                  stages: dict | None = None) -> bytes:
+                  stages: dict | None = None,
+                  matcher: int | None = None) -> bytes:
     """Raw DEFLATE stream from a 1-D uint8 tensor, encoded on its device.
 
     Block rows are sliced on the device; only the per-block code lengths,
@@ -874,14 +875,16 @@ def deflate_array(x: torch.Tensor, level: int, block_size: int = BLOCK, *,
     blocks fetch just their own raw bytes. Level 0 (stored framing) fetches
     the input once, since its output is the input. Level -1 runs level 1's
     matcher here, as zippy_tpu's deflate_array does (`deflate` of host
-    bytes runs level 6's). `stages`, a dict, gets each stage's wall seconds
-    (the card synchronized between stages)."""
+    bytes runs level 6's); `matcher`, if given, is the level whose matcher
+    runs instead (a caller that uploaded host bytes passes `level`).
+    `stages`, a dict, gets each stage's wall seconds (the card synchronized
+    between stages)."""
     if (not isinstance(x, torch.Tensor) or x.dtype != torch.uint8
             or x.dim() != 1):
         raise ZippyError("deflate_array expects a 1-D uint8 tensor")
     check_level(level)
-    return deflate_runs(x, level, max(level, 1), block_size, [x.device],
-                        stages)
+    return deflate_runs(x, level, max(level, 1) if matcher is None
+                        else matcher, block_size, [x.device], stages)
 
 
 def _encode_run(buf: torch.Tensor, b0: int, nrows: int, n: int,
@@ -948,26 +951,161 @@ def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
     fetched = []
     for issued in itertools.zip_longest(*runs):
         for b0, res in filter(None, issued):
-            meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
-                              res["ll_lens"], res["d_lens"], res["cl_lens"]],
-                             dim=1).cpu().numpy()
-            nwords = max(1, -(-int(meta[:, 1].max()) // 32))
-            fetched.append((b0, meta, _to_i32(res["words"][:, :nwords])
-                            .cpu().numpy().view("<u4")))
+            fetched.append((b0, *_finish_fetch(_start_fetch(res))))
         clock.mark("fetch")
     for b0, meta, words in sorted(fetched, key=lambda f: f[0]):
-        for j in range(meta.shape[0]):
-            b = b0 + j
-            s = b * block_size
-            blen = min(block_size, n - s)
-            mode = int(meta[j, 0])
-            # A stored block fetches only its own bytes.
-            raw = x[s:s + blen].cpu().numpy() if mode == 0 else None
-            _assemble_block(out, mode, meta[j, 2:288], meta[j, 288:318],
-                            meta[j, 318:337], words[j], int(meta[j, 1]), raw,
-                            blen, b == nblocks - 1)
+        bs = range(b0, b0 + meta.shape[0])
+        # A stored block fetches only its own bytes.
+        _splice_group(meta, words, [
+            (out, min(block_size, n - b * block_size), b == nblocks - 1)
+            for b in bs], lambda j: x[bs[j] * block_size:][:block_size]
+            .cpu().numpy())
     clock.mark("splice")
     return bytes(out.out)
+
+
+def _start_fetch(res: dict):
+    """Enqueue the copy of an issued group's results to the host, with no
+    host sync: per row the mode, the payload bits and the code lengths
+    (meta), and the packed words. On a card the copies go to pinned memory
+    on the results' device's stream, followed by an event. Returns what
+    _finish_fetch takes."""
+    meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
+                      res["ll_lens"], res["d_lens"], res["cl_lens"]], dim=1)
+    words = _to_i32(res["words"])
+    if meta.device.type != "cuda":
+        return meta, words, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            .copy_(t, non_blocking=True) for t in (meta, words)]
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(meta.device))
+    return (*host, event)
+
+
+def _finish_fetch(fetch) -> tuple[np.ndarray, np.ndarray]:
+    """Wait for a group's copies (_start_fetch): (meta, the packed words up
+    to the longest row's) as numpy arrays."""
+    meta, words, event = fetch
+    if event is not None:
+        event.synchronize()
+    meta = meta.numpy()
+    nwords = max(1, -(-int(meta[:, 1].max()) // 32))
+    return meta, words.numpy()[:, :nwords].view("<u4")
+
+
+def _splice_group(meta: np.ndarray, words: np.ndarray, blocks: list,
+                  raw) -> None:
+    """Splice a fetched group's rows onto their streams: blocks[j] = (the
+    stream's _ByteBitAppender, the block's length, whether it is the
+    stream's last block) for row j; raw(j) gives row j's input bytes, read
+    only for a stored block."""
+    for j, (out, blen, final) in enumerate(blocks):
+        mode = int(meta[j, 0])
+        _assemble_block(out, mode, meta[j, 2:288], meta[j, 288:318],
+                        meta[j, 318:337], words[j], int(meta[j, 1]),
+                        raw(j) if mode == 0 else None, blen, final)
+
+
+def _entry_rows(payloads: list, block_size: int, hist: int):
+    """The rows of every block of every payload whose stream takes `hist`
+    (HIST for payloads of more than one block, 0 for one block), in
+    payload order: (payload index, block start, block length, last)."""
+    for p, data in enumerate(payloads):
+        n = len(data)
+        nblocks = -(-n // block_size)
+        if n == 0 or (nblocks > 1) != (hist > 0):
+            continue
+        for b in range(nblocks):
+            s = b * block_size
+            yield p, s, min(block_size, n - s), b == nblocks - 1
+
+
+def _issue_entry_group(payloads: list, rows: list, block_size: int,
+                       hist: int, params: dict, dev: torch.device,
+                       keep: list) -> dict:
+    """Build one group's rows on the host, as deflate_runs' buffer lays
+    them out (the `hist` bytes before the block, zeros before the payload;
+    the block; PAD bytes after it, zeros past the payload), upload them
+    without a host sync (from pinned memory for CUDA, appended to `keep`
+    until the next sync) and issue the group's encode."""
+    cuda = dev.type == "cuda"
+    width = hist + block_size + PAD
+    host = torch.zeros(len(rows), width, dtype=torch.uint8, pin_memory=cuda)
+    lens = torch.empty(2, len(rows), dtype=torch.int64, pin_memory=cuda)
+    h, ln = host.numpy(), lens.numpy()
+    for i, (p, s, blen, _) in enumerate(rows):
+        data = payloads[p]
+        lo = max(s - hist, 0)
+        src = data[lo:s + block_size + PAD]
+        h[i, lo - (s - hist):lo - (s - hist) + len(src)] = src
+        ln[0, i], ln[1, i] = blen, min(s, hist)
+    if cuda:
+        keep += [host, lens]
+    host = host.to(dev, non_blocking=True)
+    lens = lens.to(dev, non_blocking=True)
+    return _encode_group(host, lens[0], lens[1], hist=hist, **params)
+
+
+def deflate_entries(payloads, level: int, block_size: int = BLOCK,
+                    device=None) -> list[bytes]:
+    """One raw DEFLATE stream per payload (bytes-like), each the stream of
+    `deflate(payload, level, block_size, device)`, with the payloads' blocks
+    encoded together: every block of every non-empty payload is a row of
+    shared groups of _group_size rows, so many small payloads take a few
+    groups (each of which costs about the same on the card whatever it
+    holds) rather than one each. Rows are encoded independently, each with
+    its own length and history, so the bytes do not depend on the
+    grouping. A single-block payload's rows take no history and a longer
+    payload's take HIST: the two kinds go in separate groups.
+
+    Each group's rows are built on the host and uploaded as it is issued,
+    and its results are copied back with no host sync; the next group is
+    issued before the host waits for a group's results, so the card holds
+    about one group's intermediates at a time and encodes the next group
+    while the host splices. The host splices each payload's blocks in
+    order, a stored block from the host payload."""
+    check_level(level)
+    if not MIN_BLOCK <= block_size <= (1 << 17) - HIST:
+        raise ZippyError(f"block_size must lie in [{MIN_BLOCK}, "
+                         f"{(1 << 17) - HIST}]")
+    dev = resolve_devices([device])[0]
+    payloads = [np.frombuffer(p.encode("utf-8") if isinstance(p, str) else p,
+                              dtype=np.uint8) for p in payloads]
+    outs = [_ByteBitAppender() for _ in payloads]
+    if level == 0:
+        for out, data in zip(outs, payloads):
+            if len(data):
+                _append_block(out, "stored", None, None, 0, data, len(data),
+                              True)
+    else:
+        lits_only = level == -2
+        k, lazy, min3 = _level_params(1 if lits_only else level)
+        params = {"k": k, "lazy": lazy, "min3": min3, "lits_only": lits_only}
+        gmax = _group_size(k, block_size)
+        groups = []
+        for hist in (0, HIST):
+            rows = list(_entry_rows(payloads, block_size, hist))
+            groups += [(hist, rows[i:i + gmax])
+                       for i in range(0, len(rows), gmax)]
+        keep: list = []
+        pending = None
+        for group in groups + [None]:
+            issued = None
+            if group is not None:
+                hist, rows = group
+                issued = (rows, _start_fetch(_issue_entry_group(
+                    payloads, rows, block_size, hist, params, dev, keep)))
+            if pending is not None:
+                # The next group runs on the card while this one splices.
+                rows, fetch = pending
+                meta, words = _finish_fetch(fetch)
+                del keep[:-2]       # all but the next group's uploads
+                _splice_group(meta, words, [
+                    (outs[p], blen, last) for p, _, blen, last in rows],
+                    lambda j: payloads[rows[j][0]][rows[j][1]:][:rows[j][2]])
+            pending = issued
+    return [bytes(out.out) if len(data) else _empty_stream()
+            for out, data in zip(outs, payloads)]
 
 
 def deflate(data, level: int, block_size: int = BLOCK,
