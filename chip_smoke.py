@@ -96,15 +96,23 @@ non-zero exit and no result line):
    from zero; torch.profiler traces of create_zip_archive and
    extract_all_zip of the tree's first 128 files; then K4 against its
    plain version on every batch of 8 sampled entries' decodes and K1-K3
-   on 8 entries against theirs.
+   on 8 entries against theirs;
+10. the driver hooks (`driver_hooks` lines, zippy_tpu_torch.entry):
+   entry("cuda")'s step (compress_block_fixed of one 64 KiB block) equal to
+   entry("cpu")'s, words, bit count and both histograms, and its packed
+   block decoded by zlib behind a fixed-Huffman block header;
+   dryrun_multichip(2, ["cuda:0", "cuda:0"]) and, on a host with two cards
+   or more, dryrun_multichip over default_devices(), with seconds; their
+   launches counted from zero (K1 for the decode's gate, K4 a share); then
+   K4 on their streams and K1-K3 on their data against the plain versions.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles. A
 kernel's "launches" in the kernel line are those of the compress run,
-the decode run, the indexed decode runs, phase 8's run and phase 9's run
-together, each counted from zero just before its run. The launch floor
+the decode run, the indexed decode runs and the runs of phases 8, 9 and
+10 together, each counted from zero just before its run. The launch floor
 ("launch_floor_ms", on the `kernel_calls` line and in K3's row) is the
 same timing of a one-element zero_() on the card.
 
@@ -1465,6 +1473,82 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
     return phase_launches, k13_err, k4_err
 
 
+def driver_hooks_phase(dev) -> tuple[dict, int, int]:
+    """Phase 10, the driver hooks (zippy_tpu_torch.entry). Returns the
+    kernel launches of its counted run and the largest differences of K1-K3
+    and of K4 from their plain versions on its dry runs' data and streams."""
+    from zippy_tpu_torch import entry as ze
+    from zippy_tpu_torch.ops import checksum_kernels as ck
+    from zippy_tpu_torch.ops import deflate_device as td
+    from zippy_tpu_torch.ops import inflate_device as idev
+    from zippy_tpu_torch.ops import inflate_kernels as ik
+    from zippy_tpu_torch.ops import kernel_build as kb
+    from zippy_tpu_torch.parallel import default_devices
+
+    torch.cuda.synchronize()
+    for key in kb.LAUNCHES:
+        kb.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    step, args = ze.entry("cuda")
+    got = step(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    cpu_step, cpu_args = ze.entry("cpu")
+    t0 = time.perf_counter()
+    want = cpu_step(*cpu_args)
+    cpu_s = time.perf_counter() - t0
+    # The packed block behind a final fixed-Huffman block header.
+    out = td._ByteBitAppender()
+    td._append_block(out, "fixed", None, got[0].cpu().numpy().astype(
+        np.uint32), int(got[1]), None, 0, True)
+    block = args[0][:td.BLOCK].cpu().numpy().tobytes()
+    line = {"phase": "driver_hooks", "run": "entry step, 64 KiB block",
+            "seconds": step_s, "cpu_seconds": cpu_s,
+            "total_bits": int(got[1]),
+            "equal_cpu": [torch.equal(a.cpu(), b)
+                          for a, b in zip(got, want)],
+            "zlib_decodes_block": zlib.decompress(bytes(out.out), -15)
+            == block}
+    emit(line)
+    check(all(line["equal_cpu"]) and line["zlib_decodes_block"], line)
+
+    runs = [("cuda:0 x2", 2, ["cuda:0"] * 2)]
+    if torch.cuda.device_count() >= 2:
+        n = len(default_devices())
+        runs.append(("default_devices()", n, None))
+    streams = []
+    for label, n, devices in runs:
+        t0 = time.perf_counter()
+        data, blob = ze.dryrun_multichip(n, devices)
+        emit({"phase": "driver_hooks", "run": f"dryrun_multichip({n}), "
+              f"{label}", "seconds": time.perf_counter() - t0,
+              "bytes": len(data), "stream_bytes": len(blob)})
+        streams.append((label, data, blob))
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    emit({"phase": "driver_hooks", "run": "launches", **launches})
+    # The decode's adler32 gate (K1) and its extraction (K4, a share).
+    check(launches["adler_chunks"] > 0 and launches["inflate_extract"] > 0,
+          launches)
+
+    k4_lines, k4_err, k13_err = [], 0, 0
+    for label, data, blob in streams:
+        k4_line, _ = k4_against_plain(idev, ik, label, blob, [
+            (None, idev.build_decode_index(blob))], dev)
+        k4_lines.append(k4_line)
+        k4_err = max(k4_err, k4_line["max_abs_err"])
+        k13_err = max(k13_err, share_kernels_vs_plain(ck, torch.from_numpy(
+            np.frombuffer(data, np.uint8).copy()).to(dev)))
+    line = {"phase": "driver_hooks", "run": "kernels against plain",
+            "k4": k4_lines, "k4_max_abs_err": k4_err,
+            "k1_k3_max_abs_err": k13_err}
+    emit(line)
+    check(k4_err == 0 and k13_err == 0
+          and all(ln["equal_plain"] and ln["batches"] for ln in k4_lines),
+          line)
+    return launches, k13_err, k4_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1713,6 +1797,13 @@ def main() -> int:
     archive_launches, k13_err, k4_err = archive_phase(dev, data)
     for row in kernels:
         row["launches"] += archive_launches[row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 k4_err if row is k4 else k13_err)
+
+    # Phase 10: the driver hooks.
+    hook_launches, k13_err, k4_err = driver_hooks_phase(dev)
+    for row in kernels:
+        row["launches"] += hook_launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  k4_err if row is k4 else k13_err)
 

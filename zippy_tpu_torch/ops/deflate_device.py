@@ -379,6 +379,21 @@ def pack_tokens(tok: dict, ll_lens: torch.Tensor, ll_codes: torch.Tensor,
     return words, total_bits
 
 
+def compress_block_fixed(data_pad: torch.Tensor, n, *, k: int = 4,
+                         lazy: bool = True):
+    """One block with the fixed Huffman codes: find_tokens, then pack_tokens
+    with the fixed tables. `data_pad` is one 1-D uint8 block, zero padded
+    past `n` to N + PAD bytes. Returns (words (N // 2 + 8,) int64 holding
+    uint32 values, total_bits, ll_hist (286,), dist_hist (30,)) on its
+    device: the payload bits with no 3-bit block header."""
+    dev = data_pad.device
+    tok = find_tokens(data_pad[None], n, k=k, lazy=lazy)
+    words, total_bits = pack_tokens(
+        tok, _const("fixed_ll", dev)[None], _const("fixed_ll_codes", dev)[None],
+        _const("fixed_d", dev)[None], _const("fixed_d_codes", dev)[None])
+    return words[0], total_bits[0], tok["ll_hist"][0], tok["dist_hist"][0]
+
+
 # ---------------------------------------------------------------------------
 # Huffman construction on the card
 #
@@ -657,6 +672,20 @@ def _encode_group(blocks: torch.Tensor, lens: torch.Tensor,
     }
 
 
+def encode_block(data_pad: torch.Tensor, n, hist_len=0, *, k: int = 4,
+                 lazy: bool = True, hist: int = 0, min3: bool = False,
+                 lits_only: bool = False) -> dict:
+    """The full encode of one block, as one row of _encode_group: `data_pad`
+    is a 1-D row laid out as find_tokens' rows are. Returns _encode_group's
+    dict with the group axis dropped."""
+    dev = data_pad.device
+    res = _encode_group(
+        data_pad[None], torch.as_tensor(n, device=dev).reshape(1),
+        torch.as_tensor(hist_len, device=dev).reshape(1), k=k, lazy=lazy,
+        hist=hist, min3=min3, lits_only=lits_only)
+    return {key: v[0] for key, v in res.items()}
+
+
 # ---------------------------------------------------------------------------
 # Host orchestration: dynamic Huffman header + stream assembly
 # ---------------------------------------------------------------------------
@@ -680,6 +709,54 @@ class _HostBitWriter:
 
     def bit_length(self) -> int:
         return len(self.out) * 8 + self.bitcnt
+
+
+def build_code_lengths(freq: np.ndarray, limit: int) -> np.ndarray:
+    """Optimal length-limited Huffman code lengths by package-merge, on the
+    host: l = 0 iff freq = 0, a lone active symbol gets length 1. Kept for
+    parity with the reference's API (make_dynamic_header with no cl_lens):
+    no device path runs it, the encoder builds its lengths on the card
+    (_kraft_lengths)."""
+    n = len(freq)
+    lens = np.zeros(n, dtype=np.int32)
+    active = np.nonzero(freq)[0]
+    if len(active) == 0:
+        return lens
+    if len(active) == 1:
+        lens[active[0]] = 1
+        return lens
+    # Leaves are ~symbol (negative), packages their index in `arena`; ties
+    # in weight sort leaves by ~symbol, as the reference does.
+    leaves = sorted((int(freq[s]), ~int(s)) for s in active)
+    arena: list[tuple[int, int]] = []
+    merged = list(leaves)
+    for _ in range(1, limit):
+        packages = []
+        for i in range(0, len(merged) - 1, 2):
+            arena.append((merged[i][1], merged[i + 1][1]))
+            packages.append((merged[i][0] + merged[i + 1][0], len(arena) - 1))
+        out, a, b = [], 0, 0
+        while a < len(leaves) or b < len(packages):
+            if b >= len(packages) or (a < len(leaves)
+                                      and leaves[a][0] <= packages[b][0]):
+                out.append(leaves[a])
+                a += 1
+            else:
+                out.append(packages[b])
+                b += 1
+        merged = out
+    # Each of the first 2(n - 1) items adds one to the length of every
+    # leaf it holds.
+    stack = []
+    for i in range(min(2 * (len(active) - 1), len(merged))):
+        stack.append(merged[i][1])
+        while stack:
+            it = stack.pop()
+            if it < 0:
+                lens[~it] += 1
+            else:
+                stack.extend(arena[it])
+    return lens
 
 
 def _rle_code_lengths(lens: np.ndarray) -> list[tuple[int, int, int]]:
@@ -713,11 +790,12 @@ def _rle_code_lengths(lens: np.ndarray) -> list[tuple[int, int, int]]:
 
 
 def make_dynamic_header(ll_lens: np.ndarray, dist_lens: np.ndarray,
-                        cl_lens: np.ndarray):
+                        cl_lens: np.ndarray | None = None):
     """Dynamic block header bits (HLIT/HDIST/HCLEN + CL-coded lengths).
-    Returns (header_bytes, header_bit_length). `cl_lens` are the
-    device-built code-length-code lengths, used verbatim so the header is
-    the size the device costed."""
+    Returns (header_bytes, header_bit_length). `cl_lens`, when given, are
+    the device-built code-length-code lengths, used verbatim so the header
+    is the size the device costed; None builds them on the host
+    (build_code_lengths, limit 7)."""
     hlit = 286
     while hlit > 257 and ll_lens[hlit - 1] == 0:
         hlit -= 1
@@ -726,6 +804,9 @@ def make_dynamic_header(ll_lens: np.ndarray, dist_lens: np.ndarray,
         hdist -= 1
     all_lens = np.concatenate([ll_lens[:hlit], dist_lens[:hdist]])
     rle = _rle_code_lengths(all_lens)
+    if cl_lens is None:
+        cl_lens = build_code_lengths(
+            np.bincount([sym for sym, _, _ in rle], minlength=19), 7)
     cl_codes = tables.canonical_codes(cl_lens)
     order = tables.CLCL_ORDER
     hclen = 19
@@ -896,16 +977,37 @@ def _encode_run(buf: torch.Tensor, b0: int, nrows: int, n: int,
     PAD bytes past the last block (zeros past the payload). A generator:
     each step issues one group, with no host sync, and yields (its first
     block, its result tensors) unfetched."""
-    dev = buf.device
-    rows = buf.unfold(0, hist + block_size + PAD, block_size)
     gmax = _group_size(params["k"], block_size)
     for i in range(0, nrows, gmax):
-        g = min(gmax, nrows - i)
-        starts = torch.arange(b0 + i, b0 + i + g, dtype=torch.int64,
-                              device=dev) * block_size
         yield b0 + i, _encode_group(
-            rows[i:i + g].contiguous(), (n - starts).clamp(max=block_size),
-            starts.clamp(max=hist), hist=hist, clock=clock, **params)
+            *_group_inputs(buf, b0, i, min(gmax, nrows - i), n, block_size,
+                           hist), hist=hist, clock=clock, **params)
+
+
+def _group_inputs(buf: torch.Tensor, b0: int, i: int, g: int, n: int,
+                  block_size: int, hist: int):
+    """_encode_group's (blocks, lens, hist_lens) for blocks b0 + i ..
+    b0 + i + g - 1 of an n-byte payload, from buf, a run's rows as
+    _encode_run takes them."""
+    rows = buf.unfold(0, hist + block_size + PAD, block_size)
+    starts = torch.arange(b0 + i, b0 + i + g, dtype=torch.int64,
+                          device=buf.device) * block_size
+    return (rows[i:i + g].contiguous(), (n - starts).clamp(max=block_size),
+            starts.clamp(max=hist))
+
+
+def _run_buffer(x: torch.Tensor, b0: int, b1: int, block_size: int,
+                hist: int, device: torch.device) -> torch.Tensor:
+    """The rows of blocks b0 .. b1 - 1 of x (a 1-D uint8 tensor) for
+    _encode_run, on `device`: from `hist` bytes before block b0 to PAD
+    bytes past block b1 - 1, zeros outside the payload."""
+    n = int(x.shape[0])
+    lo = b0 * block_size - hist        # may lie before the payload
+    src = x[max(lo, 0):min(b1 * block_size + PAD, n)]
+    buf = torch.zeros(hist + (b1 - b0) * block_size + PAD,
+                      dtype=torch.uint8, device=device)
+    buf[max(lo, 0) - lo:max(lo, 0) - lo + len(src)] = src
+    return buf
 
 
 def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
@@ -941,11 +1043,7 @@ def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
     for dev, b0, b1 in zip(devices, bounds, bounds[1:]):
         if b0 == b1:
             continue
-        lo = b0 * block_size - hist        # may lie before the payload
-        src = x[max(lo, 0):min(b1 * block_size + PAD, n)]
-        buf = torch.zeros(hist + (b1 - b0) * block_size + PAD,
-                          dtype=torch.uint8, device=dev)
-        buf[max(lo, 0) - lo:max(lo, 0) - lo + len(src)] = src
+        buf = _run_buffer(x, b0, b1, block_size, hist, dev)
         runs.append(_encode_run(buf, b0, b1 - b0, n, block_size, hist,
                                 params, clock))
     fetched = []
