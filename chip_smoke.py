@@ -7,10 +7,10 @@ Phases, each printing one JSON line (any failure ends the run with a
 non-zero exit and no result line):
 
 1. the card (nvidia-smi's name and power limit, torch's device name);
-2. the build of every native library, with its seconds: csrc/checksums.cu
-   and csrc/inflate.cu with nvcc (started together) and the decode's host
-   scan csrc/inflate_scan.cpp with c++; and what `nvcc -Xptxas -v` said of
-   each kernel (registers, shared memory, spills);
+2. the build of every native library, with its seconds: csrc/checksums.cu,
+   csrc/inflate.cu and csrc/huffman.cu with nvcc (started together) and
+   the decode's host scan csrc/inflate_scan.cpp with c++; and what `nvcc
+   -Xptxas -v` said of each kernel (registers, shared memory, spills);
 3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
    with a tail row) and K3 (crc_combine) against their plain PyTorch
    versions on the card, and adler32/crc32 against zlib, at 0 B to
@@ -27,28 +27,33 @@ non-zero exit and no result line):
 4. the compress path: compress() of a seeded 64 MiB mixed text/binary
    payload to gzip at level 6, from host bytes and from a CUDA tensor, and
    of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
-   gzip/zlib; the kernels' launch counts are zeroed before and read after;
-   then one instrumented encode gives seconds per stage, and torch.profiler
-   traces of the encode and of one Kraft build give device operations and
-   the card's idle share;
+   gzip/zlib; the kernels' launch counts are zeroed before and read after
+   (K5 exactly once per encode group); then one instrumented encode gives
+   seconds per stage, and a torch.profiler trace of the encode gives device
+   operations and the card's idle share; K5 (huffman_tables) against its
+   plain version on every group of the host-bytes encodes (inputs kept as
+   its wrapper got them) and on HUFFMAN_ROWS seeded rows of every edge
+   kind, launched HUFFMAN_REPEATS times; traces of one K5 launch and one
+   plain build of a full level-6 group;
 5. the decode path: uncompress() of phase 4's 64 MiB gzip and 8 MiB zlib
    streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
    (level 0) stream and of a two-member gzip, each equal to its input, with
    the launch counts zeroed before and read after (K1-K4 all launched, K4
-   once per batch of tiles that has a busy lane); per stream the scan's
-   seconds, the decode given its index (twice) and CPython's decompress; a
-   decode given its index with no host sync from the first tile to the
-   last (torch.cuda.set_sync_debug_mode("error")); the 64 MiB stream in
-   batches of 8 tiles; a flipped crc raising ZippyError; one decode's
-   synchronized stage seconds; a torch.profiler trace of a decode given
-   its index; K4 against its plain version on every tile of all six
+   once per batch of tiles that has a busy lane, K5 never); per stream the
+   scan's seconds, the decode given its index (twice) and CPython's
+   decompress; a decode given its index with no host sync from the first
+   tile to the last (torch.cuda.set_sync_debug_mode("error")); the 64 MiB
+   stream in batches of 8 tiles; a flipped crc raising ZippyError; one
+   decode's synchronized stage seconds; a torch.profiler trace of a decode
+   given its index; K4 against its plain version on every tile of all six
    streams, batched as the decode batches them, with the lanes whose block
    row K4 read from device memory rather than shared memory; and one K4
    launch over the 64 MiB stream's batch timed, with its bound for the
    busy lanes and for the padded segment tables it wrote before;
 6. the indexed serving format (`indexed` lines), at 1 MiB and 8 MiB
    members of the 64 MiB payload at level 6: compress_device_indexed's
-   seconds beside phase 4's single-member compress, the stream's size and
+   seconds beside phase 4's single-member compress, its K5 launches (one a
+   group of each member), the stream's size and
    its sidecars' share, CPython's decode of it; uncompress_device (bytes
    and array=True) and uncompress() equal to the input with no scan call,
    their seconds beside the scanned uncompress() of phase 4's stream and
@@ -70,8 +75,9 @@ non-zero exit and no result line):
    64 MiB and 256 MiB + 7 against zlib; inflate_device(devices=[cuda:0,
    cuda:0]) of the 64 MiB body; the launches of these runs, counted from
    zero (K1-K3 once per device share, K4 once per share with busy lanes
-   per batch), then K1-K3 on each 64 MiB share and K4 on each share of
-   every batch against their plain versions; two ranks spawned on gloo
+   per batch, K5 once per encode group of each device's run), then K1-K3
+   on each 64 MiB share and K4 on each share of every batch against their
+   plain versions; two ranks spawned on gloo
    and cuda:0 (compress_gzip_all_hosts at level 6 of two 4 MiB shards,
    the same stream on both, decoded by CPython and by
    uncompress_gzip_all_hosts on the card); in a fresh process, warmup()
@@ -93,28 +99,31 @@ non-zero exit and no result line):
    ZipArchive (add_dir, write_zip_archive, open) read by zipfile and the
    port; a .tgz from the v1 Tarball read by CPython's tarfile and
    extracted by tarballs.extract_all; the launches of all that, counted
-   from zero; torch.profiler traces of create_zip_archive and
-   extract_all_zip of the tree's first 128 files; then K4 against its
+   from zero (K5 once a group of the batched encode, none in a decode);
+   torch.profiler traces of create_zip_archive and extract_all_zip of the
+   tree's first 128 files; then K4 against its
    plain version on every batch of 8 sampled entries' decodes and K1-K3
    on 8 entries against theirs;
 10. the driver hooks (`driver_hooks` lines, zippy_tpu_torch.entry):
    entry("cuda")'s step (compress_block_fixed of one 64 KiB block) equal to
-   entry("cpu")'s, words, bit count and both histograms, and its packed
-   block decoded by zlib behind a fixed-Huffman block header;
+   entry("cpu")'s, words, bit count and both histograms, its packed block
+   decoded by zlib behind a fixed-Huffman block header, and no K5 launch;
    dryrun_multichip(2, ["cuda:0", "cuda:0"]) and, on a host with two cards
    or more, dryrun_multichip over default_devices(), with seconds; their
-   launches counted from zero (K1 for the decode's gate, K4 a share); then
+   launches counted from zero (K1 for the decode's gate, K4 a share, K5 a
+   group of each encode); then
    K4 on their streams and K1-K3 on their data against the plain versions.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
-are those of one launch over the 64 MiB stream's batch of tiles. A
+are those of one launch over the 64 MiB stream's batch of tiles, K5's
+those of one launch over the first group of the 64 MiB level-6 encode. A
 kernel's "launches" in the kernel line are those of the compress run,
-the decode run, the indexed decode runs and the runs of phases 8, 9 and
-10 together, each counted from zero just before its run. The launch floor
-("launch_floor_ms", on the `kernel_calls` line and in K3's row) is the
-same timing of a one-element zero_() on the card.
+the decode run, the indexed compress and decode runs and the runs of
+phases 8, 9 and 10 together, each counted from zero just before its run.
+The launch floor ("launch_floor_ms", on the `kernel_calls` line and in K3's
+and K5's rows) is the same timing of a one-element zero_() on the card.
 
 Then the kernel table (one JSON line), the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -147,6 +156,9 @@ SEED = 20261016
 MAIN_BYTES = 64 << 20
 ZLIB_BYTES = 8 << 20
 BIG_BYTES = (256 << 20) + 7    # phase 8's largest checksum payload
+# The kernels a decode launches; an encode adds K5 (huffman_tables).
+DECODE_KERNELS = ("adler_chunks", "crc_rows", "crc_combine",
+                  "inflate_extract")
 
 
 def emit(obj) -> None:
@@ -237,6 +249,13 @@ def kernel_ms(fn, reps: int) -> float:
 # window, and a trace on the H100 once lacked the copy that opens an
 # unaligned crc32_device call, issued at once after the profiler started.
 TRACE_MARGIN_S = 0.005
+# The first device activity of a profile can be lost while CUPTI takes its
+# first activity buffer: on the H100, in a process that had run for a
+# while, the profile of one K5 launch held its cudaLaunchKernel but no
+# kernel, three times running, and a profile of zeros-K5-zeros lost the
+# first zeros only. So a marker kernel (torch.cuda._sleep's spin_kernel)
+# opens every profile, and is left out of its counts.
+TRACE_MARKER = "spin_kernel"
 
 
 def device_trace(fn) -> dict:
@@ -247,13 +266,16 @@ def device_trace(fn) -> dict:
     on the H100 has come back without any device event; the trace is then
     taken again, up to three times, and "tries" counts the profiles
     taken. The device numbers are null where the profiler saw no device
-    work. The wall time leaves out the TRACE_MARGIN_S on either side."""
+    work. The wall time leaves out the TRACE_MARGIN_S on either side, and
+    the counts leave out the TRACE_MARKER kernel that opens the profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for tries in range(1, 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             time.sleep(TRACE_MARGIN_S)
             t0 = time.perf_counter()
             fn()
@@ -261,7 +283,8 @@ def device_trace(fn) -> dict:
             wall = time.perf_counter() - t0
             time.sleep(TRACE_MARGIN_S)
         ops = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and TRACE_MARKER not in e.name]
         if ops:
             break
     if not ops:
@@ -336,6 +359,115 @@ def extract_work(words: int, nblk: int, nseg: int, lanes: int, k: int,
     only."""
     return (4 * words + 4 * 382 * nblk + 12 * nseg + 4 * k * lanes,
             LITERAL_OPS * literals + MATCH_OPS * matches)
+
+
+# The fixed tables K5 reads once a launch: fixed_ll and its codes (286
+# each), fixed_d and its codes (30 each), len_extra (29), dist_extra (30),
+# clcl_order and cl_extra (19 each).
+HUFFMAN_TABLE_WORDS = 2 * 286 + 2 * 30 + 29 + 30 + 2 * 19
+
+
+def huffman_work(rows: int):
+    """(bytes, operations) K5 must move and do for a group of `rows` rows:
+    each row's histograms and byte count read once (317 int64) and its
+    eight outputs written once (968 int64), the fixed tables read once; per
+    row and per build of S symbols (litlen 286, distance 30, code-length
+    19) the 30 bisection steps at 4 operations a symbol (add, ceil, clamp,
+    Kraft term), the two candidates' clamp and Kraft sum (8 a symbol), the
+    frequency-rank order as a sort (2 log2 S a symbol) and the cost sums
+    with the reassignment (4 a symbol); then 4 a symbol for each of the
+    header's run-length pass, the mode's bit sums and the codes over the
+    316 lengths. The repair passes are not counted (their number depends
+    on the data): a least amount of work, not K5's own count."""
+    ops = sum(s * (30 * 4 + 8 + 2 * (s - 1).bit_length() + 4)
+              for s in (286, 30, 19)) + 3 * 4 * 316
+    return (rows * (317 + 968) * 8 + 8 * HUFFMAN_TABLE_WORDS, rows * ops)
+
+
+def encode_groups(nbytes: int, level: int, shares: int = 1,
+                  block_size: int = 1 << 16) -> int:
+    """K5 launches of one encode of `nbytes` at `level` split over `shares`
+    device runs (deflate_device.deflate_runs): one a group of _group_size
+    blocks of each run."""
+    from zippy_tpu_torch.ops import deflate_device as td
+
+    if nbytes == 0 or level == 0:
+        return 0
+    nblocks = -(-nbytes // block_size)
+    gmax = td._group_size(td._level_params(level)[0], block_size)
+    bounds = [nblocks * i // shares for i in range(shares + 1)]
+    return sum(-(-(b1 - b0) // gmax) for b0, b1 in zip(bounds, bounds[1:]))
+
+
+HUFFMAN_ROWS = 4096
+HUFFMAN_REPEATS = 20      # K5 launches on the seeded rows, each checked
+
+
+def huffman_rows(count: int, seed: int):
+    """`count` seeded rows for K5, (ll_hist (count, 286), dist_hist (count,
+    30), n (count,)) int64 numpy arrays, in turns of ten kinds: Zipf,
+    dyadic, uniform over all 286 symbols, none active, one active, two
+    active, frequencies about the sort keys' 2^20 clamp, three at 2^22, a
+    few small literals (fixed blocks) and flat literals (stored blocks
+    where n is the literal count); a random distance histogram in 7 rows
+    of 10, and n either random or the literal count."""
+    rng = np.random.default_rng(seed)
+    ll = np.zeros((count, 286), np.int64)
+    d = np.zeros((count, 30), np.int64)
+    n = np.zeros(count, np.int64)
+    for i in range(count):
+        row, s = ll[i], int(rng.integers(2, 287))
+        kind = i % 10
+        if kind == 0:
+            row[:s] = rng.zipf(1.3, s) % 4096
+        elif kind == 1:
+            row[:s] = 2 ** rng.integers(0, 16, s)
+        elif kind == 2:
+            row[:] = rng.integers(1, 1000, 286)
+        elif kind == 4:
+            row[int(rng.integers(0, 286))] = int(rng.integers(1, 1 << 16))
+        elif kind == 5:
+            row[rng.choice(286, 2, replace=False)] = rng.integers(1, 5000, 2)
+        elif kind == 6:
+            row[:s] = rng.integers((1 << 20) - 64, (1 << 20) + 64, s)
+        elif kind == 7:
+            row[:s] = rng.integers(1, 100, s)
+            row[rng.choice(286, 3, replace=False)] = 1 << 22
+        elif kind == 8:
+            row[:int(rng.integers(1, 6))] = rng.integers(1, 20)
+        elif kind == 9:
+            row[:256] = rng.integers(200, 300, 256)
+        rng.shuffle(row)
+        if rng.random() < 0.7:
+            k = int(rng.integers(0, 31))
+            d[i, :k] = rng.integers(0, 500, k)
+            rng.shuffle(d[i])
+        n[i] = (rng.integers(0, 1 << 17) if rng.random() < 0.5
+                else row.sum())
+    return ll, d, n
+
+
+def huffman_vs_plain(hk, td, inputs, repeats: int = 1) -> dict:
+    """K5 against its plain version (torch.equal on every output) on each
+    (ll_hist, dist_hist, n) of `inputs`, K5 launched `repeats` times on
+    each (a race between a row's threads would show as launches that
+    differ): the launches and rows, the blocks of each mode (stored, fixed,
+    dynamic) the plain version chose, and the largest difference."""
+    line = {"launches": 0, "rows": 0, "modes": [0, 0, 0],
+            "equal_plain": True, "max_abs_err": 0}
+    for ll, d, n in inputs:
+        want = td.huffman_tables_plain(ll, d, n)
+        for _ in range(repeats):
+            got = hk.huffman_tables(ll, d, n)
+            for key, w in want.items():
+                line["equal_plain"] &= bool(torch.equal(got[key], w))
+                line["max_abs_err"] = max(line["max_abs_err"], int(
+                    (got[key] - w).abs().max()))
+            line["launches"] += 1
+        line["rows"] += ll.shape[0]
+        modes = torch.bincount(want["mode"], minlength=3).tolist()
+        line["modes"] = [a + b for a, b in zip(line["modes"], modes)]
+    return line
 
 
 CALL_TRACES = 3
@@ -605,7 +737,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
                      / 2**30, "equal_input": out == want})
         check(out == want, label)
     launches = dict(kb.LAUNCHES)
-    check(all(v > 0 for v in launches.values()), launches)
+    check(all(launches[k] > 0 for k in DECODE_KERNELS)
+          and launches["huffman_tables"] == 0, launches)
 
     # Outside the counted run: the scan alone, the decode given its index
     # (twice) and CPython's decompress, per stream.
@@ -742,9 +875,17 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
     total, k4_err = dict.fromkeys(kb.LAUNCHES, 0), 0
     for member_size in INDEXED_MEMBERS:
         label = f"{member_size >> 20} MiB members"
+        torch.cuda.synchronize()
+        for key in kb.LAUNCHES:
+            kb.LAUNCHES[key] = 0
         t0 = time.perf_counter()
         blob = gf.compress_device_indexed(data, 6, member_size=member_size)
         compress_s = time.perf_counter() - t0
+        # One K5 launch a group of each member's encode.
+        compress_k5 = kb.LAUNCHES["huffman_tables"]
+        total["huffman_tables"] += compress_k5
+        want_k5 = sum(encode_groups(min(member_size, len(data) - i), 6)
+                      for i in range(0, len(data), member_size))
         spans = gf._zt_spans(blob)
         check(spans is not None, label + ": the ZT lengths do not chain")
         members = [(n, gf._member_zx(blob, pos) is not None)
@@ -758,6 +899,8 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
                 "sidecar_members": sum(side for _, side in members),
                 "sidecar_share": sidecar_bytes / len(blob),
                 "compress_s": compress_s,
+                "compress_huffman_tables_launches": compress_k5,
+                "compress_huffman_tables_expected": want_k5,
                 "single_member_compress_s": single_compress_s,
                 "cpython_decompress_s": time.perf_counter() - t0,
                 "scanned_uncompress_s": scanned_s,
@@ -798,12 +941,14 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
         busy = sum(int(index["total_out"]) > 0 for index in given)
         want = {"adler_chunks": busy, "crc_rows": busy, "crc_combine": busy,
                 "inflate_extract": sum(_k4_launches(idev, index)
-                                       for index in given)}
+                                       for index in given),
+                "huffman_tables": 0}
         line["launches"] = launches
         line["launches_expected"] = want
         for key in total:
             total[key] += launches[key]
-        check(launches == want and all(launches.values()), line)
+        check(launches == want and compress_k5 == want_k5
+              and all(launches[k] for k in DECODE_KERNELS), line)
 
         # K4 against its plain version on every batch of that decode, at
         # the tile size its members took.
@@ -1043,6 +1188,7 @@ def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
         emit(line)
         check(line["equal_single_device_body"], line)
         same_device("deflate_sharded")
+        want["huffman_tables"] += encode_groups(len(data), 6, len(devs))
     two = lists["cuda:0 x2"]
 
     # Containers on 8 MiB over two shares.
@@ -1056,6 +1202,7 @@ def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
         line[f"{fmt}_L{level}_ratio"] = len(blob) / len(small)
         line[f"{fmt}_L{level}_cpython_equal"] = back(blob) == small
         same_device(fmt)
+        want["huffman_tables"] += encode_groups(len(small), level, len(two))
     for key in ("crc_rows", "crc_combine", "adler_chunks"):
         want[key] += nshares(len(small), two)
     emit(line)
@@ -1290,7 +1437,8 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
             "launches_expected": {"adler_chunks": 0,
                                   "crc_rows": len(nonempty),
                                   "crc_combine": len(nonempty),
-                                  "inflate_extract": 0},
+                                  "inflate_extract": 0,
+                                  "huffman_tables": groups},
             "zipfile_equal": zipfile_equal}
     emit(line)
     check(zipfile_equal and create_l == line["launches_expected"], line)
@@ -1375,7 +1523,8 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
           and line["flipped_leaves_no_dest"]
           and all(extract_l[k] == len(nonempty) for k in
                   ("adler_chunks", "crc_rows", "crc_combine"))
-          and extract_l["inflate_extract"] > 0, line)
+          and extract_l["inflate_extract"] > 0
+          and extract_l["huffman_tables"] == 0, line)
 
     # The v1 ZipArchive and the v1 Tarball, from the tree on disk.
     src = root / "tree"
@@ -1493,6 +1642,7 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
     got = step(*args)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
+    step_launches = dict(kb.LAUNCHES)
     cpu_step, cpu_args = ze.entry("cpu")
     t0 = time.perf_counter()
     want = cpu_step(*cpu_args)
@@ -1508,15 +1658,17 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
             "equal_cpu": [torch.equal(a.cpu(), b)
                           for a, b in zip(got, want)],
             "zlib_decodes_block": zlib.decompress(bytes(out.out), -15)
-            == block}
+            == block, "launches": step_launches}
     emit(line)
-    check(all(line["equal_cpu"]) and line["zlib_decodes_block"], line)
+    # The fixed-code step builds no Huffman tables.
+    check(all(line["equal_cpu"]) and line["zlib_decodes_block"]
+          and step_launches["huffman_tables"] == 0, line)
 
     runs = [("cuda:0 x2", 2, ["cuda:0"] * 2)]
     if torch.cuda.device_count() >= 2:
         n = len(default_devices())
         runs.append(("default_devices()", n, None))
-    streams = []
+    streams, want_k5 = [], 0
     for label, n, devices in runs:
         t0 = time.perf_counter()
         data, blob = ze.dryrun_multichip(n, devices)
@@ -1524,12 +1676,17 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
               f"{label}", "seconds": time.perf_counter() - t0,
               "bytes": len(data), "stream_bytes": len(blob)})
         streams.append((label, data, blob))
+        # Its encode over the n devices and over the first one, 2 KiB
+        # blocks.
+        want_k5 += sum(encode_groups(len(data), 6, shares, 2048)
+                       for shares in (n, 1))
     torch.cuda.synchronize()
     launches = dict(kb.LAUNCHES)
-    emit({"phase": "driver_hooks", "run": "launches", **launches})
+    emit({"phase": "driver_hooks", "run": "launches", **launches,
+          "huffman_tables_expected": want_k5})
     # The decode's adler32 gate (K1) and its extraction (K4, a share).
-    check(launches["adler_chunks"] > 0 and launches["inflate_extract"] > 0,
-          launches)
+    check(launches["adler_chunks"] > 0 and launches["inflate_extract"] > 0
+          and launches["huffman_tables"] == want_k5, launches)
 
     k4_lines, k4_err, k13_err = [], 0, 0
     for label, data, blob in streams:
@@ -1557,6 +1714,7 @@ def main() -> int:
     from zippy_tpu_torch.ops import checksum_kernels as ck
     from zippy_tpu_torch.ops import checksums as tc
     from zippy_tpu_torch.ops import deflate_device as td
+    from zippy_tpu_torch.ops import huffman_kernels as hk
     from zippy_tpu_torch.ops import kernel_build as kb
 
     dev = torch.device("cuda")
@@ -1663,6 +1821,17 @@ def main() -> int:
     data = mixed_text(MAIN_BYTES, SEED)
     small = data[:ZLIB_BYTES]
     x_dev = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    # K5's inputs are kept as the encodes from host bytes hand them to its
+    # wrapper (the cuda tensor's groups are the same), for phase 4's check.
+    wrapper, k5_inputs = hk.huffman_tables, {}
+
+    def keeping(label):
+        def tables(ll, d, n):
+            k5_inputs.setdefault(label, []).append(
+                (ll.clone(), d.clone(), n.clone()))
+            return wrapper(ll, d, n)
+        return tables
+
     torch.cuda.synchronize()
     for key in kb.LAUNCHES:
         kb.LAUNCHES[key] = 0
@@ -1673,8 +1842,13 @@ def main() -> int:
             ("zlib L1 host bytes", small, 1, common.dfZlib, small),
             ("zlib L9 host bytes", small, 9, common.dfZlib, small)):
         torch.cuda.reset_peak_memory_stats()
+        if isinstance(src, bytes):
+            hk.huffman_tables = keeping(label)
         t0 = time.perf_counter()
-        blob = api.compress(src, level, fmt)
+        try:
+            blob = api.compress(src, level, fmt)
+        finally:
+            hk.huffman_tables = wrapper
         sec = time.perf_counter() - t0
         back = (gzip.decompress(blob) if fmt is common.dfGzip
                 else zlib.decompress(blob))
@@ -1687,10 +1861,43 @@ def main() -> int:
         emit(runs[-1])
         check(back == want, label)
         blobs[label] = blob
-    compress_kernels = ("adler_chunks", "crc_rows", "crc_combine")
+    compress_kernels = ("adler_chunks", "crc_rows", "crc_combine",
+                        "huffman_tables")
     launches = {key: kb.LAUNCHES[key] for key in compress_kernels}
-    emit({"phase": "main_path_launches", **launches})
-    check(all(v > 0 for v in launches.values()), launches)
+    # K5 once a group: 64 MiB at L6 twice, 8 MiB at L1 and at L9.
+    want_k5 = (2 * encode_groups(MAIN_BYTES, 6) + encode_groups(ZLIB_BYTES, 1)
+               + encode_groups(ZLIB_BYTES, 9))
+    emit({"phase": "main_path_launches", **launches,
+          "huffman_tables_expected": want_k5,
+          "huffman_tables_groups_kept": {k: len(v)
+                                         for k, v in k5_inputs.items()}})
+    check(all(v > 0 for v in launches.values())
+          and launches["huffman_tables"] == want_k5
+          and sum(map(len, k5_inputs.values())) == want_k5
+          - encode_groups(MAIN_BYTES, 6), launches)
+
+    # K5 against its plain version on every group of those encodes and on
+    # HUFFMAN_ROWS seeded rows, HUFFMAN_REPEATS times; then one K5 launch
+    # and one plain build over the first full group of the 64 MiB level-6
+    # encode, traced.
+    k5_lines = {label: huffman_vs_plain(hk, td, inputs)
+                for label, inputs in k5_inputs.items()}
+    ll, d, n = (torch.from_numpy(a).to(dev)
+                for a in huffman_rows(HUFFMAN_ROWS, SEED))
+    k5_lines["seeded rows"] = huffman_vs_plain(hk, td, [(ll, d, n)],
+                                               HUFFMAN_REPEATS)
+    emit({"phase": "huffman_tables_vs_plain", "runs": k5_lines})
+    check(all(line["equal_plain"] and line["max_abs_err"] == 0
+              for line in k5_lines.values())
+          and all(k5_lines["seeded rows"]["modes"]), k5_lines)
+    del ll, d, n
+    group = k5_inputs["gzip L6 host bytes"][0]
+    g = group[0].shape[0]
+    check(g == td._group_size(12, td.BLOCK), f"first L6 group of {g} rows")
+    emit({"phase": "trace", "run": f"huffman_tables, K5 ({g} rows)",
+          **device_trace(lambda: hk.huffman_tables(*group))})
+    emit({"phase": "trace", "run": f"huffman_tables_plain ({g} rows)",
+          **device_trace(lambda: td.huffman_tables_plain(*group))})
 
     stages: dict = {}
     t0 = time.perf_counter()
@@ -1699,18 +1906,9 @@ def main() -> int:
           "seconds": time.perf_counter() - t0,
           **{k + "_s": v for k, v in stages.items()}})
 
-    # The same encode traced, no stage syncs; then one Kraft build over a
-    # full group of level-6 ll histograms (its launches do not depend on
-    # the data).
+    # The same encode traced, no stage syncs.
     emit({"phase": "trace", "run": "deflate L6 64 MiB cuda tensor",
           **device_trace(lambda: td.deflate_array(x_dev, 6))})
-    g = td._group_size(12, td.BLOCK)
-    rng = np.random.default_rng(SEED)
-    freq = torch.from_numpy(rng.zipf(1.3, (g, 286)) % 4096
-                            * (rng.random((g, 286)) < 0.7)).to(dev)
-    td._kraft_lengths(freq, 15)
-    emit({"phase": "trace", "run": f"_kraft_lengths ({g}, 286)",
-          **device_trace(lambda: td._kraft_lengths(freq, 15))})
 
     # Kernel numbers at the shapes the main path gave each kernel: K1 the
     # 8 MiB zlib trailer, K2 the 64 MiB gzip trailer's rows (in place, no
@@ -1750,9 +1948,25 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None})
         calls[name + "_call_ms"] = call_ms(fn, 100)
     kernels[-1]["launch_floor_ms"] = floor_ms  # K3: near the floor
+    # K5 at the first full group of the 64 MiB level-6 encode: near the
+    # floor too, which says more than its share of the bound.
+    bound_ms, bound_by = bound(huffman_work(g))
+    k5 = {"name": "huffman_tables", "route": "cuda",
+          "source": "zippy_tpu_torch/csrc/huffman.cu",
+          "replaces": "zippy_tpu/ops/deflate_device.py:464",
+          "launches": launches["huffman_tables"],
+          "max_abs_err": max(line["max_abs_err"]
+                             for line in k5_lines.values()),
+          "ms": kernel_ms(lambda: hk.huffman_tables(*group), 100),
+          "plain_ms": call_ms(lambda: td.huffman_tables_plain(*group), 3),
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+          "launch_floor_ms": floor_ms}
+    k5["launch_floor_multiple"] = k5["ms"] / floor_ms
+    calls["huffman_tables_call_ms"] = call_ms(
+        lambda: hk.huffman_tables(*group), 100)
     emit({"phase": "kernel_calls", **calls})
-    check(all(k["max_abs_err"] == 0 for k in kernels), kernels)
-    del x_dev, chunks, rows, row_crcs
+    check(all(k["max_abs_err"] == 0 for k in kernels + [k5]), kernels)
+    del x_dev, chunks, rows, row_crcs, k5_inputs, group
     torch.cuda.empty_cache()
 
     # Phase 5: the decode path.
@@ -1767,7 +1981,7 @@ def main() -> int:
     # Phase 6: the indexed serving format.
     indexed_launches, k4_err = indexed_phase(
         dev, data, blobs["gzip L6 host bytes"], runs[0]["seconds"])
-    for row in kernels:
+    for row in kernels + [k5]:
         row["launches"] += indexed_launches[row["name"]]
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_err)
 
@@ -1788,6 +2002,7 @@ def main() -> int:
     # Phase 8: the multi-device layers.
     parallel_launches, (k13_err, k4_err) = parallel_phase(
         dev, data, blobs["gzip L6 host bytes"])
+    k5["launches"] += parallel_launches["huffman_tables"]
     for row in kernels:
         row["launches"] += parallel_launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],
@@ -1795,6 +2010,7 @@ def main() -> int:
 
     # Phase 9: the archive layer.
     archive_launches, k13_err, k4_err = archive_phase(dev, data)
+    k5["launches"] += archive_launches["huffman_tables"]
     for row in kernels:
         row["launches"] += archive_launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],
@@ -1802,12 +2018,13 @@ def main() -> int:
 
     # Phase 10: the driver hooks.
     hook_launches, k13_err, k4_err = driver_hooks_phase(dev)
+    k5["launches"] += hook_launches["huffman_tables"]
     for row in kernels:
         row["launches"] += hook_launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  k4_err if row is k4 else k13_err)
 
-    emit({"kernels": kernels})
+    emit({"kernels": kernels + [k5]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

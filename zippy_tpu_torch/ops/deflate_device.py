@@ -7,18 +7,22 @@ reference's vmap, written out as a leading group dimension G):
    (hash4, pos), the k bucket predecessors are the k most recent previous
    occurrences; match lengths from word-window XOR compares; one-step lazy
    demotion; the token cover by pointer doubling; symbol histograms.
-2. `_kraft_lengths`, `_header_stats_device`, `_rev_codes_device` —
-   length-limited Huffman code lengths, the exact dynamic-header cost, the
-   stored/fixed/dynamic choice and the canonical codes.
+2. `huffman_tables` (ops/huffman_kernels.py) — length-limited Huffman code
+   lengths (`_kraft_lengths`), the exact dynamic-header cost
+   (`_header_stats_device`), the stored/fixed/dynamic choice and the
+   canonical codes (`_rev_codes_device`). On a CUDA tensor it is one launch
+   of the Hopper kernel K5 (csrc/huffman.cu); `huffman_tables_plain`, the
+   torch ops here, is its plain version and the CPU path.
 3. `pack_tokens` — per-token bit lengths, their prefix sum, and a
    scatter-add of the shifted code words.
 4. The host splice (`_assemble_block`) of headers and payload bits.
 
-The stages are torch ops on the tensor's device; their Hopper kernels are
-queued (ROADMAP.md, B3-B9). The output bytes are those of the reference bit
-for bit, given the same ideal depths (`_ideal_depth`). Torch has no uint32
-arithmetic on the CPU, so 32-bit words travel as int64 masked to 32 bits,
-or as int32 bit patterns where only XOR and bit tests touch them.
+Stages 1 and 3 are torch ops on the tensor's device; their Hopper kernels
+are queued with the decode's (ROADMAP.md, B2-B5). The output bytes are
+those of the reference bit for bit, given the same ideal depths
+(`_ideal_depth`). Torch has no uint32 arithmetic on the CPU, so 32-bit
+words travel as int64 masked to 32 bits, or as int32 bit patterns where
+only XOR and bit tests touch them.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from .. import tables
 from ..common import ZippyError, check_level, resolve_devices
+from . import huffman_kernels
 
 BLOCK = 1 << 16                 # device block size
 HIST = 32768                    # cross-block history window (read-only prefix)
@@ -620,22 +625,14 @@ class _StageClock:
         self.t = now
 
 
-def _encode_group(blocks: torch.Tensor, lens: torch.Tensor,
-                  hist_lens: torch.Tensor, *, k: int, lazy: bool, hist: int,
-                  min3: bool = False, lits_only: bool = False,
-                  clock: _StageClock | None = None) -> dict:
-    """The full encode of a group of blocks: match finding, token
-    selection, Huffman tables, the exact stored/fixed/dynamic choice, and
-    bit packing with the chosen table. Returns a dict of (G, ...) tensors:
-    words, nbits, mode (0 stored / 1 fixed / 2 dynamic), ll_lens[286],
-    d_lens[30], cl_lens[19]."""
-    clock = clock or _StageClock(None, blocks.device)
-    dev = blocks.device
-    n = lens.long()
-    tok = find_tokens(blocks, n, hist_lens, k=k, lazy=lazy, hist=hist,
-                      min3=min3, lits_only=lits_only)
-    clock.mark("find_tokens")
-    ll_hist, dist_hist = tok["ll_hist"], tok["dist_hist"]
+def huffman_tables_plain(ll_hist: torch.Tensor, dist_hist: torch.Tensor,
+                         n: torch.Tensor) -> dict:
+    """Plain version of K5 (huffman_kernels.huffman_tables), the torch ops
+    of the reference's encode_block between find_tokens and pack_tokens:
+    the three Kraft builds, the exact header cost, the mode choice and the
+    codes of the chosen tables, for (G, 286) and (G, 30) histograms and the
+    (G,) byte counts. Returns huffman_kernels.huffman_tables' dict."""
+    dev = ll_hist.device
     ll_lens = _kraft_lengths(ll_hist, 15)
     d_lens = _kraft_lengths(dist_hist, 15)
     header_bits, cl_lens, _, _ = _header_stats_device(ll_lens, d_lens)
@@ -651,24 +648,49 @@ def _encode_group(blocks: torch.Tensor, lens: torch.Tensor,
     mode = torch.where(stored_bits < torch.minimum(dyn_bits, fix_bits), 0,
                        torch.where(fix_bits <= dyn_bits, 1, 2))
     dyn = (mode == 2).unsqueeze(1)
-    use_ll = torch.where(dyn, ll_lens, fixed_ll)
-    use_d = torch.where(dyn, d_lens, fixed_d)
     # Fixed-mode codes come from the precomputed 288-symbol table (symbols
     # 286/287 shift the canonical codes of 280-285).
-    ll_codes = torch.where(dyn, _rev_codes_device(ll_lens),
-                           _const("fixed_ll_codes", dev))
-    d_codes = torch.where(dyn, _rev_codes_device(d_lens),
-                          _const("fixed_d_codes", dev))
+    return {
+        "ll_lens": ll_lens,
+        "d_lens": d_lens,
+        "cl_lens": cl_lens,
+        "mode": mode,
+        "use_ll": torch.where(dyn, ll_lens, fixed_ll),
+        "ll_codes": torch.where(dyn, _rev_codes_device(ll_lens),
+                                _const("fixed_ll_codes", dev)),
+        "use_d": torch.where(dyn, d_lens, fixed_d),
+        "d_codes": torch.where(dyn, _rev_codes_device(d_lens),
+                               _const("fixed_d_codes", dev)),
+    }
+
+
+def _encode_group(blocks: torch.Tensor, lens: torch.Tensor,
+                  hist_lens: torch.Tensor, *, k: int, lazy: bool, hist: int,
+                  min3: bool = False, lits_only: bool = False,
+                  clock: _StageClock | None = None) -> dict:
+    """The full encode of a group of blocks: match finding, token
+    selection, the Huffman tables and the exact stored/fixed/dynamic
+    choice (`huffman_kernels.huffman_tables`: K5 on a CUDA tensor), and bit
+    packing with the chosen table. Returns a dict of (G, ...) tensors:
+    words, nbits, mode (0 stored / 1 fixed / 2 dynamic), ll_lens[286],
+    d_lens[30], cl_lens[19]."""
+    clock = clock or _StageClock(None, blocks.device)
+    n = lens.long()
+    tok = find_tokens(blocks, n, hist_lens, k=k, lazy=lazy, hist=hist,
+                      min3=min3, lits_only=lits_only)
+    clock.mark("find_tokens")
+    tab = huffman_kernels.huffman_tables(tok["ll_hist"], tok["dist_hist"], n)
     clock.mark("kraft")
-    words, nbits = pack_tokens(tok, use_ll, ll_codes, use_d, d_codes)
+    words, nbits = pack_tokens(tok, tab["use_ll"], tab["ll_codes"],
+                               tab["use_d"], tab["d_codes"])
     clock.mark("pack")
     return {
         "words": words,
         "nbits": nbits,
-        "mode": mode,
-        "ll_lens": ll_lens,
-        "d_lens": d_lens,
-        "cl_lens": cl_lens,
+        "mode": tab["mode"],
+        "ll_lens": tab["ll_lens"],
+        "d_lens": tab["d_lens"],
+        "cl_lens": tab["cl_lens"],
     }
 
 
