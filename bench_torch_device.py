@@ -361,10 +361,9 @@ class Bench:
         packs = idev._upload_packs(
             [idev._tile_pack(blob, index, tile, cfg, nrounds)], self.dev, keep)
         halo = torch.zeros(idev.HALO, dtype=torch.uint8, device=self.dev)
-        stored = idev._tile_stored(index, tile)
 
         def one_tile():
-            return idev._decode_tile(packs[0], halo, tile, stored,
+            return idev._decode_tile(packs[0], halo, tile,
                                      k=int(index["every"]), cfg=cfg)
 
         out = one_tile()[idev.HALO:idev.HALO + tile.used]

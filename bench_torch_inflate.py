@@ -59,7 +59,7 @@ def main() -> int:
         for b in range(0, len(tiles), cap):
             p = torch.from_numpy(np.stack(packs[b:b + cap]).view(
                 np.int32)).to(dev)
-            words, seg, _, lens8 = idev._unpack(p, cfg)
+            words, seg, *_, lens8 = idev._unpack(p, cfg)
             used = [t.s1 - t.s0 for t in tiles[b:b + cap]]
             tables = idev._block_tables(lens8.reshape(-1, 318))
             bases, ncta = ik._bases(used, dev)

@@ -8,9 +8,10 @@ non-zero exit and no result line):
 
 1. the card (nvidia-smi's name and power limit, torch's device name);
 2. the build of every native library, with its seconds: csrc/checksums.cu,
-   csrc/inflate.cu and csrc/huffman.cu with nvcc (started together) and
-   the decode's host scan csrc/inflate_scan.cpp with c++; and what `nvcc
-   -Xptxas -v` said of each kernel (registers, shared memory, spills);
+   csrc/inflate.cu, csrc/huffman.cu and csrc/resolve.cu with nvcc (started
+   together) and the decode's host scan csrc/inflate_scan.cpp with c++;
+   and what `nvcc -Xptxas -v` said of each kernel (registers, shared
+   memory, spills);
 3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
    with a tail row) and K3 (crc_combine) against their plain PyTorch
    versions on the card, and adler32/crc32 against zlib, at 0 B to
@@ -38,8 +39,10 @@ non-zero exit and no result line):
 5. the decode path: uncompress() of phase 4's 64 MiB gzip and 8 MiB zlib
    streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
    (level 0) stream and of a two-member gzip, each equal to its input, with
-   the launch counts zeroed before and read after (K1-K4 all launched, K4
-   once per batch of tiles that has a busy lane, K5 never); per stream the
+   the launch counts zeroed before and read after (K1-K4 and K6 all
+   launched, K4 once per batch of tiles that has a busy lane, K6 2 +
+   nrounds times a tile, K5 never, K6's plain version never); per stream
+   the
    scan's seconds, the decode given its index (twice) and CPython's
    decompress; a decode given its index with no host sync from the first
    tile to the last (torch.cuda.set_sync_debug_mode("error")); the 64 MiB
@@ -47,9 +50,15 @@ non-zero exit and no result line):
    decode's synchronized stage seconds; a torch.profiler trace of a decode
    given its index; K4 against its plain version on every tile of all six
    streams, batched as the decode batches them, with the lanes whose block
-   row K4 read from device memory rather than shared memory; and one K4
+   row K4 read from device memory rather than shared memory; one K4
    launch over the 64 MiB stream's batch timed, with its bound for the
-   busy lanes and for the padded segment tables it wrote before;
+   busy lanes and for the padded segment tables it wrote before; K6
+   (lz_resolve) against its plain version on out[:HALO + used] of every
+   tile of the six streams decoded given their indexes, with its launches
+   against nrounds + 3 a tile (`ResolveWatch`); K6 on the 64 MiB
+   stream's first tile timed, with its bound (`resolve_work`); and K6 on
+   a corrupt tile whose tokens run past its bytes, which must write
+   nothing past its scratch (`k6_bounds`);
 6. the indexed serving format (`indexed` lines), at 1 MiB and 8 MiB
    members of the 64 MiB payload at level 6: compress_device_indexed's
    seconds beside phase 4's single-member compress, its K5 launches (one a
@@ -59,12 +68,17 @@ non-zero exit and no result line):
    their seconds beside the scanned uncompress() of phase 4's stream and
    CPython's decompress; the launch counts of one array=True decode (one
    K1 and one K2 + K3 per non-empty member, K4 once per batch with a busy
-   lane); the dispatch of every member under
+   lane, K6 2 + nrounds times a tile); the dispatch of every member
+   under
    torch.cuda.set_sync_debug_mode("error") up to the one verification
    fetch; K4 against its plain version on every batch of that decode (at
-   1 MiB members its tiles are CFG_S's, at 8 MiB CFG_L's); the same stream
+   1 MiB members its tiles are CFG_S's, at 8 MiB CFG_L's) and K6 on every
+   tile of the same decode, with the first member's first tile timed; the
+   same stream
    decoded the other way, every member scanned (member_indexes) and then
-   decoded given its index; a flipped member crc raising ZippyError;
+   decoded given its index; a flipped member crc and a flipped byte in a
+   member's body raising ZippyError, and the intact stream decoding after
+   them;
 7. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9,
    and the same decode;
 8. the multi-device layers (`parallel` lines), over default_devices() and
@@ -75,9 +89,10 @@ non-zero exit and no result line):
    64 MiB and 256 MiB + 7 against zlib; inflate_device(devices=[cuda:0,
    cuda:0]) of the 64 MiB body; the launches of these runs, counted from
    zero (K1-K3 once per device share, K4 once per share with busy lanes
-   per batch, K5 once per encode group of each device's run), then K1-K3
-   on each 64 MiB share and K4 on each share of every batch against their
-   plain versions; two ranks spawned on gloo
+   per batch, K5 once per encode group of each device's run, K6 2 +
+   nrounds times a tile), then K1-K3 on each 64 MiB share and K4 on each
+   share of every batch against their plain versions, and K6 on every
+   tile of the decode over [cuda:0, cuda:0]; two ranks spawned on gloo
    and cuda:0 (compress_gzip_all_hosts at level 6 of two 4 MiB shards,
    the same stream on both, decoded by CPython and by
    uncompress_gzip_all_hosts on the card); in a fresh process, warmup()
@@ -99,11 +114,12 @@ non-zero exit and no result line):
    ZipArchive (add_dir, write_zip_archive, open) read by zipfile and the
    port; a .tgz from the v1 Tarball read by CPython's tarfile and
    extracted by tarballs.extract_all; the launches of all that, counted
-   from zero (K5 once a group of the batched encode, none in a decode);
+   from zero (K5 once a group of the batched encode, none in a decode;
+   K6 2 + nrounds times a tile of every deflated entry);
    torch.profiler traces of create_zip_archive and extract_all_zip of the
    tree's first 128 files; then K4 against its
-   plain version on every batch of 8 sampled entries' decodes and K1-K3
-   on 8 entries against theirs;
+   plain version on every batch and K6 on every tile of 8 sampled
+   entries' decodes, and K1-K3 on 8 entries against theirs;
 10. the driver hooks (`driver_hooks` lines, zippy_tpu_torch.entry):
    entry("cuda")'s step (compress_block_fixed of one 64 KiB block) equal to
    entry("cpu")'s, words, bit count and both histograms, its packed block
@@ -111,26 +127,32 @@ non-zero exit and no result line):
    dryrun_multichip(2, ["cuda:0", "cuda:0"]) and, on a host with two cards
    or more, dryrun_multichip over default_devices(), with seconds; their
    launches counted from zero (K1 for the decode's gate, K4 a share, K5 a
-   group of each encode); then
+   group of each encode, K6 for the decode); then
    K4 on their streams and K1-K3 on their data against the plain versions.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles, K5's
-those of one launch over the first group of the 64 MiB level-6 encode. A
+those of one launch over the first group of the 64 MiB level-6 encode,
+K6's those of one tile's launches on the 64 MiB stream's first tile (its
+row's cfg_s_tile: a 1 MiB member's first tile). A
 kernel's "launches" in the kernel line are those of the compress run,
 the decode run, the indexed compress and decode runs and the runs of
 phases 8, 9 and 10 together, each counted from zero just before its run.
 The launch floor ("launch_floor_ms", on the `kernel_calls` line and in K3's
 and K5's rows) is the same timing of a one-element zero_() on the card.
 
-Then the kernel table (one JSON line), the card's name and power limit,
-and last {"ok": true, "device": {...}}.
+After phase 10, the count of K6's plain version's calls on CUDA tensors
+over the whole run, which must be 0. Then the kernel table (one JSON
+line), the card's name and power limit, and last {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import gzip
 import json
 import pathlib
@@ -158,7 +180,7 @@ ZLIB_BYTES = 8 << 20
 BIG_BYTES = (256 << 20) + 7    # phase 8's largest checksum payload
 # The kernels a decode launches; an encode adds K5 (huffman_tables).
 DECODE_KERNELS = ("adler_chunks", "crc_rows", "crc_combine",
-                  "inflate_extract")
+                  "inflate_extract", "lz_resolve")
 
 
 def emit(obj) -> None:
@@ -359,6 +381,18 @@ def extract_work(words: int, nblk: int, nseg: int, lanes: int, k: int,
     only."""
     return (4 * words + 4 * 382 * nblk + 12 * nseg + 4 * k * lanes,
             LITERAL_OPS * literals + MATCH_OPS * matches)
+
+
+def resolve_work(k: int, lanes: int, nsto: int, stored_bytes: int,
+                 halo: int, used: int, tokens: int):
+    """(bytes, operations) K6 must move and do on one tile: its busy lanes'
+    packed tokens (k a lane) and first output positions, its stored-span
+    table (3 int32 a slot) with the stored bytes, and the halo read once;
+    the halo + used bytes a caller reads written once. One operation a
+    token and one an output byte (its store), the least any formulation
+    does."""
+    return (4 * k * lanes + 4 * lanes + 12 * nsto + stored_bytes + halo
+            + halo + used, tokens + used)
 
 
 # The fixed tables K5 reads once a launch: fixed_ll and its codes (286
@@ -603,7 +637,7 @@ def _k4_inputs(idev, blob: bytes, index, dev, keep: list):
             [idev._tile_pack(blob, index, t, cfg,
                              idev._nrounds_for_depth(t.depth, cfg))
              for t in batch], dev, keep)
-        words, seg, _, lens8 = idev._unpack(packs, cfg)
+        words, seg, _, _, lens8 = idev._unpack(packs, cfg)
         yield (cfg, batch, ends[b:b + len(batch)], words, seg,
                [t.s1 - t.s0 for t in batch],
                idev._block_tables(lens8.reshape(-1, 318)))
@@ -701,14 +735,181 @@ def k4_phase(idev, ik, streams, all_indexes, dev) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
-def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
+class ResolveWatch:
+    """K6 (lz_resolve) held against its plain version on every tile that a
+    decode resolves inside `checking`, on out[:HALO + used] (every byte a
+    caller reads); and, for the whole run, a count of the plain version's
+    calls on CUDA tensors, which no decode path may make."""
+
+    def __init__(self, rk):
+        self.rk = rk
+        self.plain = rk._resolve_plain
+        self.wrapper = rk.lz_resolve
+        self.plain_cuda_calls = 0
+        rk._resolve_plain = self._counted_plain
+
+    def _counted_plain(self, packed, *rest):
+        self.plain_cuda_calls += packed.is_cuda
+        return self.plain(packed, *rest)
+
+    def plain_of(self, packed, seg_out, words, sto, halo, used, nrounds,
+                 cfg):
+        """The plain version on the wrapper's arguments (uncounted)."""
+        return self.plain(packed, seg_out, words, self.rk.stored_spans(sto),
+                          halo, nrounds, cfg)
+
+    @contextlib.contextmanager
+    def checking(self, label: str):
+        """Yields the line that K6's calls inside fill: tiles, differing
+        bytes and the largest difference, K6's launches and their budget
+        (nrounds + 3 a tile)."""
+        from zippy_tpu_torch.ops import kernel_build as kb
+
+        line = {"run": label, "tiles": 0, "differing_bytes": 0,
+                "max_abs_err": 0, "launches": 0, "launch_budget": 0}
+
+        def checked(*args):
+            before = kb.LAUNCHES["lz_resolve"]
+            out = self.wrapper(*args)
+            line["launches"] += kb.LAUNCHES["lz_resolve"] - before
+            line["launch_budget"] += args[6] + 3
+            n = self.rk.HALO + args[5]
+            got, want = out[:n].int(), self.plain_of(*args)[:n].int()
+            line["tiles"] += 1
+            line["differing_bytes"] += int((got != want).sum())
+            line["max_abs_err"] = max(line["max_abs_err"],
+                                      int((got - want).abs().max()))
+            return out
+
+        self.rk.lz_resolve = checked
+        try:
+            yield line
+        finally:
+            self.rk.lz_resolve = self.wrapper
+
+    @staticmethod
+    def good(line) -> bool:
+        return (line["tiles"] > 0 and line["differing_bytes"] == 0
+                and 0 < line["launches"] <= line["launch_budget"])
+
+
+def _k6_launches(idev, rk, index) -> int:
+    """K6 launches one decode of `index` makes: launches_per_tile of each
+    tile's rounds."""
+    cfg = idev._pick_cfg(index["total_out"])
+    return sum(rk.launches_per_tile(idev._nrounds_for_depth(t.depth, cfg))
+               for t in idev._plan_tiles(index, cfg))
+
+
+def k6_tile(idev, ik, watch, label: str, blob: bytes, index, dev) -> dict:
+    """K6 on the first tile of a decode index, its inputs as the decode
+    forms them (K4 on the tile, a zero halo): against its plain version,
+    its device ms for the tile's launches from a CUDA graph, the plain
+    version's ms on the card, and its bound."""
+    rk = watch.rk
+    cfg = idev._pick_cfg(index["total_out"])
+    tile = idev._plan_tiles(index, cfg)[0]
+    nrounds = idev._nrounds_for_depth(tile.depth, cfg)
+    keep: list = []
+    packs = idev._upload_packs(
+        [idev._tile_pack(blob, index, tile, cfg, nrounds)], dev, keep)
+    words, seg, seg_out, sto, lens8 = idev._unpack(packs, cfg)
+    lanes, k = tile.s1 - tile.s0, int(index["every"])
+    packed = ik.inflate_extract(words, seg, [lanes], idev._block_tables(
+        lens8.reshape(-1, 318)), k)
+    halo = torch.zeros(rk.HALO, dtype=torch.uint8, device=dev)
+    args = (packed, seg_out[0, :lanes], words[0], sto[0], halo, tile.used,
+            nrounds, cfg)
+    n = rk.HALO + tile.used
+    diff = int((rk.lz_resolve(*args)[:n] != watch.plain_of(*args)[:n])
+               .sum())
+    spans = rk.stored_spans(sto[0])
+    tokens = int(index["segments"][tile.s0:tile.s1, 3].sum())
+    bound_ms, bound_by = bound(resolve_work(
+        k, lanes, cfg.nsto, sum(min(ln, rk.STO_MAX) for *_, ln in spans),
+        rk.HALO, tile.used, tokens))
+    ms = kernel_ms(lambda: rk.lz_resolve(*args), 20)
+    launches = rk.launches_per_tile(nrounds)
+    line = {"run": label, "tile_bytes": cfg.tile_out, "used": tile.used,
+            "busy_lanes": lanes, "tokens": tokens,
+            "stored_spans": len(spans), "nrounds": nrounds,
+            "launches": launches, "launch_budget": nrounds + 3,
+            "differing_bytes": diff, "ms": ms,
+            "ms_per_launch": ms / launches,
+            "plain_ms": call_ms(lambda: watch.plain_of(*args), 2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+    del keep
+    check(diff == 0 and launches <= nrounds + 3, line)
+    return line
+
+
+# What K6's scratch holds past its `used` link ints in k6_bounds.
+LINK_SENTINEL = 0x5A5A5A5A
+
+
+def k6_bounds(idev, watch, dev) -> dict:
+    """K6 on a corrupt CFG_S tile of 1,000 bytes: the first lane's tokens
+    run to 8,000 bytes, the second lane starts past the tile, the third
+    past 2^31 - 300 and the fourth at -2^31, as a corrupt stream or a
+    hostile index gives them. K6 is called with its scratch at the front
+    of a larger buffer filled with LINK_SENTINEL: it must equal its plain
+    version on out[:HALO + used] and leave the buffer's tail as it was."""
+    rk = watch.rk
+    cfg, used, k = idev.CFG_S, 1000, 32
+    out_pad = rk.HALO + cfg.tile_out
+    packed = torch.zeros(k, 4, dtype=torch.int32)
+    packed[0] = (1 << 16) | 0x41
+    packed[1:] = (258 << 16) | (1 + 256)
+    packed[:, 1] = (1 << 16) | 0x42
+    seg_out = torch.tensor([rk.HALO, rk.HALO + used + 5000, 2**31 - 300,
+                            -2**31], dtype=torch.int32)
+    sto = torch.zeros(3, cfg.nsto, dtype=torch.int32)
+    sto[1] = out_pad
+    gen = torch.Generator().manual_seed(SEED)
+    halo = torch.randint(0, 256, (rk.HALO,), dtype=torch.uint8,
+                         generator=gen)
+    words = torch.zeros(cfg.nwords, dtype=torch.int32)
+    nrounds = idev._nrounds_for_depth(0xFFFF, cfg)
+    packed, seg_out, sto, halo, words = (
+        x.to(dev) for x in (packed, seg_out, sto, halo, words))
+    out = torch.empty(out_pad, dtype=torch.uint8, device=dev)
+    scratch = torch.full((used + (1 << 16),), LINK_SENTINEL,
+                         dtype=torch.int32, device=dev)
+    launched = ctypes.c_int(0)
+    rc = rk._lib().zt_lz_resolve(
+        packed.data_ptr(), packed.stride(0), packed.shape[1], k,
+        seg_out.data_ptr(), words.data_ptr(), words.shape[0],
+        sto.data_ptr(), sto.shape[1], halo.data_ptr(), used, out_pad,
+        nrounds, out.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0,
+        ctypes.byref(launched))
+    n = rk.HALO + used
+    want = watch.plain_of(packed, seg_out, words, sto, halo, used, nrounds,
+                          cfg)[:n]
+    line = {"used": used, "rc": rc, "launches": launched.value,
+            "differing_bytes": int((out[:n] != want).sum()),
+            "tile_is_the_literal_run": bool(
+                (out[rk.HALO:n] == 0x41).all()),
+            "scratch_past_used_overwritten": int(
+                (scratch[used:] != LINK_SENTINEL).sum())}
+    check(rc == 0 and line["differing_bytes"] == 0
+          and line["tile_is_the_literal_run"]
+          and line["scratch_past_used_overwritten"] == 0, line)
+    return line
+
+
+def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
+                 watch: ResolveWatch):
     """Phase 5, the decode path. Returns (the run's kernel launches, K4's
-    row for the kernel line)."""
+    row and K6's row for the kernel line)."""
     from zippy_tpu_torch import api, common, gzip_format
     from zippy_tpu_torch.ops import checksums as tc
     from zippy_tpu_torch.ops import inflate_device as idev
     from zippy_tpu_torch.ops import inflate_kernels as ik
     from zippy_tpu_torch.ops import kernel_build as kb
+
+    rk = watch.rk
 
     small = data[:ZLIB_BYTES]
     half = ZLIB_BYTES // 2
@@ -752,6 +953,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
             for _, index in indexes)
         run["k4_launches"] = sum(_k4_launches(idev, index)
                                  for _, index in indexes)
+        run["k6_launches"] = sum(_k6_launches(idev, rk, index)
+                                 for _, index in indexes)
         given = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -766,12 +969,18 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
         check(back == want, label + " CPython")
         all_indexes[label] = indexes
         emit(run)
-    # K4 runs once per batch that has a busy lane, not once per tile.
+    # K4 runs once per batch that has a busy lane, not once per tile; K6
+    # 2 + nrounds times a tile.
     batches = sum(run["k4_launches"] for run in runs)
+    k6_want = sum(run["k6_launches"] for run in runs)
     emit({"phase": "decode_launches", **launches,
           "tiles": sum(run["tiles"] for run in runs),
-          "k4_batches_with_busy_lanes": batches})
-    check(launches["inflate_extract"] == batches, (launches, batches))
+          "k4_batches_with_busy_lanes": batches,
+          "lz_resolve_expected": k6_want,
+          "lz_resolve_plain_cuda_calls": watch.plain_cuda_calls})
+    check(launches["inflate_extract"] == batches
+          and launches["lz_resolve"] == k6_want
+          and watch.plain_cuda_calls == 0, (launches, batches, k6_want))
 
     # The 64 MiB gzip stream given its index: no host sync from the first
     # tile to the last, then the checksums and the bytes.
@@ -833,17 +1042,41 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes):
 
     row = k4_phase(idev, ik, streams, all_indexes, dev)
     row["launches"] = launches["inflate_extract"]
+
+    # K6 against its plain version on every tile of the six streams, each
+    # decoded given its index; then K6 on the 64 MiB stream's first tile.
+    lines = []
+    for label, blob, want, fmt in streams:
+        with watch.checking(label) as line:
+            out = _decode_given(idev, gzip_format, blob, fmt,
+                                all_indexes[label])
+        lines.append(line)
+        check(out == want and watch.good(line), line)
+    tile = k6_tile(idev, ik, watch, streams[0][0], gz6,
+                   all_indexes[streams[0][0]][0][1], dev)
+    emit({"phase": "lz_resolve_streams", "streams": lines, "tile": tile,
+          "corrupt_tile": k6_bounds(idev, watch, dev)})
+    k6 = {"name": "lz_resolve", "route": "cuda",
+          "source": "zippy_tpu_torch/csrc/resolve.cu",
+          "replaces": "zippy_tpu/ops/inflate_device.py:359",
+          "launches": launches["lz_resolve"],
+          "max_abs_err": max(line["max_abs_err"] for line in lines),
+          **{key: tile[key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "share_of_bound")},
+          "library_ms": None}
     torch.cuda.empty_cache()
-    return launches, row
+    return launches, row, k6
 
 
 INDEXED_MEMBERS = (1 << 20, 8 << 20)
 
 
-def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
+def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
+                  watch: ResolveWatch):
     """Phase 6, the indexed serving format, at each of INDEXED_MEMBERS.
-    Returns the kernel launches of its counted array=True decodes and K4's
-    largest difference from its plain version on their batches."""
+    Returns the kernel launches of its counted array=True decodes, K4's
+    and K6's largest differences from their plain versions on their
+    batches and tiles, and K6 on the first tile of each member size."""
     from zippy_tpu_torch import api, common
     from zippy_tpu_torch import gzip_format as gf
     from zippy_tpu_torch.ops import inflate_device as idev
@@ -872,7 +1105,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
         given.append(index)
         return acc(data, index, *args, **kwargs)
 
-    total, k4_err = dict.fromkeys(kb.LAUNCHES, 0), 0
+    total, k4_err, k6_err, k6_tiles = dict.fromkeys(kb.LAUNCHES, 0), 0, 0, []
     for member_size in INDEXED_MEMBERS:
         label = f"{member_size >> 20} MiB members"
         torch.cuda.synchronize()
@@ -942,7 +1175,9 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
         want = {"adler_chunks": busy, "crc_rows": busy, "crc_combine": busy,
                 "inflate_extract": sum(_k4_launches(idev, index)
                                        for index in given),
-                "huffman_tables": 0}
+                "huffman_tables": 0,
+                "lz_resolve": sum(_k6_launches(idev, watch.rk, index)
+                                  for index in given)}
         line["launches"] = launches
         line["launches_expected"] = want
         for key in total:
@@ -957,6 +1192,16 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
         line["inflate_extract_vs_plain"] = k4_line
         k4_err = max(k4_err, k4_line["max_abs_err"])
         check(k4_line["equal_plain"], line)
+        # K6 against its plain version on every tile of the same decode,
+        # and on the first member's first tile timed.
+        with watch.checking(label) as k6_line:
+            parts = gf.uncompress_device(blob, array=True)
+        line["lz_resolve_vs_plain"] = k6_line
+        k6_err = max(k6_err, k6_line["max_abs_err"])
+        check(b"".join(buf.cpu().numpy().tobytes() for buf, _ in parts)
+              == data and watch.good(k6_line), line)
+        del parts
+        k6_tiles.append(k6_tile(idev, ik, watch, label, blob, given[0], dev))
         del given[:]
 
         # The same stream decoded the other way: every member scanned, then
@@ -998,11 +1243,26 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float):
             except common.ZippyError:
                 raised.append(True)
         line["flipped_crc_raises_ZippyError"] = raised
+        # A flipped byte in the middle of that member's body: its sidecar
+        # index still cuts the tiles, so K4 and K6 decode garbage, which
+        # the crc32 gate refuses; then the intact stream still decodes.
+        bad = bytearray(blob)
+        bad[end - 8 - members[second][0] // 2] ^= 0xFF
+        try:
+            gf.uncompress_device(bytes(bad), array=True)
+            raised.append(False)
+        except common.ZippyError:
+            raised.append(True)
+        line["flipped_body_raises_ZippyError"] = raised[-1]
+        line["after_flips_equal_input"] = b"".join(
+            buf.cpu().numpy().tobytes()
+            for buf, _ in gf.uncompress_device(blob, array=True)) == data
         emit(line)
-        check(all(raised), line)
+        check(all(raised) and line["after_flips_equal_input"], line)
         del blob, bad
         torch.cuda.empty_cache()
-    return total, k4_err
+    emit({"phase": "lz_resolve_tiles", "tiles": k6_tiles})
+    return total, k4_err, k6_err, k6_tiles
 
 
 RANK_WORKER = r"""
@@ -1142,10 +1402,12 @@ def share_kernels_vs_plain(ck, x: torch.Tensor) -> int:
     return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
 
 
-def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
+def parallel_phase(dev, data: bytes, gz6: bytes,
+                   watch: ResolveWatch) -> tuple[dict, list]:
     """Phase 8, the multi-device layers. Returns the kernel launches of its
-    counted run and the largest differences of K1-K3 and of K4 from their
-    plain versions on the shares ([k1-k3, k4])."""
+    counted run and the largest differences of K1-K3, of K4 and of K6 from
+    their plain versions on the shares and the devices= decode's tiles
+    ([k1-k3, k4, k6])."""
     from zippy_tpu_torch import gzip_format, parallel
     from zippy_tpu_torch.ops import checksum_kernels as ck
     from zippy_tpu_torch.ops import inflate_device as idev
@@ -1248,6 +1510,7 @@ def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
             want["adler_chunks"] += 1
             want["inflate_extract"] += sum(min(len(devs or [dev]), lanes)
                                            for lanes in batch_lanes if lanes)
+            want["lz_resolve"] += _k6_launches(idev, watch.rk, index)
     launches = dict(kb.LAUNCHES)
     line = {"phase": "parallel", "run": "decode 64 MiB body given its "
             "index", "seconds": seconds,
@@ -1291,6 +1554,17 @@ def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
     emit(line)
     check(k13_err == 0 and k4_err == 0 and equal, line)
 
+    # K6 against its plain version on every tile of the decode over two
+    # shares on one card (the tokens come back to the first device, which
+    # resolves).
+    with watch.checking("decode 64 MiB body given its index, cuda:0 x2") \
+            as line:
+        out = idev.inflate_device(body, index, devices=two)
+    emit({"phase": "parallel", "run": "lz_resolve against plain", **line})
+    check(out == data and watch.good(line), line)
+    same_device("K6 after a devices= decode")
+    k6_err = line["max_abs_err"]
+
     # Multi-host: two ranks on gloo and cuda:0; on a host with two cards
     # or more also on NCCL, each rank on its own card.
     emit({"phase": "parallel", "run": "compress_gzip_all_hosts, 2 ranks, "
@@ -1316,7 +1590,7 @@ def parallel_phase(dev, data: bytes, gz6: bytes) -> tuple[dict, list]:
           and line["names_annotation"], line)
     shutil.rmtree(SCRATCH, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches, [k13_err, k4_err]
+    return launches, [k13_err, k4_err, k6_err]
 
 
 ARCHIVE_FILES = 1024
@@ -1370,10 +1644,11 @@ def _read_tree(root: pathlib.Path) -> dict:
             for p in root.rglob("*") if p.is_file()}
 
 
-def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
+def archive_phase(dev, data: bytes,
+                  watch: ResolveWatch) -> tuple[dict, int, int, int]:
     """Phase 9, the archive layer. Returns the kernel launches of its
-    counted run and the largest differences of K1-K3 and of K4 from their
-    plain versions on its sampled entries."""
+    counted run and the largest differences of K1-K3, of K4 and of K6 from
+    their plain versions on its sampled entries."""
     import io
     import tarfile
     import zipfile
@@ -1438,7 +1713,8 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
                                   "crc_rows": len(nonempty),
                                   "crc_combine": len(nonempty),
                                   "inflate_extract": 0,
-                                  "huffman_tables": groups},
+                                  "huffman_tables": groups,
+                                  "lz_resolve": 0},
             "zipfile_equal": zipfile_equal}
     emit(line)
     check(zipfile_equal and create_l == line["launches_expected"], line)
@@ -1482,10 +1758,13 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
         lambda: zt.extract_all_zip(zpath, dest))
     equal = _read_tree(dest) == tree
     shutil.rmtree(dest)
+    deflated = [n for n in nonempty if infos[n].compress_type == 8]
     t0 = time.perf_counter()
-    for name in nonempty:
-        idev.build_decode_index(_zip_stream(blob, infos[name]))
+    indexes = [idev.build_decode_index(_zip_stream(blob, infos[name]))
+               for name in deflated]
     scan_s = time.perf_counter() - t0
+    k6_want = sum(_k6_launches(idev, watch.rk, index) for index in indexes)
+    del indexes
     big = max(nonempty, key=lambda n: len(tree[n]))
 
     def one_file():
@@ -1512,6 +1791,7 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
             "equal_tree": equal, "scan_only_s": scan_s,
             "launches": extract_l,
             "launches_expected_k1_k3": len(nonempty),
+            "launches_expected_lz_resolve": k6_want,
             "extract_file_bytes": len(tree[big]), "extract_file_s": file_s,
             "extract_file_equal": got == tree[big],
             "extract_file_launches": file_l,
@@ -1524,6 +1804,7 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
           and all(extract_l[k] == len(nonempty) for k in
                   ("adler_chunks", "crc_rows", "crc_combine"))
           and extract_l["inflate_extract"] > 0
+          and extract_l["lz_resolve"] == k6_want
           and extract_l["huffman_tables"] == 0, line)
 
     # The v1 ZipArchive and the v1 Tarball, from the tree on disk.
@@ -1593,16 +1874,21 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
                                                     root / "part_out"))})
     check(_read_tree(root / "part_out") == part, "traced extract")
 
-    # K4 on every batch of 8 sampled entries' decodes and K1-K3 on 8
-    # entries, against their plain versions.
-    k4_lines, k4_err = [], 0
+    # K4 on every batch and K6 on every tile of 8 sampled entries'
+    # decodes and K1-K3 on 8 entries, against their plain versions.
+    k4_lines, k4_err, k6_lines = [], 0, []
     for name in [n for n in sample if n not in rand][-8:]:
         stream = _zip_stream(blob, infos[name])
+        index = idev.build_decode_index(stream)
         k4_line, _ = k4_against_plain(idev, ik, name, stream,
-                                      [(None, idev.build_decode_index(
-                                          stream))], dev)
+                                      [(None, index)], dev)
         k4_lines.append(k4_line)
         k4_err = max(k4_err, k4_line["max_abs_err"])
+        with watch.checking(name) as k6_line:
+            out = idev.inflate_device(stream, index)
+        k6_lines.append(k6_line)
+        check(out == tree[name] and watch.good(k6_line), k6_line)
+    k6_err = max(ln["max_abs_err"] for ln in k6_lines)
     k13_err = max(share_kernels_vs_plain(ck, torch.from_numpy(
         np.frombuffer(tree[n], np.uint8).copy()).to(dev))
         for n in sample[-8:])
@@ -1612,14 +1898,14 @@ def archive_phase(dev, data: bytes) -> tuple[dict, int, int]:
                                      "equal_plain", "max_abs_err")}
                            for ln in k4_lines],
             "k4_max_abs_err": k4_err, "k1_k3_entries": len(sample[-8:]),
-            "k1_k3_max_abs_err": k13_err}
+            "k1_k3_max_abs_err": k13_err, "k6_entries": k6_lines}
     emit(line)
     check(k4_err == 0 and k13_err == 0
           and all(ln["equal_plain"] and ln["batches"] for ln in k4_lines),
           line)
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    return phase_launches, k13_err, k4_err
+    return phase_launches, k13_err, k4_err, k6_err
 
 
 def driver_hooks_phase(dev) -> tuple[dict, int, int]:
@@ -1684,8 +1970,10 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
     launches = dict(kb.LAUNCHES)
     emit({"phase": "driver_hooks", "run": "launches", **launches,
           "huffman_tables_expected": want_k5})
-    # The decode's adler32 gate (K1) and its extraction (K4, a share).
+    # The decode's adler32 gate (K1), its extraction (K4, a share) and
+    # its resolution (K6).
     check(launches["adler_chunks"] > 0 and launches["inflate_extract"] > 0
+          and launches["lz_resolve"] > 0
           and launches["huffman_tables"] == want_k5, launches)
 
     k4_lines, k4_err, k13_err = [], 0, 0
@@ -1716,8 +2004,10 @@ def main() -> int:
     from zippy_tpu_torch.ops import deflate_device as td
     from zippy_tpu_torch.ops import huffman_kernels as hk
     from zippy_tpu_torch.ops import kernel_build as kb
+    from zippy_tpu_torch.ops import resolve_kernels as rk
 
     dev = torch.device("cuda")
+    watch = ResolveWatch(rk)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     # Phase 1: the card.
@@ -1970,20 +2260,39 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Phase 5: the decode path.
-    decode_launches, k4 = decode_phase(
+    decode_launches, k4, k6 = decode_phase(
         dev, data, blobs["gzip L6 host bytes"], blobs["zlib L1 host bytes"],
-        blobs["zlib L9 host bytes"])
+        blobs["zlib L9 host bytes"], watch)
     for row in kernels:
         row["launches"] += decode_launches[row["name"]]
-    kernels.append(k4)
-    check(k4["max_abs_err"] == 0, k4)
+    kernels += [k4, k6]
+    check(k4["max_abs_err"] == 0 and k6["max_abs_err"] == 0, (k4, k6))
+
+    def add_phase(launches: dict, errs: dict) -> None:
+        """A phase's counted launches into every kernel's row, and its
+        largest differences from the plain versions (by kernel name) into
+        the rows of the kernels it checked."""
+        for row in kernels + [k5]:
+            row["launches"] += launches[row["name"]]
+            if row["name"] in errs:
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         errs[row["name"]])
+
+    def kernel_errs(k13_err: int, k4_err: int, k6_err: int | None) -> dict:
+        errs = {"adler_chunks": k13_err, "crc_rows": k13_err,
+                "crc_combine": k13_err, "inflate_extract": k4_err}
+        return errs if k6_err is None else {**errs, "lz_resolve": k6_err}
 
     # Phase 6: the indexed serving format.
-    indexed_launches, k4_err = indexed_phase(
-        dev, data, blobs["gzip L6 host bytes"], runs[0]["seconds"])
-    for row in kernels + [k5]:
-        row["launches"] += indexed_launches[row["name"]]
-    k4["max_abs_err"] = max(k4["max_abs_err"], k4_err)
+    indexed_launches, k4_err, k6_err, k6_tiles = indexed_phase(
+        dev, data, blobs["gzip L6 host bytes"], runs[0]["seconds"], watch)
+    add_phase(indexed_launches, {"inflate_extract": k4_err,
+                                 "lz_resolve": k6_err})
+    # K6 on the first tile of a 1 MiB member (CFG_S) beside the row's
+    # CFG_L tile.
+    k6["cfg_s_tile"] = {key: k6_tiles[0][key] for key in (
+        "tile_bytes", "used", "nrounds", "launches", "ms", "plain_ms",
+        "bound_ms", "bound_by")}
 
     # Phase 7: CPU and CUDA bytes.
     piece = data[:256 << 10]
@@ -2000,29 +2309,21 @@ def main() -> int:
     check(all(same.values()), same)
 
     # Phase 8: the multi-device layers.
-    parallel_launches, (k13_err, k4_err) = parallel_phase(
-        dev, data, blobs["gzip L6 host bytes"])
-    k5["launches"] += parallel_launches["huffman_tables"]
-    for row in kernels:
-        row["launches"] += parallel_launches[row["name"]]
-        row["max_abs_err"] = max(row["max_abs_err"],
-                                 k4_err if row is k4 else k13_err)
+    parallel_launches, errs = parallel_phase(
+        dev, data, blobs["gzip L6 host bytes"], watch)
+    add_phase(parallel_launches, kernel_errs(*errs))
 
     # Phase 9: the archive layer.
-    archive_launches, k13_err, k4_err = archive_phase(dev, data)
-    k5["launches"] += archive_launches["huffman_tables"]
-    for row in kernels:
-        row["launches"] += archive_launches[row["name"]]
-        row["max_abs_err"] = max(row["max_abs_err"],
-                                 k4_err if row is k4 else k13_err)
+    archive_launches, *errs = archive_phase(dev, data, watch)
+    add_phase(archive_launches, kernel_errs(*errs))
 
     # Phase 10: the driver hooks.
     hook_launches, k13_err, k4_err = driver_hooks_phase(dev)
-    k5["launches"] += hook_launches["huffman_tables"]
-    for row in kernels:
-        row["launches"] += hook_launches[row["name"]]
-        row["max_abs_err"] = max(row["max_abs_err"],
-                                 k4_err if row is k4 else k13_err)
+    add_phase(hook_launches, kernel_errs(k13_err, k4_err, None))
+
+    # No decode path ran K6's plain version on the card.
+    emit({"phase": "lz_resolve_plain", "cuda_calls": watch.plain_cuda_calls})
+    check(watch.plain_cuda_calls == 0, "K6's plain version ran on the card")
 
     emit({"kernels": kernels + [k5]})
     print(card, flush=True)

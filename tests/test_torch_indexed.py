@@ -203,6 +203,41 @@ def test_compress_indexed_and_uncompress_parallel():
     assert gf.uncompress_parallel(plain, device="cpu") == data
 
 
+def _member_bodies(blob: bytes) -> list:
+    """The raw DEFLATE body of every data member (sidecars left out)."""
+    out = []
+    for pos, n, side in _walk(blob):
+        if not side:
+            out.append(blob[gf.parse_header(blob, pos)["data_offset"]:
+                            pos + n - 8])
+    return out
+
+
+@pytest.mark.parametrize("fn", ["compress_indexed",
+                                "compress_device_indexed"])
+def test_default_level_members_run_the_callers_matcher(fn):
+    """At level -1 each member of host bytes runs level 6's matcher, as
+    compress() of its slice does (the reference's native route); a
+    tensor's members keep level 1's."""
+    words = [b"alpha", b"beta", b"gamma", b"delta", b"epsilon", b"zeta",
+             b"eta", b"theta", b"iota", b"kappa", b"lambda", b"mu"]
+    rng = np.random.default_rng(62)
+    data = b" ".join(words[i] for i in (rng.zipf(1.3, 6000) - 1) % 12)
+    member = 1 << 14
+    slices = [data[i:i + member] for i in range(0, len(data), member)]
+    assert len(slices) >= 3
+    raw = [zt.compress(s, -1, zt.dfDeflate, device="cpu") for s in slices]
+    assert raw != [zt.compress(s, 1, zt.dfDeflate, device="cpu")
+                   for s in slices]
+    write = getattr(gf, fn)
+    assert _member_bodies(write(data, -1, member_size=member,
+                                device="cpu")) == raw
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    assert _member_bodies(write(x, -1, member_size=member)) == [
+        zt.compress(x[i:i + member], 1, zt.dfDeflate)
+        for i in range(0, len(data), member)]
+
+
 def test_write_member_extra():
     extra = b"AB\x03\x00xyz"
     port = gf.write_member(HELLO, 6, extra=extra, device="cpu")

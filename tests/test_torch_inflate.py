@@ -15,6 +15,7 @@ from zippy_tpu.ops import inflate_device as ref  # noqa: E402
 from zippy_tpu_torch.common import ZippyError  # noqa: E402
 from zippy_tpu_torch.ops import inflate_device as port  # noqa: E402
 from zippy_tpu_torch.ops import inflate_kernels as ik  # noqa: E402
+from zippy_tpu_torch.ops import resolve_kernels as rk  # noqa: E402
 from _torch_parity import (  # noqa: E402,F401
     DEEP_CHAINS, mixed_payload, one_thread, random_bytes, raw_deflate)
 
@@ -89,7 +90,7 @@ def test_extract_equals_reference(name):
     reference's packed tokens exactly; the reference's lanes past them are
     all zero."""
     _, cfg, tiles, packs = _tile_packs(STREAMS[name]())
-    words, seg, _, lens8 = port._unpack(
+    words, seg, _, _, lens8 = port._unpack(
         torch.from_numpy(np.stack(packs).view(np.int32)), cfg)
     used = [tile.s1 - tile.s0 for tile in tiles]
     tables = port._block_tables(lens8.reshape(-1, 318))
@@ -112,13 +113,12 @@ def _decode_tiles_against_reference(blob, want_cfg):
     acc = (jnp.uint32(1), jnp.uint32(0))
     halo_p = torch.zeros(HALO, dtype=torch.uint8)
     ntiles = 0
-    index, cfg, tiles, packs = _tile_packs(blob)
+    _, cfg, tiles, packs = _tile_packs(blob)
     assert cfg == want_cfg
     for tile, pack in zip(tiles, packs):
         out_r, halo_r, *acc = ref._decode_tile(jnp.asarray(pack), halo_r,
                                                *acc, k=32, cfg=cfg)
-        out_p = port._decode_tile(_port_pack(pack), halo_p, tile,
-                                  port._tile_stored(index, tile), k=32,
+        out_p = port._decode_tile(_port_pack(pack), halo_p, tile, k=32,
                                   cfg=cfg)
         assert out_p.shape == (HALO + cfg.tile_out,)
         body = slice(HALO, HALO + tile.used)
@@ -153,7 +153,7 @@ def test_ffill_matches_the_shifted_selects():
     vals = np.where(flag_at, rng.integers(1, 1 << 20, n), 0).astype(np.int32)
     other = rng.integers(0, 1 << 20, n).astype(np.int32)
     want = ref._ffill_span(jnp.asarray(vals), jnp.asarray(other))
-    _, *got = port._ffill(torch.from_numpy(vals != 0),
+    _, *got = rk._ffill(torch.from_numpy(vals != 0),
                           torch.from_numpy(vals), torch.from_numpy(other))
     last = int(np.flatnonzero(flag_at).max())
     for w, g in zip(want, got):

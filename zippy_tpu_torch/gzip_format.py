@@ -52,6 +52,7 @@ def write_member(
     extra: bytes | None = None,
     engine_name: str = "auto",
     device=None,
+    matcher: int | None = None,
 ) -> bytes:
     """One gzip member: header + deflate stream + crc32/ISIZE trailer.
     `extra`, if given, is the FEXTRA field (at most 0xFFFF bytes), written
@@ -60,7 +61,9 @@ def write_member(
     The payload goes to the device once (a tensor stays where it is): the
     deflate body and the crc32 both run there; only the header and trailer
     bytes assemble on the host. Level -1 runs level 6's matcher on host
-    bytes and level 1's on a tensor (engine.matcher_level)."""
+    bytes and level 1's on a tensor (engine.matcher_level); `matcher`, if
+    given, is the level whose matcher runs, for a caller that uploaded
+    host bytes itself."""
     engine.check_engine(engine_name)
     x = as_u8_tensor(src, device)
     flg = 0
@@ -76,8 +79,9 @@ def write_member(
         npad = os.urandom(1)[0] % 26
         fields += bytes(97 + i for i in range(npad)) + b"\x00"
     header = struct.pack("<2sBBIBB", GZIP_MAGIC, 8, flg, 0, 0, 0)
-    body = engine.deflate(x, level, engine_name,
-                          engine.matcher_level(src, level))
+    if matcher is None:
+        matcher = engine.matcher_level(src, level)
+    body = engine.deflate(x, level, engine_name, matcher)
     trailer = struct.pack("<II", engine.crc32(x, engine_name),
                           int(x.shape[0]) & 0xFFFFFFFF)
     return header + fields + body + trailer
@@ -198,13 +202,15 @@ ZT_SUBFIELD_ID = b"ZT"
 _INDEXED_MEMBER_SIZE = 4 * 1024 * 1024
 
 
-def _zt_member(src, level: int, extra: bytes = b"", device=None) -> bytes:
+def _zt_member(src, level: int, extra: bytes = b"", device=None,
+               matcher: int | None = None) -> bytes:
     """One member (no FNAME) whose FEXTRA starts with the ZT subfield of
     its own total length, followed by `extra`: written with a zero length,
-    which is then patched in."""
+    which is then patched in. `matcher` as write_member takes it."""
     placeholder = struct.pack("<2sHI", ZT_SUBFIELD_ID, 4, 0)
     blob = write_member(src, level, random_name_padding=False,
-                        extra=placeholder + extra, device=device)
+                        extra=placeholder + extra, device=device,
+                        matcher=matcher)
     return (blob[:12] + struct.pack("<2sHI", ZT_SUBFIELD_ID, 4, len(blob))
             + blob[12 + len(placeholder):])
 
@@ -221,11 +227,13 @@ def compress_indexed(
     reader decode it) whose members uncompress_parallel finds without a
     scan. The payload is uploaded once to `device` (None: the CUDA card;
     "cpu" runs the plain versions); the device encoder writes the members
-    one after another."""
+    one after another, with the matcher of `src` (engine.matcher_level:
+    level -1 runs level 6's on host bytes)."""
     _check_member_size(member_size)
     x = as_u8_tensor(src, device)
     n = int(x.shape[0])
-    return b"".join(_zt_member(x[i:i + member_size], level)
+    matcher = engine.matcher_level(src, level)
+    return b"".join(_zt_member(x[i:i + member_size], level, matcher=matcher)
                     for i in range(0, max(n, 1), member_size))
 
 
@@ -456,17 +464,18 @@ def compress_device_indexed(
 
     The payload is uploaded once to `device` (None: the CUDA card; "cpu"
     runs the plain versions) and each member is a slice of it, written by
-    the device encoder; each body is then scanned once on the host for its
-    index. The index is the cost of the format: a checkpoint every 32
+    the device encoder with the matcher of `src` (engine.matcher_level);
+    each body is then scanned once on the host for its index. The index is the cost of the format: a checkpoint every 32
     tokens, whose deflated share of the stream depends on the data (about
     a tenth on chip_smoke.py's mixed payload)."""
     from .ops import inflate_device as idev
 
     _check_member_size(member_size)
     x = as_u8_tensor(src, device)
+    matcher = engine.matcher_level(src, level)
     out = []
     for i in range(0, max(int(x.shape[0]), 1), member_size):
-        blob = _zt_member(x[i:i + member_size], level)
+        blob = _zt_member(x[i:i + member_size], level, matcher=matcher)
         body = blob[parse_header(blob)["data_offset"]:]
         out.append(blob)
         out.append(_sidecar_members(

@@ -15,10 +15,10 @@ The index-based tiled decode of the reference, on a CUDA card:
    host sync, the per-block comparison tables of every tile in one build
    (`_cmp_tables`, torch ops), token extraction of every busy lane in one
    launch of kernel K4 `inflate_extract` (ops/inflate_kernels.py), then per
-   tile the LZ resolution (`_resolve`, torch ops: one token scatter, a
-   forward fill (`_ffill`), stored-span copies, match-byte compaction and
-   pointer doubling). Tiles chain through a 32 KiB halo of decoded bytes,
-   device to device.
+   tile the LZ resolution (`_resolve`: kernel K6 `lz_resolve`,
+   ops/resolve_kernels.py, in 2 + nrounds launches: the tokens and stored
+   spans expanded, then pointer doubling over the match bytes). Tiles
+   chain through a 32 KiB halo of decoded bytes, device to device.
 4. Every tile's bytes land in one output buffer, whose adler32 (kernel K1)
    must equal the scan's, and for gzip whose crc32 (K2 + K3) must equal the
    trailer: a corrupt stream that passes the scan cannot return silent
@@ -49,8 +49,9 @@ import torch
 
 from .. import gzip_format
 from ..common import ZippyError, resolve_device, resolve_devices
-from . import checksums, inflate_kernels
+from . import checksums, inflate_kernels, resolve_kernels
 from .inflate_scan import inflate_scan
+from .resolve_kernels import HALO
 
 # Tokens per segment: the extraction runs this many dependent steps per lane.
 _EVERY = 32
@@ -59,8 +60,6 @@ _EVERY = 32
 # built together, and one launch extracts all their busy lanes. 32 CFG_L
 # tiles hold about a million busy lanes, several times the card's threads.
 _TILES_PER_LAUNCH = 32
-
-HALO = 32768  # DEFLATE window: matches never reach further back
 
 
 class TileConfig(NamedTuple):
@@ -115,8 +114,6 @@ _LL_ENT[:256] = (1 << 5) | (np.arange(256, dtype=np.int64) << 8)
 _LL_ENT[257:286] = (_LENGTH_BASE << 16) | (_LENGTH_EXTRA << 25)
 # Dist entries: bits5-8 extra count, bits16-30 base - 1.
 _D_ENT = (_DIST_EXTRA << 5) | ((_DIST_BASE - 1) << 16)
-
-_STO_MAX = 1 << 16  # a stored span's LEN field is 16-bit
 
 
 def _upload(arr: np.ndarray, device: torch.device, keep: list) -> torch.Tensor:
@@ -205,120 +202,15 @@ def _block_tables(lens8: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _ffill(flag: torch.Tensor, *arrays: torch.Tensor):
-    """Forward-fill: position i takes each array's value at the last p <= i
-    where flag is set (0 before the first). Returns (p or 0, filled...).
-    One scan: the running count of set positions numbers them; each set
-    position scatters itself to its number, and every position gathers the
-    position of its count. No fill distance bound (the reference's 9
-    shifted selects reach 511 positions). torch.cummax over the positions
-    computes the same, but measured 9.3 ms a call on a 4 MiB tile on the
-    H100."""
-    n = flag.shape[0]
-    rank = torch.cumsum(flag, dim=0) - 1
-    has = rank >= 0
-    pos = torch.arange(n, device=flag.device)
-    first = _scatter(n, torch.where(flag, rank, n), pos)
-    at = first[rank.clamp(min=0)]
-    return (torch.where(has, at, 0),
-            *(torch.where(has, a[at], 0) for a in arrays))
-
-
-def _scatter(size: int, index: torch.Tensor, values: torch.Tensor,
-             base=None) -> torch.Tensor:
-    """values written at `index` into a buffer of `size` (zeros, or a copy
-    of `base`); indices outside [0, size) go to one spare trailing slot,
-    which is cut off."""
-    index = torch.where((index >= 0) & (index < size), index, size)
-    buf = torch.zeros(size + 1, dtype=values.dtype, device=values.device)
-    if base is not None:
-        buf[:size] = base
-    return buf.scatter_(0, index, values)[:size]
-
-
-def _resolve(packed, seg_out, words, stored, halo, nrounds: int,
+def _resolve(packed, seg_out, words, sto, halo, used: int, nrounds: int,
              cfg: TileConfig) -> torch.Tensor:
-    """Output bytes from the extracted tokens and the stored spans.
-
-    Positions [0, HALO) are the carried window (literal fixpoints valued from
-    `halo`); the tile's output occupies [HALO, HALO + tile_out). `stored`
-    lists the tile's stored spans as host ints (source byte in the words,
-    output position, length). One token scatter places a packed (dist, lit)
-    payload at each token's first byte, a forward fill spreads it over the
-    span; literals finish there. Match bytes compact into cfg.ncmp slots,
-    take the closed-form overlap source start - dist + (o mod dist), and
-    resolve by `nrounds` pointer-doubling hops over the compact slots."""
-    out_pad = HALO + cfg.tile_out
-    C = cfg.ncmp
-    dev = packed.device
-    tok = packed.T.to(torch.int64)                         # (nseg, k)
-    out_len = tok >> 16
-    low = tok & 0xFFFF
-    is_mt = low >= 256
-    dists = torch.where(is_mt, low - 256, 0)
-    litbyte = torch.where(is_mt, 0, low)
-
-    # Token output starts: per-segment base from the index plus the prefix
-    # sum of the lane's token lengths.
-    starts = seg_out.to(torch.int64)[:, None] + (
-        torch.cumsum(out_len, dim=1) - out_len)
-    valid = out_len > 0
-    flat_starts = torch.where(valid, starts, out_pad).reshape(-1)
-    flat_dist = dists.reshape(-1)
-    flat_lit = litbyte.reshape(-1)
-    flat_mlen = torch.where(is_mt & valid, out_len, 0).reshape(-1)
-
-    j = torch.arange(out_pad, device=dev)
-    payload = (flat_dist << 9) | (flat_lit << 1) | 1
-    pay_at = _scatter(out_pad, flat_starts, payload)
-    _, pay = _ffill(pay_at != 0, pay_at)
-    dist_span = pay >> 9
-    lit_base = torch.cat([halo.to(torch.int64), (pay[HALO:] >> 1) & 0xFF])
-
-    # Stored spans: one contiguous copy each, from the tile's words.
-    in_sto = torch.zeros(out_pad, dtype=torch.bool, device=dev)
-    src_bytes = words.view(torch.uint8)
-    nbytes = src_bytes.shape[0]
-    for src, o0, ln in stored:
-        src = min(max(src, 0), nbytes)
-        o0 = min(max(o0, 0), out_pad)
-        ln = max(0, min(ln, _STO_MAX, out_pad - o0))
-        n = min(ln, nbytes - src)
-        lit_base[o0:o0 + n] = src_bytes[src:src + n]
-        lit_base[o0 + n:o0 + ln] = 0
-        in_sto[o0:o0 + ln] = True
-
-    # Match-byte compaction: byte i of match token t sits at compact slot
-    # cb[t] + i (tokens partition the output in order). The fill past the
-    # tile's last token marks padding bytes too; they sort after every real
-    # match byte and are masked by total_m below.
-    is_m = (dist_span > 0) & ~in_sto & (j >= HALO)
-    cidx = torch.cumsum(is_m, dim=0) - 1
-    pfull = torch.where(is_m, cidx, -(j + 1))
-
-    cb = torch.cumsum(flat_mlen, dim=0) - flat_mlen
-    total_m = flat_mlen.sum()
-    cpos = torch.where(flat_mlen > 0, cb, C)
-    fs_at = _scatter(C, cpos, flat_starts)
-    d_at = _scatter(C, cpos, flat_dist)
-    cb_f, fs_f, d_f = _ffill(fs_at != 0, fs_at, d_at)
-
-    # Overlapping copies (dist < len) in closed form: byte o of a span reads
-    # span_start - d + (o mod d). Real targets are strictly earlier bytes,
-    # so chains strictly decrease and end at literals, halo or stored bytes.
-    ii = torch.arange(C, device=dev)
-    o = ii - cb_f
-    f_i = fs_f + o
-    t = (fs_f - d_f + o % d_f.clamp(min=1)).clamp(0, out_pad - 1)
-    p = pfull[t]
-    # p < 0 is a resolved literal source -(pos + 1); p >= 0 the compact slot
-    # of the next hop.
-    for _ in range(nrounds):
-        p = torch.where(p < 0, p, p[p.clamp(0, C - 1)])
-    vals = lit_base[(-p - 1).clamp(0, out_pad - 1)]
-    fpos = torch.where((ii < total_m) & (fs_f > 0),
-                       f_i.clamp(0, out_pad), out_pad)
-    return _scatter(out_pad, fpos, vals, base=lit_base).to(torch.uint8)
+    """One tile's output bytes (HALO + tile_out,) uint8 from its tokens,
+    its stored-span table `sto` and the halo: kernel K6 on the card, the
+    plain version on the CPU (ops/resolve_kernels.lz_resolve).
+    out[HALO:HALO + used] is the tile's bytes and out[used:used + HALO]
+    the next halo."""
+    return resolve_kernels.lz_resolve(packed, seg_out, words, sto, halo, used,
+                                      nrounds, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -335,18 +227,20 @@ def _buf_size(cfg: TileConfig) -> int:
 def _unpack(packs: torch.Tensor, cfg: TileConfig):
     """Views of a batch of packed int32 tile buffers (ntiles, _buf_size):
     words (ntiles, nwords), the segment rows bit, block, ntok
-    (ntiles, 3, nseg), seg_out (ntiles, nseg), and the code lengths
-    (ntiles, nblk, 318) uint8. The stored-span table is skipped: the host
-    hands the spans to `_resolve`."""
+    (ntiles, 3, nseg), seg_out (ntiles, nseg), the stored-span table rows
+    source byte, output position, length (ntiles, 3, nsto), and the code
+    lengths (ntiles, nblk, 318) uint8."""
     off = 2
     words = packs[:, off:off + cfg.nwords]
     off += cfg.nwords
     seg = packs[:, off:off + 3 * cfg.nseg].unflatten(1, (3, cfg.nseg))
     off += 3 * cfg.nseg
     seg_out = packs[:, off:off + cfg.nseg]
-    off += cfg.nseg + 3 * cfg.nsto
+    off += cfg.nseg
+    sto = packs[:, off:off + 3 * cfg.nsto].unflatten(1, (3, cfg.nsto))
+    off += 3 * cfg.nsto
     lens8 = packs[:, off:off + (318 * cfg.nblk + 3) // 4].view(torch.uint8)
-    return (words, seg, seg_out,
+    return (words, seg, seg_out, sto,
             lens8[:, :318 * cfg.nblk].unflatten(1, (cfg.nblk, 318)))
 
 
@@ -394,19 +288,19 @@ def _extract(words, seg, used, tables, k: int, devices=None):
     return torch.cat([p.to(words.device) for p in parts], dim=1)
 
 
-def _decode_batch(packs, halo, tiles, stored, *, k: int, cfg: TileConfig,
+def _decode_batch(packs, halo, tiles, *, k: int, cfg: TileConfig,
                   stages=None, devices=None):
     """A batch of tiles: every tile's tables in one build, the extraction
     of all their busy lanes in one K4 launch (none when no lane is busy;
     with `devices`, one a device with a lane share, `_extract`), then each
-    tile's LZ resolution in order, the halo chained. `packs` is the tiles'
-    packed buffers (ntiles, _buf_size) int32 on the card, `halo` the 32 KiB
-    before the first tile, `tiles` their plan (`_Tile`: busy lanes s1 - s0,
-    output bytes `used`, depth) and `stored` their stored spans, host ints.
+    tile's LZ resolution in order (`_resolve`), the halo chained. `packs`
+    is the tiles' packed buffers (ntiles, _buf_size) int32 on the card,
+    `halo` the 32 KiB before the first tile, `tiles` their plan (`_Tile`:
+    busy lanes s1 - s0, output bytes `used`, depth).
     Yields each tile's out uint8 (HALO + tile_out,): its `used` bytes are
     out[HALO:HALO + used], and out[used:used + HALO] is the next halo."""
     dev = packs.device
-    words, seg, seg_out, lens8 = _unpack(packs, cfg)
+    words, seg, seg_out, sto, lens8 = _unpack(packs, cfg)
     lanes = [t.s1 - t.s0 for t in tiles]
     if any(lanes):
         with _stage(stages, "tables", dev):
@@ -419,19 +313,20 @@ def _decode_batch(packs, halo, tiles, stored, *, k: int, cfg: TileConfig,
     for i, tile in enumerate(tiles):
         with _stage(stages, "resolve", dev):
             out = _resolve(packed[:, col:col + lanes[i]],
-                           seg_out[i, :lanes[i]], words[i], stored[i], halo,
-                           _nrounds_for_depth(tile.depth, cfg), cfg)
+                           seg_out[i, :lanes[i]], words[i], sto[i], halo,
+                           tile.used, _nrounds_for_depth(tile.depth, cfg),
+                           cfg)
         col += lanes[i]
         halo = out[tile.used:tile.used + HALO]
         yield out
 
 
-def _decode_tile(pack, halo, tile, stored, *, k: int, cfg: TileConfig,
+def _decode_tile(pack, halo, tile, *, k: int, cfg: TileConfig,
                  stages=None) -> torch.Tensor:
     """One tile, as a batch of one: `pack` its packed buffer (_buf_size,)
     int32 on the card. Returns its out, as `_decode_batch` yields it."""
-    return next(_decode_batch(pack[None], halo, [tile], [stored], k=k,
-                              cfg=cfg, stages=stages))
+    return next(_decode_batch(pack[None], halo, [tile], k=k, cfg=cfg,
+                              stages=stages))
 
 
 # ---------------------------------------------------------------------------
@@ -604,15 +499,6 @@ def _tile_pack(data, index, tile: _Tile, cfg: TileConfig,
     return buf
 
 
-def _tile_stored(index, tile: _Tile) -> list:
-    """The tile's stored spans as host ints, relative to the tile: (source
-    byte in its words, output position, length)."""
-    sto = index["stored"]
-    sto = sto[sto[:, 2] > 0] if sto.shape[0] else sto
-    return [(int(s) - tile.w0 * 4, int(o) - tile.base + HALO, int(n))
-            for s, o, n in sto[tile.t0:tile.t1]]
-
-
 # ---------------------------------------------------------------------------
 # Orchestration
 # ---------------------------------------------------------------------------
@@ -663,11 +549,10 @@ def _run_tiles(data, index, device: torch.device, stages=None, devices=None):
             packs = [_tile_pack(data, index, tile, cfg,
                                 _nrounds_for_depth(tile.depth, cfg))
                      for tile in batch]
-            stored = [_tile_stored(index, tile) for tile in batch]
         with _stage(stages, "upload", device):
             packs = _upload_packs(packs, device, keep)
         for tile, out in zip(batch, _decode_batch(
-                packs, halo, batch, stored, k=k, cfg=cfg, stages=stages,
+                packs, halo, batch, k=k, cfg=cfg, stages=stages,
                 devices=devices)):
             with _stage(stages, "resolve", device):
                 buf[tile.base:tile.base + tile.used] = \
