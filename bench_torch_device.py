@@ -1,9 +1,12 @@
 """Device benchmark of zippy_tpu_torch on one CUDA card: the port's
 counterpart of bench_device.py, row by row.
 
-    python3 bench_torch_device.py [--out PATH]
+    python3 bench_torch_device.py [--out PATH] [--root DIR] [--groups G,...]
 
-Rows, in the order they run (each printed as one JSON line):
+Rows, in the order they run (each printed as one JSON line), by group
+(--groups; the default runs all but `compress`):
+
+start:
 
 - launch_latency (ms): one tiny kernel's launch and torch.cuda.synchronize,
   host clock;
@@ -14,6 +17,7 @@ Rows, in the order they run (each printed as one JSON line):
 - warm_first_uncompress_device, warm_first_compress_device,
   warm_second_compress_device (s): uncompress() of a zlib L6 stream of the
   1 MiB payload, then compress(src, 1, dfDeflate) twice, right after warmup;
+transfers, checksums, decode, indexed:
 - h2d_pinned, h2d_pageable (64 MiB) and d2h_pinned (8 MiB) (GB/s), against
   the PCIe link nvidia-smi reports;
 - device_crc32, device_adler32 (GB/s): checksums.crc32_tensor and
@@ -35,11 +39,35 @@ Rows, in the order they run (each printed as one JSON line):
   compress_device_indexed of the 16 MiB payload at 8 MiB members, decoded
   by uncompress_device(array=True), with the index's share of the stream
   against compress_indexed's;
+encode:
 - device_encode_group_L{1,6} (GB/s of input): one _encode_group of the
   level's group size of 64 KiB blocks with HIST history, with ms per
   dispatch and the synchronized split of its stages (find_tokens; the Kraft
   build with the header cost and codes; pack);
 - device_encode_stage_find_L{1,6} (ms): find_tokens alone on the same rows.
+compress (the encoder's stages and the calls around them):
+- stream_digests (s): deflate_device.deflate of the payload's first 8 MiB
+  at levels -2, -1, 1, 6 and 9 and of 64 MiB at level 6, with the SHA-256
+  of each stream (two trees' digests equal: the same bytes);
+- find_group_L{6,1} (ms): find_tokens on the first group of the level's
+  encode of the 64 MiB payload (55 rows at level 6, 64 at level 1), 10
+  calls a sample; from a profile of 10 calls the card's busy ms,
+  operations and idle share a call; where the tree has ops/match_kernels
+  (kernel K7), K7's own device ms and the library sort's apart, its
+  launches a group, its plain version's ms and the bound
+  (chip_smoke.find_work);
+- compress_64mib_l6_tensor (s): deflate_array of the payload on the card
+  at level 6, with one run's synchronized stages, a profile and the peak
+  device memory;
+- compress_peak_memory_64mib_l6, compress_peak_memory_8mib_l9 (s):
+  api.compress of the payload (gzip) and of its first 8 MiB (zlib) from
+  host bytes, with the peak device memory;
+- create_zip_archive (s): chip_smoke.archive_tree's 1,032 files zipped,
+  the archive read back by zipfile.
+
+--root imports zippy_tpu_torch from another tree (an unpacked `git
+archive` of a parent commit), so that two trees are timed in turns in one
+chip call: `--groups encode,compress`, parent, this, this, parent.
 
 The payload is chip_smoke.py's mixed text, from its SEED. Every decode is checked
 against its payload and every encode is decoded by CPython's zlib; a failed
@@ -52,19 +80,23 @@ method and the rows.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import io
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import zipfile
 import zlib
 
 import numpy as np
 import torch
 
-from chip_smoke import (HBM_BYTES_PER_S, SEED, card_line, check,
-                        device_trace, mixed_text)
+from chip_smoke import (HBM_BYTES_PER_S, MAIN_BYTES, SEED, ZLIB_BYTES,
+                        archive_tree, bound, card_line, check, device_trace,
+                        find_work, mixed_text)
 
 OUT = pathlib.Path("chiprun_out") / "bench_torch_device.json"
 HBM_GBPS = HBM_BYTES_PER_S / 1e9
@@ -73,6 +105,10 @@ CALLS = 20        # back-to-back calls inside one sample of a kernel row
 LABELS = {"mixed1mib": 1 << 20, "mixed16mib": 16 << 20,
           "mixed64mib": 64 << 20}
 LEVELS = (1, 6)
+GROUPS = ("start", "transfers", "checksums", "decode", "indexed", "encode",
+          "compress")
+DEFAULT_GROUPS = GROUPS[:-1]
+FIND_CALLS = 10   # find_tokens calls a sample of a find_group row
 INDEXED_BYTES = 16 << 20
 INDEXED_MEMBER = 8 << 20
 H2D_BYTES = 64 << 20
@@ -106,22 +142,44 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", type=pathlib.Path, default=OUT,
                    help="where the artifact is written (JSON)")
-    return p.parse_args(argv)
+    p.add_argument("--root", type=pathlib.Path,
+                   default=pathlib.Path(__file__).resolve().parent,
+                   help="the tree to import zippy_tpu_torch from")
+    p.add_argument("--groups", type=lambda v: tuple(v.split(",")),
+                   default=DEFAULT_GROUPS,
+                   help=f"the groups of rows to run, of {','.join(GROUPS)}")
+    args = p.parse_args(argv)
+    bad = set(args.groups) - set(GROUPS)
+    if bad:
+        p.error(f"unknown groups {sorted(bad)}")
+    return args
 
 
-def row_names() -> list[str]:
-    """Every row the artifact holds, in the order they run."""
-    names = ["launch_latency", "kernel_build", "warmup_wall",
-             "warm_first_uncompress_device", "warm_first_compress_device",
-             "warm_second_compress_device", "h2d_pinned", "h2d_pageable",
-             "d2h_pinned", "device_crc32", "device_adler32"]
-    for label in LABELS:
-        names += [f"decode_scan_{label}", f"device_inflate_tile_{label}",
-                  f"device_inflate_e2e_resident_{label}"]
-    names.append("device_inflate_indexed_e2e_resident_16mib")
-    for level in LEVELS:
-        names += [f"device_encode_group_L{level}",
-                  f"device_encode_stage_find_L{level}"]
+def row_names(groups=DEFAULT_GROUPS) -> list[str]:
+    """Every row the artifact of `groups` holds, in the order they run."""
+    names = []
+    if "start" in groups:
+        names += ["launch_latency", "kernel_build", "warmup_wall",
+                  "warm_first_uncompress_device",
+                  "warm_first_compress_device", "warm_second_compress_device"]
+    if "transfers" in groups:
+        names += ["h2d_pinned", "h2d_pageable", "d2h_pinned"]
+    if "checksums" in groups:
+        names += ["device_crc32", "device_adler32"]
+    if "decode" in groups:
+        for label in LABELS:
+            names += [f"decode_scan_{label}", f"device_inflate_tile_{label}",
+                      f"device_inflate_e2e_resident_{label}"]
+    if "indexed" in groups:
+        names.append("device_inflate_indexed_e2e_resident_16mib")
+    if "encode" in groups:
+        for level in LEVELS:
+            names += [f"device_encode_group_L{level}",
+                      f"device_encode_stage_find_L{level}"]
+    if "compress" in groups:
+        names += ["stream_digests", "find_group_L6", "find_group_L1",
+                  "compress_64mib_l6_tensor", "compress_peak_memory_64mib_l6",
+                  "compress_peak_memory_8mib_l9", "create_zip_archive"]
     return names
 
 
@@ -148,20 +206,22 @@ def row(name: str, unit: str, samples: list, **extra) -> dict:
     return {"name": name, "unit": unit, **summary(samples), **extra}
 
 
-def artifact(card: str, device_name: str, rows: list) -> dict:
+def artifact(card: str, device_name: str, rows: list,
+             groups=DEFAULT_GROUPS, root: str | None = None) -> dict:
     """The artifact: the card (nvidia-smi's name and power limit), the
-    versions, the date, the method and the rows, which must be exactly
-    row_names()."""
+    versions, the date, the method, the tree timed (`root`, where not this
+    one) and the rows, which must be exactly row_names(groups)."""
     names = [r["name"] for r in rows]
-    if sorted(names) != sorted(row_names()):
-        raise ValueError(f"rows {names} are not {row_names()}")
+    if sorted(names) != sorted(row_names(groups)):
+        raise ValueError(f"rows {names} are not {row_names(groups)}")
     name, _, power = card.partition(",")
     return {"card": {"nvidia_smi": card, "name": name.strip(),
                      "power_limit": power.strip(),
                      "torch_name": device_name},
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "date": time.strftime("%Y-%m-%d"), "seed": SEED,
-            "method": METHOD, "rows": rows}
+            "method": METHOD, "groups": list(groups), "root": root,
+            "rows": rows}
 
 
 def pcie_link() -> dict | None:
@@ -452,6 +512,119 @@ class Bench:
         self.rec(row(f"device_encode_stage_find_L{level}", "ms",
                      [s * 1e3 for s in find], of_total_ms=group_ms))
 
+    def compress(self, data: bytes) -> None:
+        """The compress group: stream_digests, find_group_L{6,1},
+        compress_64mib_l6_tensor, compress_peak_memory_*,
+        create_zip_archive."""
+        import zippy_tpu_torch as zt
+        from zippy_tpu_torch import api, common
+        from zippy_tpu_torch.ops import deflate_device as dd
+
+        try:
+            from zippy_tpu_torch.ops import match_kernels as mk
+        except ImportError:   # a tree from before K7
+            mk = None
+        digests, t0 = {}, time.perf_counter()
+        for level, n in ((-2, ZLIB_BYTES), (-1, ZLIB_BYTES), (1, ZLIB_BYTES),
+                         (6, ZLIB_BYTES), (9, ZLIB_BYTES), (6, MAIN_BYTES)):
+            digests[f"L{level} {n >> 20} MiB"] = hashlib.sha256(
+                dd.deflate(data[:n], level)).hexdigest()
+        self.rec(row("stream_digests", "s", [time.perf_counter() - t0],
+                     digests=digests))
+
+        x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+        for level in (6, 1):
+            self.rec(self._find_group(dd, mk, x, level))
+            torch.cuda.empty_cache()
+
+        x_dev = x.to(self.dev)
+        body = dd.deflate(data, 6)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs = []
+        secs = host_samples(lambda: outs.append(dd.deflate_array(x_dev, 6)))
+        check(all(out == body for out in outs), "deflate_array equals deflate")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stages: dict = {}
+        dd.deflate_array(x_dev, 6, stages=stages)
+        self.rec(row("compress_64mib_l6_tensor", "s", secs, bytes=len(data),
+                     stages_s=stages, peak_device_GiB=peak,
+                     trace=device_trace(lambda: dd.deflate_array(x_dev, 6))))
+        del x_dev, outs
+        torch.cuda.empty_cache()
+
+        for name, src, level, fmt in (
+                ("compress_peak_memory_64mib_l6", data, 6, common.dfGzip),
+                ("compress_peak_memory_8mib_l9", data[:ZLIB_BYTES], 9,
+                 common.dfZlib)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            blobs = []
+            secs = host_samples(lambda: blobs.append(api.compress(
+                src, level, fmt)))
+            back = (zlib.decompress(blobs[-1], 31) if fmt is common.dfGzip
+                    else zlib.decompress(blobs[-1]))
+            check(back == src, name)
+            self.rec(row(name, "s", secs, bytes=len(src),
+                         compressed_bytes=len(blobs[-1]),
+                         peak_device_GiB=torch.cuda.max_memory_allocated()
+                         / 2**30))
+            del blobs
+            torch.cuda.empty_cache()
+
+        tree = archive_tree(data)
+        blobs = []
+        secs = host_samples(lambda: blobs.append(zt.create_zip_archive(tree)))
+        with zipfile.ZipFile(io.BytesIO(blobs[-1])) as zf:
+            check(all(zf.read(name) == contents
+                      for name, contents in tree.items()),
+                  "create_zip_archive")
+        self.rec(row("create_zip_archive", "s", secs, files=len(tree),
+                     bytes=sum(map(len, tree.values())),
+                     zip_bytes=len(blobs[-1])))
+
+    def _find_group(self, dd, mk, x: torch.Tensor, level: int) -> dict:
+        """find_group_L{level}: find_tokens on the first group of the
+        level's encode of x."""
+        k, lazy, min3 = dd._level_params(level)
+        g = dd._group_size(k, dd.BLOCK)
+        buf = dd._run_buffer(x, 0, g, dd.BLOCK, dd.HIST, self.dev)
+        blocks, lens, hls = dd._group_inputs(buf, 0, 0, g, x.numel(),
+                                             dd.BLOCK, dd.HIST)
+        params = {"k": k, "lazy": lazy, "hist": dd.HIST, "min3": min3}
+
+        def call():
+            return dd.find_tokens(blocks, lens, hls, **params)
+
+        secs = device_samples(call, FIND_CALLS)
+        fields = {"rows": g, "k": k}
+        trace = device_trace(lambda: [call() for _ in range(FIND_CALLS)],
+                             match=None if mk is None else "k7_")
+        busy = trace["device_busy_s"]
+        if busy is not None:
+            fields.update(busy_ms=busy / FIND_CALLS * 1e3,
+                          device_ops=trace["device_ops"] / FIND_CALLS,
+                          device_idle_share=trace["device_idle_share"])
+        if mk is not None:
+            bound_ms, bound_by = bound(find_work(
+                g, dd.BLOCK, blocks.shape[1], k, min3))
+            n, hl = lens.long(), hls.long()
+            plain = device_samples(lambda: mk.find_tokens_plain(
+                blocks, n, hl, **params, lits_only=False), 2)
+            fields.update(
+                launches_per_group=mk.launches_per_group(False),
+                plain_ms=summary([t * 1e3 for t in plain]),
+                bound_ms=bound_ms, bound_by=bound_by)
+            if busy is not None:
+                k7_ms = trace["matched_busy_s"] / FIND_CALLS * 1e3
+                fields.update(
+                    k7_ms=k7_ms, sort_ms=busy / FIND_CALLS * 1e3 - k7_ms,
+                    k7_ops=trace["matched_ops"] / FIND_CALLS,
+                    bound_share=bound_ms / (busy / FIND_CALLS * 1e3),
+                    top_device_ms=trace["top_device_ms"])
+        return row(f"find_group_L{level}", "ms", [t * 1e3 for t in secs],
+                   **fields)
+
 
 def main(argv=None) -> int:
     args = parse_args(argv)
@@ -459,25 +632,41 @@ def main(argv=None) -> int:
         print("bench_torch_device: no CUDA device; nothing was timed",
               file=sys.stderr)
         return 2
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
     from zippy_tpu_torch.ops import deflate_device as dd
+    from zippy_tpu_torch.ops import kernel_build as kb
 
+    groups = args.groups
     card = card_line()
     data = mixed_text(max(LABELS.values()), SEED)
     bench = Bench()
-    bench.start(data)
-    bench.transfers()
-    bench.checksums()
-    for label, n in LABELS.items():
-        src = data[:n]
-        blob = (dd.deflate(src, 6) if label == "mixed64mib"
-                else zlib.compress(src, 6)[2:-4])
-        bench.decode(label, blob, src)
-        torch.cuda.empty_cache()
-    bench.indexed(data[:INDEXED_BYTES])
-    for level in LEVELS:
-        bench.encode(level, data)
-        torch.cuda.empty_cache()
-    out = artifact(card, torch.cuda.get_device_name(0), bench.rows)
+    if "start" in groups:
+        bench.start(data)
+    else:
+        kb.build_all()
+    if "transfers" in groups:
+        bench.transfers()
+    if "checksums" in groups:
+        bench.checksums()
+    if "decode" in groups:
+        for label, n in LABELS.items():
+            src = data[:n]
+            blob = (dd.deflate(src, 6) if label == "mixed64mib"
+                    else zlib.compress(src, 6)[2:-4])
+            bench.decode(label, blob, src)
+            torch.cuda.empty_cache()
+    if "indexed" in groups:
+        bench.indexed(data[:INDEXED_BYTES])
+    if "encode" in groups:
+        for level in LEVELS:
+            bench.encode(level, data)
+            torch.cuda.empty_cache()
+    if "compress" in groups:
+        bench.compress(data[:MAIN_BYTES])
+    this = pathlib.Path(__file__).resolve().parent
+    out = artifact(card, torch.cuda.get_device_name(0), bench.rows, groups,
+                   None if root == this else str(root))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1) + "\n")
     print(card, flush=True)

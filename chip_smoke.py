@@ -8,8 +8,8 @@ non-zero exit and no result line):
 
 1. the card (nvidia-smi's name and power limit, torch's device name);
 2. the build of every native library, with its seconds: csrc/checksums.cu,
-   csrc/inflate.cu, csrc/huffman.cu and csrc/resolve.cu with nvcc (started
-   together) and the decode's host scan csrc/inflate_scan.cpp with c++;
+   csrc/inflate.cu, csrc/huffman.cu, csrc/resolve.cu and csrc/match.cu
+   with nvcc (started together) and the decode's host scan csrc/inflate_scan.cpp with c++;
    and what `nvcc -Xptxas -v` said of each kernel (registers, shared
    memory, spills);
 3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
@@ -29,7 +29,18 @@ non-zero exit and no result line):
    payload to gzip at level 6, from host bytes and from a CUDA tensor, and
    of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
    gzip/zlib; the kernels' launch counts are zeroed before and read after
-   (K5 exactly once per encode group); then one instrumented encode gives
+   (K5 exactly once per encode group, K7 exactly launches_per_group times
+   a group); K7 (match_tokens) against its plain version on every output
+   of every group of the host-bytes encodes (inputs kept as its wrapper
+   got them, `MatchWatch`) and on seeded rows (`match_rows`) at levels 1,
+   6, 9, -1 and -2 with a full history and with none; one encode group
+   issued under torch.cuda.set_sync_debug_mode("error"); K7 on the first
+   full group of the level-6 and of the level-1 encode, its own launches'
+   device ms and the library sort's apart (`match_split`), beside its
+   plain version and its bound (`find_work`), and on that level-6 group's
+   shape filled with zeros and with a 3-byte period (`match_edge_groups`,
+   against its plain version too); then one instrumented
+   encode gives
    seconds per stage, and a torch.profiler trace of the encode gives device
    operations and the card's idle share; K5 (huffman_tables) against its
    plain version on every group of the host-bytes encodes (inputs kept as
@@ -41,9 +52,8 @@ non-zero exit and no result line):
    (level 0) stream and of a two-member gzip, each equal to its input, with
    the launch counts zeroed before and read after (K1-K4 and K6 all
    launched, K4 once per batch of tiles that has a busy lane, K6 2 +
-   nrounds times a tile, K5 never, K6's plain version never); per stream
-   the
-   scan's seconds, the decode given its index (twice) and CPython's
+   nrounds times a tile, K5 and K7 never, K6's plain version never); per
+   stream the scan's seconds, the decode given its index (twice) and CPython's
    decompress; a decode given its index with no host sync from the first
    tile to the last (torch.cuda.set_sync_debug_mode("error")); the 64 MiB
    stream in batches of 8 tiles; a flipped crc raising ZippyError; one
@@ -62,7 +72,7 @@ non-zero exit and no result line):
 6. the indexed serving format (`indexed` lines), at 1 MiB and 8 MiB
    members of the 64 MiB payload at level 6: compress_device_indexed's
    seconds beside phase 4's single-member compress, its K5 launches (one a
-   group of each member), the stream's size and
+   group of each member) and K7's, the stream's size and
    its sidecars' share, CPython's decode of it; uncompress_device (bytes
    and array=True) and uncompress() equal to the input with no scan call,
    their seconds beside the scanned uncompress() of phase 4's stream and
@@ -90,7 +100,8 @@ non-zero exit and no result line):
    cuda:0]) of the 64 MiB body; the launches of these runs, counted from
    zero (K1-K3 once per device share, K4 once per share with busy lanes
    per batch, K5 once per encode group of each device's run, K6 2 +
-   nrounds times a tile), then K1-K3 on each 64 MiB share and K4 on each
+   nrounds times a tile, K7 launches_per_group times an encode group),
+   then K1-K3 on each 64 MiB share and K4 on each
    share of every batch against their plain versions, and K6 on every
    tile of the decode over [cuda:0, cuda:0]; two ranks spawned on gloo
    and cuda:0 (compress_gzip_all_hosts at level 6 of two 4 MiB shards,
@@ -114,7 +125,8 @@ non-zero exit and no result line):
    ZipArchive (add_dir, write_zip_archive, open) read by zipfile and the
    port; a .tgz from the v1 Tarball read by CPython's tarfile and
    extracted by tarballs.extract_all; the launches of all that, counted
-   from zero (K5 once a group of the batched encode, none in a decode;
+   from zero (K5 once a group of the batched encode and K7
+   launches_per_group times, neither in a decode;
    K6 2 + nrounds times a tile of every deflated entry);
    torch.profiler traces of create_zip_archive and extract_all_zip of the
    tree's first 128 files; then K4 against its
@@ -123,11 +135,12 @@ non-zero exit and no result line):
 10. the driver hooks (`driver_hooks` lines, zippy_tpu_torch.entry):
    entry("cuda")'s step (compress_block_fixed of one 64 KiB block) equal to
    entry("cpu")'s, words, bit count and both histograms, its packed block
-   decoded by zlib behind a fixed-Huffman block header, and no K5 launch;
+   decoded by zlib behind a fixed-Huffman block header, no K5 launch and
+   one group's K7 launches;
    dryrun_multichip(2, ["cuda:0", "cuda:0"]) and, on a host with two cards
    or more, dryrun_multichip over default_devices(), with seconds; their
-   launches counted from zero (K1 for the decode's gate, K4 a share, K5 a
-   group of each encode, K6 for the decode); then
+   launches counted from zero (K1 for the decode's gate, K4 a share, K5
+   and K7 a group of each encode, K6 for the decode); then
    K4 on their streams and K1-K3 on their data against the plain versions.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
@@ -135,6 +148,8 @@ launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles, K5's
 those of one launch over the first group of the 64 MiB level-6 encode,
+K7's those of one call's five launches over the same group (the sort's
+device ms apart, as "sort_ms", both from a profile of 10 calls),
 K6's those of one tile's launches on the 64 MiB stream's first tile (its
 row's cfg_s_tile: a 1 MiB member's first tile). A
 kernel's "launches" in the kernel line are those of the compress run,
@@ -143,8 +158,8 @@ phases 8, 9 and 10 together, each counted from zero just before its run.
 The launch floor ("launch_floor_ms", on the `kernel_calls` line and in K3's
 and K5's rows) is the same timing of a one-element zero_() on the card.
 
-After phase 10, the count of K6's plain version's calls on CUDA tensors
-over the whole run, which must be 0. Then the kernel table (one JSON
+After phase 10, the counts of K6's and K7's plain versions' calls on CUDA
+tensors over the whole run, which must be 0. Then the kernel table (one JSON
 line), the card's name and power limit, and last {"ok": true, "device":
 {...}}.
 """
@@ -280,7 +295,7 @@ TRACE_MARGIN_S = 0.005
 TRACE_MARKER = "spin_kernel"
 
 
-def device_trace(fn) -> dict:
+def device_trace(fn, match: str | None = None) -> dict:
     """fn() under torch.profiler's CUDA tracing: wall seconds, the device
     operations it ran (kernels, copies, fills), their summed seconds, the
     share of the wall time in which the card ran none, and the six
@@ -289,7 +304,9 @@ def device_trace(fn) -> dict:
     taken again, up to three times, and "tries" counts the profiles
     taken. The device numbers are null where the profiler saw no device
     work. The wall time leaves out the TRACE_MARGIN_S on either side, and
-    the counts leave out the TRACE_MARKER kernel that opens the profile."""
+    the counts leave out the TRACE_MARKER kernel that opens the profile.
+    With `match`, also the operations whose name holds it and their summed
+    seconds (matched_ops, matched_busy_s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -319,7 +336,12 @@ def device_trace(fn) -> dict:
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    matched = {} if match is None else {
+        "matched_ops": sum(1 for e in ops if match in e.name),
+        "matched_busy_s": sum(e.time_range.elapsed_us() for e in ops
+                              if match in e.name) / 1e6}
     return {"wall_s": wall, "tries": tries, "device_ops": len(ops),
+            **matched,
             "kernels": sum(1 for e in ops
                            if not e.name.startswith(("Memcpy", "Memset"))),
             "device_busy_s": busy,
@@ -431,6 +453,228 @@ def encode_groups(nbytes: int, level: int, shares: int = 1,
     gmax = td._group_size(td._level_params(level)[0], block_size)
     bounds = [nblocks * i // shares for i in range(shares + 1)]
     return sum(-(-(b1 - b0) // gmax) for b0, b1 in zip(bounds, bounds[1:]))
+
+
+def encode_launches(nbytes: int, level: int, shares: int = 1,
+                    block_size: int = 1 << 16) -> dict:
+    """K5's and K7's launches of one encode (encode_groups' groups): K5
+    once a group, K7 match_kernels.launches_per_group a group."""
+    from zippy_tpu_torch.ops import match_kernels as mk
+
+    groups = encode_groups(nbytes, level, shares, block_size)
+    return {"huffman_tables": groups,
+            "match_tokens": groups * mk.launches_per_group(level == -2)}
+
+
+def find_work(rows: int, n_block: int, width: int, k: int, min3: bool):
+    """(bytes, operations) K7 must move and do on a group of `rows` rows of
+    `width` bytes holding `n_block`-byte blocks: the rows read once; the
+    two bool and five int64 (G, N) outputs and the two int64 histograms
+    written once; and the 32-bit word compares the reference makes at every
+    position, whatever its data, one operation a word XOR and one a
+    find-first-set of a scored candidate: for k >= 4 k ranks of NRANK
+    words and three rescores of NWIN, else k scores of NWIN; the EXTW-word
+    extension; min3's one 3-byte compare."""
+    from zippy_tpu_torch.ops import match_kernels as mk
+
+    if k >= 4:
+        words, scored = k * mk.NRANK + 3 * mk.NWIN, k + 3
+    else:
+        words, scored = k * mk.NWIN, k
+    per = words + scored + mk.EXTW + 1 + min3
+    return (rows * width + rows * n_block * (2 + 5 * 8)
+            + rows * (286 + 30) * 8, rows * n_block * per)
+
+
+class MatchWatch:
+    """K7 (match_tokens): the inputs its wrapper gets inside `keeping`,
+    K7 against its plain version on kept inputs (`vs_plain`), and, for the
+    whole run, a count of the plain version's calls on CUDA tensors, which
+    no encode path may make."""
+
+    def __init__(self, mk):
+        self.mk = mk
+        self.plain = mk.find_tokens_plain
+        self.wrapper = mk.match_tokens
+        self.plain_cuda_calls = 0
+        mk.find_tokens_plain = self._counted_plain
+
+    def _counted_plain(self, data_pad, *args, **kwargs):
+        self.plain_cuda_calls += data_pad.is_cuda
+        return self.plain(data_pad, *args, **kwargs)
+
+    @contextlib.contextmanager
+    def keeping(self, kept: list):
+        """Appends (data_pad, n, hist_len, params) of every call, cloned."""
+        def keep(data_pad, n, hist_len, **params):
+            kept.append((data_pad.clone(), n.clone(), hist_len.clone(),
+                         params))
+            return self.wrapper(data_pad, n, hist_len, **params)
+
+        self.mk.match_tokens = keep
+        try:
+            yield kept
+        finally:
+            self.mk.match_tokens = self.wrapper
+
+    def vs_plain(self, inputs) -> dict:
+        """K7 against its plain version (uncounted) on each kept input,
+        every output element for element: groups, rows, K7's launches
+        against launches_per_group, differing elements and the largest
+        difference, and the tokens and matches of the plain version."""
+        from zippy_tpu_torch.ops import kernel_build as kb
+
+        line = {"groups": 0, "rows": 0, "launches": 0,
+                "launches_expected": 0, "differing_elements": 0,
+                "max_abs_err": 0, "tokens": 0, "matches": 0}
+        for data_pad, n, hist_len, params in inputs:
+            before = kb.LAUNCHES["match_tokens"]
+            got = self.wrapper(data_pad, n, hist_len, **params)
+            line["launches"] += kb.LAUNCHES["match_tokens"] - before
+            line["launches_expected"] += self.mk.launches_per_group(
+                params["lits_only"])
+            want = self.plain(data_pad, n, hist_len, **params)
+            for key, w in want.items():
+                g = got[key]
+                line["differing_elements"] += int((g != w).sum())
+                if w.numel():
+                    line["max_abs_err"] = max(line["max_abs_err"], int(
+                        (g.long() - w.long()).abs().max()))
+            line["groups"] += 1
+            line["rows"] += data_pad.shape[0]
+            line["tokens"] += int(want["is_tok"].sum())
+            line["matches"] += int(want["is_match"].sum())
+            del got, want
+        return line
+
+    @staticmethod
+    def good(line) -> bool:
+        return (line["groups"] > 0 and line["differing_elements"] == 0
+                and line["max_abs_err"] == 0
+                and line["launches"] == line["launches_expected"])
+
+
+MATCH_LEVELS = (1, 6, 9, -1, -2)
+
+
+def match_rows(seed: int, hist: int, n_block: int, rows: int) -> tuple:
+    """Seeded rows for K7, (data_pad (rows, hist + n_block + PAD) uint8, n,
+    hist_len (rows,) int64) numpy arrays, in turns of eight kinds: mixed
+    text, all zeros (one hash bucket), a short period (ties of the rank),
+    random bytes (no match), a 300-byte segment repeated (matches that
+    reach 64 bytes and extend to 258), 3-grams repeated at short distances
+    among random bytes (min3), the history's bytes repeated at distances
+    about 32768 (the window's edge), and text after an unreal history
+    whose bytes are not zeros (candidates there are not ok). The history
+    is real in full, in part or not at all; the last row is short, and
+    every row's bytes past n are real."""
+    from zippy_tpu_torch.ops import match_kernels as mk
+
+    rng = np.random.default_rng(seed)
+    width = hist + n_block + mk.PAD
+    text = np.frombuffer(mixed_text(width * rows, seed), np.uint8)
+    data = np.zeros((rows, width), np.uint8)
+    n = np.full(rows, n_block, np.int64)
+    hist_len = np.full(rows, hist, np.int64)
+    for i in range(rows):
+        row, kind = data[i], i % 8
+        if kind == 0:
+            row[:] = text[i * width:(i + 1) * width]
+        elif kind == 2:
+            row[:] = np.resize(rng.integers(0, 256, int(rng.integers(1, 4)),
+                                            dtype=np.uint8), width)
+        elif kind == 3:
+            row[:] = rng.integers(0, 256, width, dtype=np.uint8)
+        elif kind == 4:
+            seg = rng.integers(0, 256, 300, dtype=np.uint8)
+            row[:] = np.resize(np.concatenate(
+                [seg, rng.integers(0, 256, int(rng.integers(1, 60)),
+                                   dtype=np.uint8)]), width)
+        elif kind == 5:
+            row[:] = rng.integers(0, 256, width, dtype=np.uint8)
+            for p in range(0, width - 3, int(rng.integers(3, 9))):
+                if rng.random() < 0.6:
+                    row[p:p + 3] = (7, 8, 9)
+        elif kind == 6:
+            row[:] = rng.integers(0, 256, width, dtype=np.uint8)
+            for back in (32768, 32767, 32769):
+                at = int(rng.integers(hist, width - 600))
+                if at >= back:
+                    row[at:at + 600] = row[at - back:at - back + 600]
+        elif kind == 7:
+            row[:] = text[i * width:(i + 1) * width]
+            hist_len[i] = int(rng.integers(0, hist + 1))
+        if kind == 1:
+            hist_len[i] = 0
+        elif kind == 2:
+            hist_len[i] = hist // 2
+    n[-1] = int(rng.integers(1, n_block // 3))
+    return data, n, hist_len
+
+
+def match_vs_plain_rows(watch: MatchWatch, td, dev) -> dict:
+    """K7 against its plain version on match_rows at every level of
+    MATCH_LEVELS (-1 as level 6, -2 as lits_only), with a full history and
+    with none, 16 rows each."""
+    lines = {}
+    for hist in (td.HIST, 0):
+        data, n, hist_len = (torch.from_numpy(a).to(dev) for a in match_rows(
+            SEED + hist, hist, td.BLOCK, 16))
+        for level in MATCH_LEVELS:
+            k, lazy, min3 = td._level_params(1 if level == -2 else level)
+            params = {"k": k, "lazy": lazy, "hist": hist, "min3": min3,
+                      "lits_only": level == -2}
+            lines[f"L{level} hist {hist}"] = watch.vs_plain(
+                [(data, n, hist_len, params)])
+    return lines
+
+
+def match_edge_groups(group):
+    """(kind, group) for K7's edge cases at a kept group's shape: its rows
+    all zeros, and a random 3-byte period, n and hist_len unchanged."""
+    data_pad, n, hist_len, params = group
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    period = torch.randint(0, 256, (3,), dtype=torch.uint8, generator=gen)
+    width = data_pad.shape[1]
+    rows = period.repeat(-(-width // 3))[:width].expand_as(data_pad)
+    return [("zeros", (torch.zeros_like(data_pad), n, hist_len, params)),
+            ("period 3", (rows.to(data_pad.device).contiguous(), n, hist_len,
+                          params))]
+
+
+def match_split(watch: MatchWatch, inputs, reps: int) -> dict:
+    """K7 on one kept group: the device ms of its own launches and of the
+    library sort a call, from one profile of `reps` calls; the call's ms
+    from CUDA events (the host's issue counted); the plain version's ms;
+    the bound (find_work)."""
+    data_pad, n, hist_len, params = inputs
+    rows, width = data_pad.shape
+    n_block = width - params["hist"] - watch.mk.PAD
+
+    def call():
+        return watch.wrapper(data_pad, n, hist_len, **params)
+
+    trace = device_trace(lambda: [call() for _ in range(reps)],
+                         match="k7_")
+    bound_ms, bound_by = bound(find_work(rows, n_block, width, params["k"],
+                                         params["min3"]))
+    line = {"rows": rows, "k": params["k"], "min3": params["min3"],
+            "launches_per_group": watch.mk.launches_per_group(
+                params["lits_only"]),
+            "call_ms": call_ms(call, reps),
+            "plain_ms": call_ms(lambda: watch.plain(data_pad, n, hist_len,
+                                                    **params), 2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "trace_device_ops_per_call": None, "ms": None, "sort_ms": None}
+    if trace["device_busy_s"] is not None:
+        line["ms"] = trace["matched_busy_s"] / reps * 1e3
+        line["sort_ms"] = (trace["device_busy_s"]
+                           - trace["matched_busy_s"]) / reps * 1e3
+        line["trace_device_ops_per_call"] = trace["device_ops"] / reps
+        line["k7_ops_per_call"] = trace["matched_ops"] / reps
+        line["bound_share"] = bound_ms / (line["ms"] + line["sort_ms"])
+        line["top_device_ms"] = trace["top_device_ms"]
+    return line
 
 
 HUFFMAN_ROWS = 4096
@@ -939,7 +1183,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
         check(out == want, label)
     launches = dict(kb.LAUNCHES)
     check(all(launches[k] > 0 for k in DECODE_KERNELS)
-          and launches["huffman_tables"] == 0, launches)
+          and launches["huffman_tables"] == 0
+          and launches["match_tokens"] == 0, launches)
 
     # Outside the counted run: the scan alone, the decode given its index
     # (twice) and CPython's decompress, per stream.
@@ -1114,11 +1359,15 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         t0 = time.perf_counter()
         blob = gf.compress_device_indexed(data, 6, member_size=member_size)
         compress_s = time.perf_counter() - t0
-        # One K5 launch a group of each member's encode.
+        # One K5 launch a group of each member's encode, and K7's.
         compress_k5 = kb.LAUNCHES["huffman_tables"]
+        compress_k7 = kb.LAUNCHES["match_tokens"]
         total["huffman_tables"] += compress_k5
-        want_k5 = sum(encode_groups(min(member_size, len(data) - i), 6)
-                      for i in range(0, len(data), member_size))
+        total["match_tokens"] += compress_k7
+        want_k5, want_k7 = (sum(
+            encode_launches(min(member_size, len(data) - i), 6)[key]
+            for i in range(0, len(data), member_size))
+            for key in ("huffman_tables", "match_tokens"))
         spans = gf._zt_spans(blob)
         check(spans is not None, label + ": the ZT lengths do not chain")
         members = [(n, gf._member_zx(blob, pos) is not None)
@@ -1134,6 +1383,8 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
                 "compress_s": compress_s,
                 "compress_huffman_tables_launches": compress_k5,
                 "compress_huffman_tables_expected": want_k5,
+                "compress_match_tokens_launches": compress_k7,
+                "compress_match_tokens_expected": want_k7,
                 "single_member_compress_s": single_compress_s,
                 "cpython_decompress_s": time.perf_counter() - t0,
                 "scanned_uncompress_s": scanned_s,
@@ -1175,7 +1426,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         want = {"adler_chunks": busy, "crc_rows": busy, "crc_combine": busy,
                 "inflate_extract": sum(_k4_launches(idev, index)
                                        for index in given),
-                "huffman_tables": 0,
+                "huffman_tables": 0, "match_tokens": 0,
                 "lz_resolve": sum(_k6_launches(idev, watch.rk, index)
                                   for index in given)}
         line["launches"] = launches
@@ -1183,6 +1434,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         for key in total:
             total[key] += launches[key]
         check(launches == want and compress_k5 == want_k5
+              and compress_k7 == want_k7
               and all(launches[k] for k in DECODE_KERNELS), line)
 
         # K4 against its plain version on every batch of that decode, at
@@ -1450,7 +1702,8 @@ def parallel_phase(dev, data: bytes, gz6: bytes,
         emit(line)
         check(line["equal_single_device_body"], line)
         same_device("deflate_sharded")
-        want["huffman_tables"] += encode_groups(len(data), 6, len(devs))
+        for key, count in encode_launches(len(data), 6, len(devs)).items():
+            want[key] += count
     two = lists["cuda:0 x2"]
 
     # Containers on 8 MiB over two shares.
@@ -1464,7 +1717,9 @@ def parallel_phase(dev, data: bytes, gz6: bytes,
         line[f"{fmt}_L{level}_ratio"] = len(blob) / len(small)
         line[f"{fmt}_L{level}_cpython_equal"] = back(blob) == small
         same_device(fmt)
-        want["huffman_tables"] += encode_groups(len(small), level, len(two))
+        for key, count in encode_launches(len(small), level,
+                                          len(two)).items():
+            want[key] += count
     for key in ("crc_rows", "crc_combine", "adler_chunks"):
         want[key] += nshares(len(small), two)
     emit(line)
@@ -1660,6 +1915,7 @@ def archive_phase(dev, data: bytes,
     from zippy_tpu_torch.ops import inflate_device as idev
     from zippy_tpu_torch.ops import inflate_kernels as ik
     from zippy_tpu_torch.ops import kernel_build as kb
+    from zippy_tpu_torch.ops import match_kernels as mk
 
     root = SCRATCH / "archives"
     shutil.rmtree(root, ignore_errors=True)
@@ -1714,7 +1970,9 @@ def archive_phase(dev, data: bytes,
                                   "crc_combine": len(nonempty),
                                   "inflate_extract": 0,
                                   "huffman_tables": groups,
-                                  "lz_resolve": 0},
+                                  "lz_resolve": 0,
+                                  "match_tokens": groups
+                                  * mk.launches_per_group(False)},
             "zipfile_equal": zipfile_equal}
     emit(line)
     check(zipfile_equal and create_l == line["launches_expected"], line)
@@ -1805,7 +2063,8 @@ def archive_phase(dev, data: bytes,
                   ("adler_chunks", "crc_rows", "crc_combine"))
           and extract_l["inflate_extract"] > 0
           and extract_l["lz_resolve"] == k6_want
-          and extract_l["huffman_tables"] == 0, line)
+          and extract_l["huffman_tables"] == 0
+          and extract_l["match_tokens"] == 0, line)
 
     # The v1 ZipArchive and the v1 Tarball, from the tree on disk.
     src = root / "tree"
@@ -1918,6 +2177,7 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
     from zippy_tpu_torch.ops import inflate_device as idev
     from zippy_tpu_torch.ops import inflate_kernels as ik
     from zippy_tpu_torch.ops import kernel_build as kb
+    from zippy_tpu_torch.ops import match_kernels as mk
     from zippy_tpu_torch.parallel import default_devices
 
     torch.cuda.synchronize()
@@ -1946,15 +2206,19 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
             "zlib_decodes_block": zlib.decompress(bytes(out.out), -15)
             == block, "launches": step_launches}
     emit(line)
-    # The fixed-code step builds no Huffman tables.
+    # The fixed-code step builds no Huffman tables and finds its tokens
+    # with K7, once.
     check(all(line["equal_cpu"]) and line["zlib_decodes_block"]
-          and step_launches["huffman_tables"] == 0, line)
+          and step_launches["huffman_tables"] == 0
+          and step_launches["match_tokens"] == mk.launches_per_group(False),
+          line)
 
     runs = [("cuda:0 x2", 2, ["cuda:0"] * 2)]
     if torch.cuda.device_count() >= 2:
         n = len(default_devices())
         runs.append(("default_devices()", n, None))
-    streams, want_k5 = [], 0
+    # The step's K7 launches count here too.
+    streams, want_k5, want_k7 = [], 0, mk.launches_per_group(False)
     for label, n, devices in runs:
         t0 = time.perf_counter()
         data, blob = ze.dryrun_multichip(n, devices)
@@ -1964,17 +2228,21 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
         streams.append((label, data, blob))
         # Its encode over the n devices and over the first one, 2 KiB
         # blocks.
-        want_k5 += sum(encode_groups(len(data), 6, shares, 2048)
-                       for shares in (n, 1))
+        for shares in (n, 1):
+            counts = encode_launches(len(data), 6, shares, 2048)
+            want_k5 += counts["huffman_tables"]
+            want_k7 += counts["match_tokens"]
     torch.cuda.synchronize()
     launches = dict(kb.LAUNCHES)
     emit({"phase": "driver_hooks", "run": "launches", **launches,
-          "huffman_tables_expected": want_k5})
+          "huffman_tables_expected": want_k5,
+          "match_tokens_expected": want_k7})
     # The decode's adler32 gate (K1), its extraction (K4, a share) and
     # its resolution (K6).
     check(launches["adler_chunks"] > 0 and launches["inflate_extract"] > 0
           and launches["lz_resolve"] > 0
-          and launches["huffman_tables"] == want_k5, launches)
+          and launches["huffman_tables"] == want_k5
+          and launches["match_tokens"] == want_k7, launches)
 
     k4_lines, k4_err, k13_err = [], 0, 0
     for label, data, blob in streams:
@@ -2004,14 +2272,16 @@ def main() -> int:
     from zippy_tpu_torch.ops import deflate_device as td
     from zippy_tpu_torch.ops import huffman_kernels as hk
     from zippy_tpu_torch.ops import kernel_build as kb
+    from zippy_tpu_torch.ops import match_kernels as mk
     from zippy_tpu_torch.ops import resolve_kernels as rk
 
     dev = torch.device("cuda")
     watch = ResolveWatch(rk)
-    kind = torch.cuda.get_device_name(0)
+    k7_watch = MatchWatch(mk)
     card = card_line()
     # Phase 1: the card.
-    emit({"phase": "card", "nvidia_smi": card, "torch_name": kind,
+    emit({"phase": "card", "nvidia_smi": card,
+          "torch_name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
@@ -2111,9 +2381,10 @@ def main() -> int:
     data = mixed_text(MAIN_BYTES, SEED)
     small = data[:ZLIB_BYTES]
     x_dev = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
-    # K5's inputs are kept as the encodes from host bytes hand them to its
-    # wrapper (the cuda tensor's groups are the same), for phase 4's check.
-    wrapper, k5_inputs = hk.huffman_tables, {}
+    # K5's and K7's inputs are kept as the encodes from host bytes hand
+    # them to their wrappers (the cuda tensor's groups are the same), for
+    # phase 4's checks.
+    wrapper, k5_inputs, k7_inputs = hk.huffman_tables, {}, {}
 
     def keeping(label):
         def tables(ll, d, n):
@@ -2132,11 +2403,14 @@ def main() -> int:
             ("zlib L1 host bytes", small, 1, common.dfZlib, small),
             ("zlib L9 host bytes", small, 9, common.dfZlib, small)):
         torch.cuda.reset_peak_memory_stats()
+        keep_k7 = contextlib.nullcontext()
         if isinstance(src, bytes):
             hk.huffman_tables = keeping(label)
+            keep_k7 = k7_watch.keeping(k7_inputs.setdefault(label, []))
         t0 = time.perf_counter()
         try:
-            blob = api.compress(src, level, fmt)
+            with keep_k7:
+                blob = api.compress(src, level, fmt)
         finally:
             hk.huffman_tables = wrapper
         sec = time.perf_counter() - t0
@@ -2152,19 +2426,67 @@ def main() -> int:
         check(back == want, label)
         blobs[label] = blob
     compress_kernels = ("adler_chunks", "crc_rows", "crc_combine",
-                        "huffman_tables")
+                        "huffman_tables", "match_tokens")
     launches = {key: kb.LAUNCHES[key] for key in compress_kernels}
-    # K5 once a group: 64 MiB at L6 twice, 8 MiB at L1 and at L9.
-    want_k5 = (2 * encode_groups(MAIN_BYTES, 6) + encode_groups(ZLIB_BYTES, 1)
-               + encode_groups(ZLIB_BYTES, 9))
+    # K5 once a group and K7 launches_per_group times a group: 64 MiB at L6
+    # twice, 8 MiB at L1 and at L9.
+    want = {key: sum(encode_launches(nbytes, level)[key]
+                     for nbytes, level in ((MAIN_BYTES, 6), (MAIN_BYTES, 6),
+                                           (ZLIB_BYTES, 1), (ZLIB_BYTES, 9)))
+            for key in ("huffman_tables", "match_tokens")}
+    want_k5 = want["huffman_tables"]
     emit({"phase": "main_path_launches", **launches,
           "huffman_tables_expected": want_k5,
+          "match_tokens_expected": want["match_tokens"],
           "huffman_tables_groups_kept": {k: len(v)
-                                         for k, v in k5_inputs.items()}})
+                                         for k, v in k5_inputs.items()},
+          "match_tokens_groups_kept": {k: len(v)
+                                       for k, v in k7_inputs.items()}})
     check(all(v > 0 for v in launches.values())
           and launches["huffman_tables"] == want_k5
+          and launches["match_tokens"] == want["match_tokens"]
           and sum(map(len, k5_inputs.values())) == want_k5
+          - encode_groups(MAIN_BYTES, 6)
+          and sum(map(len, k7_inputs.values())) == want_k5
           - encode_groups(MAIN_BYTES, 6), launches)
+
+    # K7 against its plain version on every group of those encodes and on
+    # seeded rows at every level of MATCH_LEVELS; one group issued with no
+    # host sync allowed; K7 on the first full group of the level-6 and the
+    # level-1 encodes, its own launches and the sort apart.
+    k7_lines = {label: k7_watch.vs_plain(inputs)
+                for label, inputs in k7_inputs.items()}
+    k7_lines.update(match_vs_plain_rows(k7_watch, td, dev))
+    emit({"phase": "match_tokens_vs_plain", "runs": k7_lines})
+    check(all(MatchWatch.good(line) for line in k7_lines.values()), k7_lines)
+    k7_group = k7_inputs["gzip L6 host bytes"][0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = td._encode_group(*k7_group[:3], **k7_group[3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    emit({"phase": "match_tokens_no_sync", "rows": k7_group[0].shape[0],
+          "issued": sorted(res)})
+    del res, k7_group
+    k7_groups = {f"L{level}": match_split(k7_watch, k7_inputs[label][0], 10)
+                 for level, label in ((6, "gzip L6 host bytes"),
+                                      (1, "zlib L1 host bytes"))}
+    # The same L6 group's shape filled with zeros (every position a 258-byte
+    # match, one hash bucket) and with a 3-byte period: K7 against its
+    # plain version and timed, the cover's scans of fixed length whatever
+    # the data.
+    for edge, edge_group in match_edge_groups(
+            k7_inputs["gzip L6 host bytes"][0]):
+        line = k7_watch.vs_plain([edge_group])
+        check(MatchWatch.good(line), {edge: line})
+        k7_groups[f"L6 {edge}"] = {**match_split(k7_watch, edge_group, 10),
+                                   "vs_plain": line}
+    del edge_group
+    emit({"phase": "match_tokens_groups", **k7_groups})
+    check(k7_groups["L6"]["rows"] == td._group_size(12, td.BLOCK)
+          and k7_groups["L1"]["rows"] == td._group_size(2, td.BLOCK),
+          k7_groups)
 
     # K5 against its plain version on every group of those encodes and on
     # HUFFMAN_ROWS seeded rows, HUFFMAN_REPEATS times; then one K5 launch
@@ -2254,9 +2576,25 @@ def main() -> int:
     k5["launch_floor_multiple"] = k5["ms"] / floor_ms
     calls["huffman_tables_call_ms"] = call_ms(
         lambda: hk.huffman_tables(*group), 100)
+    # K7 at the first full group of the 64 MiB level-6 encode: its own
+    # launches' device ms, the library sort's apart.
+    g6 = k7_groups["L6"]
+    k7 = {"name": "match_tokens", "route": "cuda",
+          "source": "zippy_tpu_torch/csrc/match.cu",
+          "replaces": "zippy_tpu/ops/deflate_device.py:94",
+          "launches": launches["match_tokens"],
+          "max_abs_err": max(line["max_abs_err"]
+                             for line in k7_lines.values()),
+          "ms": g6["ms"], "sort_ms": g6["sort_ms"],
+          "plain_ms": g6["plain_ms"], "bound_ms": g6["bound_ms"],
+          "bound_by": g6["bound_by"], "bound_share": g6.get("bound_share"),
+          "library_ms": None, "launches_per_group": g6["launches_per_group"],
+          "call_ms": g6["call_ms"]}
+    calls["match_tokens_call_ms"] = g6["call_ms"]
     emit({"phase": "kernel_calls", **calls})
-    check(all(k["max_abs_err"] == 0 for k in kernels + [k5]), kernels)
-    del x_dev, chunks, rows, row_crcs, k5_inputs, group
+    check(all(k["max_abs_err"] == 0 for k in kernels + [k5, k7])
+          and k7["ms"] is not None, kernels)
+    del x_dev, chunks, rows, row_crcs, k5_inputs, group, k7_inputs
     torch.cuda.empty_cache()
 
     # Phase 5: the decode path.
@@ -2272,7 +2610,7 @@ def main() -> int:
         """A phase's counted launches into every kernel's row, and its
         largest differences from the plain versions (by kernel name) into
         the rows of the kernels it checked."""
-        for row in kernels + [k5]:
+        for row in kernels + [k5, k7]:
             row["launches"] += launches[row["name"]]
             if row["name"] in errs:
                 row["max_abs_err"] = max(row["max_abs_err"],
@@ -2321,14 +2659,20 @@ def main() -> int:
     hook_launches, k13_err, k4_err = driver_hooks_phase(dev)
     add_phase(hook_launches, kernel_errs(k13_err, k4_err, None))
 
-    # No decode path ran K6's plain version on the card.
+    # No decode path ran K6's plain version on the card, and no encode path
+    # K7's.
     emit({"phase": "lz_resolve_plain", "cuda_calls": watch.plain_cuda_calls})
     check(watch.plain_cuda_calls == 0, "K6's plain version ran on the card")
+    emit({"phase": "match_tokens_plain",
+          "cuda_calls": k7_watch.plain_cuda_calls})
+    check(k7_watch.plain_cuda_calls == 0,
+          "K7's plain version ran on the card")
 
-    emit({"kernels": kernels + [k5]})
+    emit({"kernels": kernels + [k5, k7]})
     print(card, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
     return 0
 
 

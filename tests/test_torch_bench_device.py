@@ -62,7 +62,9 @@ def test_artifact_layout_has_every_row():
     art = bench.artifact("NVIDIA H100 80GB HBM3, 700.00 W", "NVIDIA H100",
                          rows)
     assert set(art) == {"card", "torch", "cuda", "date", "seed", "method",
-                        "rows"}
+                        "groups", "root", "rows"}
+    assert art["groups"] == list(bench.DEFAULT_GROUPS)
+    assert art["root"] is None
     assert art["card"]["name"] == "NVIDIA H100 80GB HBM3"
     assert art["card"]["power_limit"] == "700.00 W"
     assert art["seed"] == bench.SEED      # the smoke's payload seed
@@ -77,6 +79,35 @@ def test_parse_args_defaults():
     assert args.out == pathlib.Path("chiprun_out/bench_torch_device.json")
     assert bench.parse_args(["--out", "x.json"]).out == pathlib.Path(
         "x.json")
+    assert args.groups == bench.DEFAULT_GROUPS
+    assert args.root == REPO
+
+
+def test_groups_select_rows():
+    # The compress group (the encoder's stages, timed in turns with a
+    # parent tree) runs only when asked for; every row lies in one group.
+    assert "compress" not in bench.DEFAULT_GROUPS
+    compress = bench.row_names(("compress",))
+    assert compress == ["stream_digests", "find_group_L6", "find_group_L1",
+                        "compress_64mib_l6_tensor",
+                        "compress_peak_memory_64mib_l6",
+                        "compress_peak_memory_8mib_l9", "create_zip_archive"]
+    every = bench.row_names(bench.GROUPS)
+    assert every == bench.row_names() + compress
+    assert sum(len(bench.row_names((g,))) for g in bench.GROUPS) == len(every)
+    assert bench.row_names(("encode",)) == [
+        "device_encode_group_L1", "device_encode_stage_find_L1",
+        "device_encode_group_L6", "device_encode_stage_find_L6"]
+    args = bench.parse_args(["--groups", "encode,compress", "--root", "x"])
+    assert args.groups == ("encode", "compress")
+    assert args.root == pathlib.Path("x")
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--groups", "encode,bogus"])
+    rows = [bench.row(n, "s", [1.0]) for n in compress]
+    art = bench.artifact("card, 1 W", "card", rows, ("compress",), "x")
+    assert art["groups"] == ["compress"] and art["root"] == "x"
+    with pytest.raises(ValueError):
+        bench.artifact("card, 1 W", "card", rows)
 
 
 def test_main_without_cuda_writes_nothing(tmp_path, capsys):

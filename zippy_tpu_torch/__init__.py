@@ -64,7 +64,8 @@ def warmup(max_bytes: int = 16 << 20, levels=(1, -1), decode: bool = True,
     import numpy as np
 
     from .common import resolve_devices
-    from .ops import checksum_kernels, deflate_device, inflate_device
+    from .ops import (checksum_kernels, deflate_device, device_tables,
+                      inflate_device)
     from .ops import kernel_build
     from .parallel import default_devices
 
@@ -82,8 +83,8 @@ def warmup(max_bytes: int = 16 << 20, levels=(1, -1), decode: bool = True,
     n = 0
     for dev in devices:
         checksum_kernels._tables_on(dev)
-        for name in deflate_device._CONSTS:
-            deflate_device._const(name, dev)
+        for name in device_tables.CONSTS:
+            device_tables.const(name, dev)
         inflate_device._entries(dev)
         if encode:
             for level in levels:

@@ -1,4 +1,4 @@
-// DeviceScope, shared by the entry points of checksums.cu and inflate.cu.
+// DeviceScope, shared by the entry points of every csrc/*.cu library.
 
 #pragma once
 

@@ -5,8 +5,12 @@ reference's vmap, written out as a leading group dimension G):
 
 1. `find_tokens` — sort-based match candidates: positions sorted by
    (hash4, pos), the k bucket predecessors are the k most recent previous
-   occurrences; match lengths from word-window XOR compares; one-step lazy
-   demotion; the token cover by pointer doubling; symbol histograms.
+   occurrences; match lengths; one-step lazy demotion; the token cover;
+   symbol histograms. On a CUDA tensor it is the Hopper kernel K7
+   (ops/match_kernels.py, csrc/match.cu) around one torch.sort of the
+   keys; `match_kernels.find_tokens_plain`, torch ops with word-window XOR
+   compares and a pointer-doubling cover, is its plain version and the CPU
+   path.
 2. `huffman_tables` (ops/huffman_kernels.py) — length-limited Huffman code
    lengths (`_kraft_lengths`), the exact dynamic-header cost
    (`_header_stats_device`), the stored/fixed/dynamic choice and the
@@ -17,8 +21,8 @@ reference's vmap, written out as a leading group dimension G):
    scatter-add of the shifted code words.
 4. The host splice (`_assemble_block`) of headers and payload bits.
 
-Stages 1 and 3 are torch ops on the tensor's device; their Hopper kernels
-are queued with the decode's (ROADMAP.md, B2-B5). The output bytes are
+Stage 3 is torch ops on the tensor's device; its Hopper kernel is queued
+(ROADMAP.md, B4). The output bytes are
 those of the reference bit for bit, given the same ideal depths
 (`_ideal_depth`). Torch has no uint32 arithmetic on the CPU, so 32-bit
 words travel as int64 masked to 32 bits, or as int32 bit patterns where
@@ -27,7 +31,6 @@ only XOR and bit tests touch them.
 
 from __future__ import annotations
 
-import functools
 import itertools
 import time
 
@@ -36,80 +39,14 @@ import torch
 
 from .. import tables
 from ..common import ZippyError, check_level, resolve_devices
-from . import huffman_kernels
+from . import huffman_kernels, match_kernels
+from .device_tables import const
+# The matcher's constants and word helpers live with K7.
+from .match_kernels import EXTW, NRANK, NWIN, PAD, _M32, _to_i32
 
 BLOCK = 1 << 16                 # device block size
 HIST = 32768                    # cross-block history window (read-only prefix)
-L_CMP = 64                      # match length scored during candidate ranking
-L_EXT = 194                     # second-phase extension (to the 258 cap)
-PAD = 264                       # input padding past the block (>= L_CMP+L_EXT)
-HASH_BITS = 15
-
-NWIN = L_CMP // 4 + 1           # 64-byte cap + slack word
-NRANK = 8                       # words ranked per candidate when k >= 4
-EXTW = L_EXT // 4 + 2           # 194 bytes + slack
-
-_M32 = 0xFFFFFFFF
-_HASH_MUL = 0x9E3779B1
 _FKEY_MAX = (1 << 20) - 1
-
-_CL_EXTRA = np.zeros(19, np.int32)
-_CL_EXTRA[16:19] = (2, 3, 7)
-
-_CONSTS = {
-    "len_idx": tables.LENGTH_TO_CODE_INDEX,
-    "dist_lut": tables.DISTANCE_CODE_LUT,
-    "base_len": tables.BASE_LENGTHS,
-    "len_extra": tables.LENGTH_EXTRA_BITS,
-    "base_dist": tables.BASE_DISTANCES,
-    "dist_extra": tables.DISTANCE_EXTRA_BITS,
-    "fixed_ll": tables.FIXED_LITLEN_LENGTHS[:286],
-    "fixed_d": tables.FIXED_DISTANCE_LENGTHS,
-    "fixed_ll_codes": tables.FIXED_LITLEN_CODES[:286],
-    "fixed_d_codes": tables.FIXED_DISTANCE_CODES,
-    "clcl_order": tables.CLCL_ORDER,
-    "cl_extra": _CL_EXTRA,
-}
-
-
-@functools.cache
-def _const(name: str, device: torch.device) -> torch.Tensor:
-    """A constant table as an int64 tensor on `device`."""
-    return torch.from_numpy(_CONSTS[name].astype(np.int64)).to(device)
-
-
-def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
-    """(v * c) mod 2^32 for int64 v in [0, 2^32), without int64 overflow:
-    the constant is split in 16-bit halves."""
-    return (v * (c & 0xFFFF) + (((v * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding 32-bit values -> int32 with the same bit pattern."""
-    return (x - ((x >> 31) << 32)).to(torch.int32)
-
-
-def _windows(flat: torch.Tensor, nwords: int) -> torch.Tensor:
-    """View V[p, t] = flat[p + 4t], t < nwords (no copy)."""
-    return flat.unfold(0, 4 * (nwords - 1) + 1, 1)[:, ::4]
-
-
-def _first_diff(xi: torch.Tensor, xj: torch.Tensor, nwords: int,
-                cap: int) -> torch.Tensor:
-    """Byte index of the first mismatch between two int32 word windows
-    (exactly the byte loop's answer), capped at `cap`. Count-trailing-zeros
-    of the first differing word comes from bit tests on its lowest set bit:
-    torch has no popcount, and a float log2 would round."""
-    x = xi ^ xj
-    nz = x != 0
-    anyx = nz.any(dim=-1)
-    fw = torch.argmax(nz.to(torch.uint8), dim=-1)       # first differing word
-    xw = x.gather(-1, fw.unsqueeze(-1)).squeeze(-1)
-    low = xw & -xw
-    inner = (((low & -(1 << 8)) != 0).long() + ((low & -(1 << 16)) != 0).long()
-             + ((low & -(1 << 24)) != 0).long())
-    return torch.where(anyx, 4 * fw + inner, 4 * nwords).clamp(max=cap)
-
 
 # ---------------------------------------------------------------------------
 # Phase 1: match finding + token selection + symbol histograms
@@ -124,202 +61,20 @@ def find_tokens(data_pad: torch.Tensor, n, hist_len=0, *, k: int = 4,
     data_pad: (G, hist + N + PAD) uint8 — per row an optional read-only
     `hist`-byte prefix (the raw bytes before the block), then the block,
     zero padded past `n`. `n` and `hist_len` (how many prefix bytes are
-    real) are per row. Returns a dict of (G, N) tensors: is_tok, is_match,
-    length, dist, sym, len_idx, dist_idx; and the (G, 286) litlen and
-    (G, 30) dist histograms."""
-    G, D = data_pad.shape
-    N = D - PAD - hist
-    NA = hist + N                   # all hashable positions (sources)
-    if NA > (1 << 17):              # pos fits 17 bits of the sort key
-        raise ZippyError(f"hist + block of {NA} bytes exceeds 2^17")
-    dev = data_pad.device
-    i64 = torch.int64
-    n = torch.as_tensor(n, dtype=i64, device=dev).reshape(-1, 1).expand(G, 1)
-    hist_len = torch.as_tensor(hist_len, dtype=i64,
-                               device=dev).reshape(-1, 1).expand(G, 1)
-    i_rel = torch.arange(N, dtype=i64, device=dev)
-    lit_sym = data_pad[:, hist:hist + N].long()
-    if lits_only:
-        # HuffmanOnly (level -2): every byte a literal token.
-        is_tok = i_rel < n
-        zeros = torch.zeros(G, N, dtype=i64, device=dev)
-        ll_hist = torch.zeros(G, 286, dtype=i64, device=dev).scatter_add_(
-            1, lit_sym, is_tok.long())
-        ll_hist[:, 256] += 1
-        return {
-            "is_tok": is_tok,
-            "is_match": torch.zeros(G, N, dtype=torch.bool, device=dev),
-            "length": zeros,
-            "dist": zeros + 1,
-            "sym": lit_sym,
-            "len_idx": zeros,
-            "dist_idx": zeros,
-            "ll_hist": ll_hist,
-            "dist_hist": torch.zeros(G, 30, dtype=i64, device=dev),
-        }
+    real) are per row (or one for every row). Returns a dict of (G, N)
+    tensors: is_tok, is_match, length, dist, sym, len_idx, dist_idx; and
+    the (G, 286) litlen and (G, 30) dist histograms. On a CUDA tensor the
+    kernel K7 (match_kernels.match_tokens) computes them; on a CPU tensor
+    its plain version, match_kernels.find_tokens_plain."""
+    G, dev = data_pad.shape[0], data_pad.device
 
-    b = data_pad.long()
-    v = (b[:, :NA] | (b[:, 1:NA + 1] << 8) | (b[:, 2:NA + 2] << 16)
-         | (b[:, 3:NA + 3] << 24))
-    h = _mul32(v, _HASH_MUL) >> (32 - HASH_BITS)
-    pos = torch.arange(NA, dtype=i64, device=dev)
+    def rows(x):
+        return torch.as_tensor(x, dtype=torch.int64, device=dev).reshape(
+            -1).expand(G).contiguous()
 
-    # Sort positions by (hash, pos): bucket predecessors = recent occurrences.
-    order = torch.argsort((h << 17) | pos, dim=1)
-    h_sorted = h.gather(1, order)
-    cands = []
-    for back in range(1, k + 1):
-        prev_pos = torch.roll(order, back, dims=1)
-        same_bucket = torch.roll(h_sorted, back, dims=1) == h_sorted
-        valid = (pos >= back) & same_bucket
-        cands.append(torch.where(valid, prev_pos, -1))
-    cands_sorted = torch.stack(cands, dim=2)                   # (G, NA, k)
-    cands_pos = torch.zeros_like(cands_sorted).scatter_(
-        1, order.unsqueeze(2).expand(G, NA, k), cands_sorted)[:, hist:]
-
-    i_abs = i_rel + hist            # data_pad index (reads)
-
-    # Word windows: W[p] = LE word at byte p, as int32 bit patterns. The
-    # i-side windows are strided views; the candidate side gathers rows of
-    # a strided view of the flattened group, offset by each row's base.
-    DW = D - 3
-    W = _to_i32(b[:, :DW] | (b[:, 1:DW + 1] << 8) | (b[:, 2:DW + 2] << 16)
-                | (b[:, 3:DW + 3] << 24))
-    Wf = W.reshape(-1)
-    base = (torch.arange(G, dtype=i64, device=dev) * DW).view(G, 1, 1)
-    wiw = W[:, hist:].unfold(1, 4 * (NWIN - 1) + 1, 1)[:, :N, ::4]
-
-    def gather_windows(start, nwords):
-        # Explicit clamp: every start lies in its own row (largest window
-        # end is hist + N + 259 of DW = hist + N + 261 words).
-        start = start.clamp(0, DW - 4 * (nwords - 1) - 1)
-        return _windows(Wf, nwords)[base.view((G,) + (1,) * (start.dim() - 1))
-                                    + start]
-
-    cj = cands_pos.clamp(min=0)
-    dist = i_abs.view(1, N, 1) - cands_pos                     # (G, N, k)
-    # Candidates inside the unreal part of the prefix (< hist - hist_len)
-    # would match padding zeros; exclude them along with -1 sentinels.
-    ok = ((cands_pos >= hist - hist_len.view(G, 1, 1)) & (cands_pos >= 0)
-          & (dist <= tables.MAX_WINDOW_SIZE))
-    nrem = (n - i_rel).clamp(min=0)                            # (G, N)
-
-    if k >= 4:
-        # Rank all k on 32 bytes, rescore the top three at the 64-byte cap.
-        ar = torch.arange(k, dtype=i64, device=dev)
-        mlen_r = _first_diff(wiw[:, :, None, :NRANK],
-                             gather_windows(cj, NRANK), NRANK, 4 * NRANK)
-        mlen_r = torch.where(ok, mlen_r, 0)
-        score_r = (mlen_r << 17) + cands_pos
-        b1 = score_r.argmax(dim=2)
-        score_r2 = torch.where(b1.unsqueeze(2) == ar, -1, score_r)
-        b2 = score_r2.argmax(dim=2)
-        score_r3 = torch.where(b2.unsqueeze(2) == ar, -1, score_r2)
-        b3 = score_r3.argmax(dim=2)
-        pick = torch.stack([b1, b2, b3], dim=2)                # (G, N, 3)
-        cand2 = cands_pos.gather(2, pick)
-        ok2 = ok.gather(2, pick)
-        mlen2 = _first_diff(wiw[:, :, None, :],
-                            gather_windows(cand2.clamp(min=0), NWIN),
-                            NWIN, L_CMP)
-        mlen2 = torch.where(ok2, mlen2, 0)
-        mlen2 = torch.minimum(mlen2, nrem.unsqueeze(2))
-        score2 = (mlen2 << 17) + cand2
-        bb = score2.argmax(dim=2, keepdim=True)
-        l_best = mlen2.gather(2, bb).squeeze(2)
-        d_best = i_abs - cand2.gather(2, bb).squeeze(2)
-    else:
-        mlen = _first_diff(wiw[:, :, None, :], gather_windows(cj, NWIN),
-                           NWIN, L_CMP)                        # (G, N, k)
-        mlen = torch.where(ok, mlen, 0)
-        # Don't run past the real end of the block.
-        mlen = torch.minimum(mlen, nrem.unsqueeze(2))
-        # Best candidate: longest match, then nearest (larger j).
-        score = (mlen << 17) + cands_pos
-        best = score.argmax(dim=2, keepdim=True)
-        l_best = mlen.gather(2, best).squeeze(2)
-        d_best = dist.gather(2, best).squeeze(2)
-
-    # Second phase: matches that hit the L_CMP cap extend toward 258.
-    j_best = i_abs - d_best
-    we_i = W[:, hist + L_CMP:].unfold(1, 4 * (EXTW - 1) + 1, 1)[:, :N, ::4]
-    we_j = gather_windows(j_best.clamp(min=0) + L_CMP, EXTW)
-    ext = _first_diff(we_i, we_j, EXTW, L_EXT)
-    l_best = torch.where(l_best == L_CMP, l_best + ext, l_best)
-    l_best = torch.minimum(l_best, nrem.clamp(max=tables.MAX_MATCH_LEN))
-
-    is_m = l_best >= 4
-    if min3:
-        # Length-3 matches at short distance (zlib's TOO_FAR = 4096 rule):
-        # one recency candidate from a 3-gram sort.
-        h3 = _mul32(v & 0xFFFFFF, _HASH_MUL) >> (32 - HASH_BITS)
-        order3 = torch.argsort((h3 << 17) | pos, dim=1)
-        h3s = h3.gather(1, order3)
-        prev3 = torch.roll(order3, 1, dims=1)
-        same3 = (torch.roll(h3s, 1, dims=1) == h3s) & (pos >= 1)
-        c3 = torch.zeros_like(order3).scatter_(
-            1, order3, torch.where(same3, prev3, -1))[:, hist:]
-        cj3 = c3.clamp(min=0)
-        d3 = i_abs - c3
-        eq3 = ((data_pad[:, hist:hist + N] == data_pad.gather(1, cj3))
-               & (data_pad[:, hist + 1:hist + N + 1]
-                  == data_pad.gather(1, cj3 + 1))
-               & (data_pad[:, hist + 2:hist + N + 2]
-                  == data_pad.gather(1, cj3 + 2)))
-        ok3 = (eq3 & (c3 >= hist - hist_len) & (c3 >= 0) & (d3 <= 4096)
-               & ((n - i_rel) >= 3))
-        # If position i+2 starts a real (>= 4) match, three literals and
-        # that match beat the 3-match: demote those up front.
-        l_at_2 = torch.roll(l_best, -2, dims=1)
-        l_at_2[:, -2:] = 0
-        take3 = ok3 & ~is_m & ~(l_at_2 >= 4)
-        l_best = torch.where(take3, 3, l_best)
-        d_best = torch.where(take3, d3, d_best)
-        is_m = is_m | take3
-    if lazy:
-        nxt_l = torch.roll(l_best, -1, dims=1)
-        nxt_l[:, -1] = 0
-        is_m = is_m & ~(nxt_l > l_best)
-
-    # Pointer-doubling reachability from position 0.
-    step = torch.where(is_m, l_best, 1)
-    nxt = (i_rel + step).clamp(max=N)
-    nxt = torch.where(i_rel >= n, N, nxt)
-    J = torch.cat([nxt, torch.full((G, 1), N, dtype=i64, device=dev)], dim=1)
-    reach = torch.zeros(G, N + 1, dtype=torch.bool, device=dev)
-    reach[:, 0] = True
-    for _ in range(int(np.ceil(np.log2(N))) + 1):
-        reach = reach.scatter(1, torch.where(reach, J, N), True)
-        J = J.gather(1, J)
-
-    is_tok = reach[:, :N] & (i_rel < n)
-    is_match = is_tok & is_m
-    length = torch.where(is_match, l_best, 0)
-    dist_b = torch.where(is_match, d_best, 1)
-
-    # Symbols + histograms.
-    len_idx = _const("len_idx", dev)[(length - 3).clamp(0, 255)]
-    d1 = dist_b - 1
-    lut = _const("dist_lut", dev)
-    dist_idx = torch.where(dist_b <= 256, lut[d1.clamp(0, 255)],
-                           lut[(256 + (d1 >> 7)).clamp(0, 511)])
-    sym = torch.where(is_match, 257 + len_idx, lit_sym)
-    ll_hist = torch.zeros(G, 286, dtype=i64, device=dev).scatter_add_(
-        1, sym, is_tok.long())
-    ll_hist[:, 256] += 1            # end-of-block symbol
-    dist_hist = torch.zeros(G, 30, dtype=i64, device=dev).scatter_add_(
-        1, dist_idx, is_match.long())
-    return {
-        "is_tok": is_tok,
-        "is_match": is_match,
-        "length": length,
-        "dist": dist_b,
-        "sym": sym,
-        "len_idx": len_idx,
-        "dist_idx": dist_idx,
-        "ll_hist": ll_hist,
-        "dist_hist": dist_hist,
-    }
+    return match_kernels.match_tokens(
+        data_pad.contiguous(), rows(n), rows(hist_len), k=k, lazy=lazy,
+        hist=hist, min3=min3, lits_only=lits_only)
 
 
 # ---------------------------------------------------------------------------
@@ -341,15 +96,15 @@ def pack_tokens(tok: dict, ll_lens: torch.Tensor, ll_codes: torch.Tensor,
     # Four components per token (a literal uses only c0).
     c_bits = [
         torch.where(is_tok, ll_lens.gather(1, sym), 0),
-        torch.where(m, _const("len_extra", dev)[len_idx], 0),
+        torch.where(m, const("len_extra", dev)[len_idx], 0),
         torch.where(m, dist_lens.gather(1, dist_idx), 0),
-        torch.where(m, _const("dist_extra", dev)[dist_idx], 0),
+        torch.where(m, const("dist_extra", dev)[dist_idx], 0),
     ]
     c_vals = [
         torch.where(is_tok, ll_codes.gather(1, sym), 0),
-        torch.where(m, tok["length"] - _const("base_len", dev)[len_idx], 0),
+        torch.where(m, tok["length"] - const("base_len", dev)[len_idx], 0),
         torch.where(m, dist_codes.gather(1, dist_idx), 0),
-        torch.where(m, tok["dist"] - _const("base_dist", dev)[dist_idx], 0),
+        torch.where(m, tok["dist"] - const("base_dist", dev)[dist_idx], 0),
     ]
     nbits = c_bits[0] + c_bits[1] + c_bits[2] + c_bits[3]
     off0 = torch.cumsum(nbits, dim=1) - nbits
@@ -394,8 +149,8 @@ def compress_block_fixed(data_pad: torch.Tensor, n, *, k: int = 4,
     dev = data_pad.device
     tok = find_tokens(data_pad[None], n, k=k, lazy=lazy)
     words, total_bits = pack_tokens(
-        tok, _const("fixed_ll", dev)[None], _const("fixed_ll_codes", dev)[None],
-        _const("fixed_d", dev)[None], _const("fixed_d_codes", dev)[None])
+        tok, const("fixed_ll", dev)[None], const("fixed_ll_codes", dev)[None],
+        const("fixed_d", dev)[None], const("fixed_d_codes", dev)[None])
     return words[0], total_bits[0], tok["ll_hist"][0], tok["dist_hist"][0]
 
 
@@ -595,12 +350,12 @@ def _header_stats_device(ll_lens: torch.Tensor, d_lens: torch.Tensor):
     cl_freq[:, 18] += n18.sum(dim=1)
     cl_lens = _kraft_lengths(cl_freq, 7)
 
-    ord_lens = cl_lens[:, _const("clcl_order", dev)]
+    ord_lens = cl_lens[:, const("clcl_order", dev)]
     last_o = torch.where(ord_lens > 0, torch.arange(19, device=dev),
                          -1).amax(dim=1)
     hclen = (last_o + 1).clamp(min=4)
     emis_bits = ((cl_freq * cl_lens).sum(dim=1)
-                 + (cl_freq * _const("cl_extra", dev)).sum(dim=1))
+                 + (cl_freq * const("cl_extra", dev)).sum(dim=1))
     header_bits = 14 + 3 * hclen + emis_bits
     return header_bits, cl_lens, hlit.squeeze(1), hdist.squeeze(1)
 
@@ -637,9 +392,9 @@ def huffman_tables_plain(ll_hist: torch.Tensor, dist_hist: torch.Tensor,
     d_lens = _kraft_lengths(dist_hist, 15)
     header_bits, cl_lens, _, _ = _header_stats_device(ll_lens, d_lens)
 
-    extra = ((ll_hist[:, 257:286] * _const("len_extra", dev)).sum(dim=1)
-             + (dist_hist * _const("dist_extra", dev)).sum(dim=1))
-    fixed_ll, fixed_d = _const("fixed_ll", dev), _const("fixed_d", dev)
+    extra = ((ll_hist[:, 257:286] * const("len_extra", dev)).sum(dim=1)
+             + (dist_hist * const("dist_extra", dev)).sum(dim=1))
+    fixed_ll, fixed_d = const("fixed_ll", dev), const("fixed_d", dev)
     dyn_bits = (3 + header_bits + (ll_hist * ll_lens).sum(dim=1)
                 + (dist_hist * d_lens).sum(dim=1) + extra)
     fix_bits = (3 + (ll_hist * fixed_ll).sum(dim=1)
@@ -657,10 +412,10 @@ def huffman_tables_plain(ll_hist: torch.Tensor, dist_hist: torch.Tensor,
         "mode": mode,
         "use_ll": torch.where(dyn, ll_lens, fixed_ll),
         "ll_codes": torch.where(dyn, _rev_codes_device(ll_lens),
-                                _const("fixed_ll_codes", dev)),
+                                const("fixed_ll_codes", dev)),
         "use_d": torch.where(dyn, d_lens, fixed_d),
         "d_codes": torch.where(dyn, _rev_codes_device(d_lens),
-                               _const("fixed_d_codes", dev)),
+                               const("fixed_d_codes", dev)),
     }
 
 
@@ -956,9 +711,11 @@ def _level_params(level: int) -> tuple[int, bool, bool]:
 
 MIN_BLOCK = 256
 
-# Device memory for one group's matcher intermediates. The largest are the
-# (G, N, k, 8) ranking windows and their XOR and mask copies; 12 bytes per
-# gathered word and position covers them. The group size decides no bytes.
+# Memory for one group's matcher intermediates in the plain version: the
+# largest are the (G, N, k, 8) ranking windows and their XOR and mask
+# copies; 12 bytes per gathered word and position covers them. K7 holds no
+# windows and needs far less (PERF.md, section 7), but the group sizes stay
+# these. The group size decides no bytes.
 GROUP_BYTES = 8 << 30
 MAX_GROUP = 64
 

@@ -29,10 +29,11 @@ import torch
 
 from ..common import ZippyError
 from . import kernel_build
+from .device_tables import const
 from .kernel_build import LAUNCHES
 
 LL_SYMS, D_SYMS, CL_SYMS = 286, 30, 19
-# The fixed tables K5 reads, deflate_device._const's names.
+# The fixed tables K5 reads, device_tables.CONSTS' names.
 TABLES = ("fixed_ll", "fixed_ll_codes", "fixed_d", "fixed_d_codes",
           "len_extra", "dist_extra", "clcl_order", "cl_extra")
 # Every output: (name, columns; 0 for one value a row).
@@ -92,14 +93,12 @@ def huffman_tables(ll_hist: torch.Tensor, dist_hist: torch.Tensor,
         return huffman_tables_plain(ll_hist, dist_hist, n)
     if dev.type != "cuda":
         raise ZippyError(f"unsupported device {dev}")
-    from .deflate_device import _const
-
     out = {name: torch.empty((rows, cols) if cols else (rows,),
                              dtype=torch.int64, device=dev)
            for name, cols in OUTPUTS}
     if rows:
         args = _Args(ll_hist.data_ptr(), dist_hist.data_ptr(), n.data_ptr(),
-                     *(_const(name, dev).data_ptr() for name in TABLES),
+                     *(const(name, dev).data_ptr() for name in TABLES),
                      *(out[name].data_ptr() for name, _ in OUTPUTS))
         rc = _lib().zt_huffman_tables(
             ctypes.byref(args), rows,
