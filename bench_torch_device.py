@@ -53,7 +53,8 @@ compress (the encoder's stages and the calls around them):
   encode of the 64 MiB payload (55 rows at level 6, 64 at level 1), 10
   calls a sample; from a profile of 10 calls the card's busy ms,
   operations and idle share a call; where the tree has ops/match_kernels
-  (kernel K7), K7's own device ms and the library sort's apart, its
+  (kernel K7), K7's own device ms (and by kernel) and the rest's (a
+  library sort in older trees) apart, its
   launches a group, its plain version's ms and the bound
   (chip_smoke.find_work);
 - compress_64mib_l6_tensor (s): deflate_array of the payload on the card
@@ -620,6 +621,9 @@ class Bench:
                 fields.update(
                     k7_ms=k7_ms, sort_ms=busy / FIND_CALLS * 1e3 - k7_ms,
                     k7_ops=trace["matched_ops"] / FIND_CALLS,
+                    k7_ms_by_kernel={
+                        name: ms / FIND_CALLS for name, ms in trace.get(
+                            "matched_ms", {}).items()},
                     bound_share=bound_ms / (busy / FIND_CALLS * 1e3),
                     top_device_ms=trace["top_device_ms"])
         return row(f"find_group_L{level}", "ms", [t * 1e3 for t in secs],

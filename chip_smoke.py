@@ -34,12 +34,19 @@ non-zero exit and no result line):
    of every group of the host-bytes encodes (inputs kept as its wrapper
    got them, `MatchWatch`) and on seeded rows (`match_rows`) at levels 1,
    6, 9, -1 and -2 with a full history and with none; one encode group
-   issued under torch.cuda.set_sync_debug_mode("error"); K7 on the first
-   full group of the level-6 and of the level-1 encode, its own launches'
-   device ms and the library sort's apart (`match_split`), beside its
-   plain version and its bound (`find_work`), and on that level-6 group's
-   shape filled with zeros and with a 3-byte period (`match_edge_groups`,
-   against its plain version too); then one instrumented
+   issued under torch.cuda.set_sync_debug_mode("error"); K7's sort stage
+   (`sort_keys`) against its plain version (`sort_keys_plain`, torch's
+   sort) on the first group of the level-1, level-6 and level-9 encodes
+   and on the level-6 and level-9 groups' shapes filled with zeros and
+   with a 3-byte period (`k7_sort_vs_plain`: the sorted keys, each
+   position's index in the order and min3's 3-gram candidates); K7 on the
+   first full group of the level-6 and of the level-1 encode, its
+   launches' device ms by stage (sort, match, walk, emit) and every device
+   operation of the call its own (`match_split`), beside its plain
+   version, torch.sort of the same keys and its bound (`find_work`), and
+   on that level-6 group's shape filled with zeros and with a 3-byte
+   period (`match_edge_groups`, against its plain version too); then one
+   instrumented
    encode gives
    seconds per stage, and a torch.profiler trace of the encode gives device
    operations and the card's idle share; K5 (huffman_tables) against its
@@ -148,8 +155,9 @@ launches between CUDA events; a plain version's ("plain_ms") and a
 wrapper's ("call_ms") are per call of the Python function. K4's numbers
 are those of one launch over the 64 MiB stream's batch of tiles, K5's
 those of one launch over the first group of the 64 MiB level-6 encode,
-K7's those of one call's five launches over the same group (the sort's
-device ms apart, as "sort_ms", both from a profile of 10 calls),
+K7's those of one call's launches over the same group (from a profile of
+10 calls, by stage in "ms_by_stage"; its "library_ms" is torch.sort of the
+group's keys, the sort stage's yardstick, which the port never calls),
 K6's those of one tile's launches on the 64 MiB stream's first tile (its
 row's cfg_s_tile: a 1 MiB member's first tile). A
 kernel's "launches" in the kernel line are those of the compress run,
@@ -305,8 +313,9 @@ def device_trace(fn, match: str | None = None) -> dict:
     taken. The device numbers are null where the profiler saw no device
     work. The wall time leaves out the TRACE_MARGIN_S on either side, and
     the counts leave out the TRACE_MARKER kernel that opens the profile.
-    With `match`, also the operations whose name holds it and their summed
-    seconds (matched_ops, matched_busy_s)."""
+    With `match`, also the operations whose name holds it, their summed
+    seconds and their ms by name (matched_ops, matched_busy_s,
+    matched_ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -339,7 +348,9 @@ def device_trace(fn, match: str | None = None) -> dict:
     matched = {} if match is None else {
         "matched_ops": sum(1 for e in ops if match in e.name),
         "matched_busy_s": sum(e.time_range.elapsed_us() for e in ops
-                              if match in e.name) / 1e6}
+                              if match in e.name) / 1e6,
+        "matched_ms": {name: ms for name, (ms, _) in by_name.items()
+                       if match in name}}
     return {"wall_s": wall, "tries": tries, "device_ops": len(ops),
             **matched,
             "kernels": sum(1 for e in ops
@@ -642,11 +653,19 @@ def match_edge_groups(group):
                           params))]
 
 
+# K7's kernels by stage, for match_split's "ms_by_stage".
+K7_STAGES = (("sort", ("k7_count", "k7_scan", "k7_scatter", "k7_hist")),
+             ("match", ("k7_match",)), ("walk", ("k7_exits", "k7_chain")),
+             ("emit", ("k7_emit", "k7_literals")))
+
+
 def match_split(watch: MatchWatch, inputs, reps: int) -> dict:
-    """K7 on one kept group: the device ms of its own launches and of the
-    library sort a call, from one profile of `reps` calls; the call's ms
-    from CUDA events (the host's issue counted); the plain version's ms;
-    the bound (find_work)."""
+    """K7 on one kept group: the device ms of its launches a call, and by
+    stage, from one profile of `reps` calls, with the device ms and
+    operations of the call that are not K7's ("sort_ms": the library
+    sort's in older trees; 0 now); the call's ms from CUDA events (the
+    host's issue counted); the plain version's ms; torch.sort of the same
+    keys ("library_ms", from a profile); the bound (find_work)."""
     data_pad, n, hist_len, params = inputs
     rows, width = data_pad.shape
     n_block = width - params["hist"] - watch.mk.PAD
@@ -656,6 +675,10 @@ def match_split(watch: MatchWatch, inputs, reps: int) -> dict:
 
     trace = device_trace(lambda: [call() for _ in range(reps)],
                          match="k7_")
+    keys = watch.mk.hash_keys_plain(data_pad, params["min3"])
+    library = device_trace(lambda: [torch.sort(keys, dim=1)
+                                    for _ in range(reps)])
+    del keys
     bound_ms, bound_by = bound(find_work(rows, n_block, width, params["k"],
                                          params["min3"]))
     line = {"rows": rows, "k": params["k"], "min3": params["min3"],
@@ -664,6 +687,8 @@ def match_split(watch: MatchWatch, inputs, reps: int) -> dict:
             "call_ms": call_ms(call, reps),
             "plain_ms": call_ms(lambda: watch.plain(data_pad, n, hist_len,
                                                     **params), 2),
+            "library_ms": None if library["device_busy_s"] is None
+            else library["device_busy_s"] / reps * 1e3,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "trace_device_ops_per_call": None, "ms": None, "sort_ms": None}
     if trace["device_busy_s"] is not None:
@@ -672,8 +697,41 @@ def match_split(watch: MatchWatch, inputs, reps: int) -> dict:
                            - trace["matched_busy_s"]) / reps * 1e3
         line["trace_device_ops_per_call"] = trace["device_ops"] / reps
         line["k7_ops_per_call"] = trace["matched_ops"] / reps
+        line["ms_by_stage"] = {
+            stage: sum(ms for name, ms in trace["matched_ms"].items()
+                       if any(kernel in name for kernel in kernels)) / reps
+            for stage, kernels in K7_STAGES}
         line["bound_share"] = bound_ms / (line["ms"] + line["sort_ms"])
         line["top_device_ms"] = trace["top_device_ms"]
+    return line
+
+
+def sort_vs_plain(mk, groups) -> dict:
+    """K7's sort stage (sort_keys) against its plain version
+    (sort_keys_plain) on each group's rows: groups, rows, launches against
+    LAUNCHES_SORT a group, and the differing elements of the sorted keys
+    and of each block position's index in the order and, under min3, of
+    the 3-byte keys, their order's indexes and the 3-gram candidates
+    k7_match reads from them (candidates3)."""
+    from zippy_tpu_torch.ops import kernel_build as kb
+
+    line = {"groups": 0, "rows": 0, "launches": 0, "launches_expected": 0,
+            "differing_elements": {}}
+    diff = line["differing_elements"]
+    for data_pad, _, _, params in groups:
+        before = kb.LAUNCHES["match_tokens"]
+        got = mk.sort_keys(data_pad, params["hist"], params["min3"])
+        line["launches"] += kb.LAUNCHES["match_tokens"] - before
+        line["launches_expected"] += mk.LAUNCHES_SORT
+        want = mk.sort_keys_plain(data_pad, params["hist"], params["min3"])
+        if params["min3"]:
+            got["c3"] = mk.candidates3(got["keys3"], got["inv3"])
+        for key, w in want.items():
+            diff[key] = diff.get(key, 0) + int(
+                (got[key].long() != w.long()).sum())
+        line["groups"] += 1
+        line["rows"] += data_pad.shape[0]
+        del got, want
     return line
 
 
@@ -2469,6 +2527,22 @@ def main() -> int:
     emit({"phase": "match_tokens_no_sync", "rows": k7_group[0].shape[0],
           "issued": sorted(res)})
     del res, k7_group
+    # K7's sort stage against its plain version: the first L1, L6 and L9
+    # groups, and the L6 and L9 groups' shapes all zeros (one hash bucket)
+    # and with a 3-byte period.
+    sort_groups = [k7_inputs[label][0] for label in (
+        "zlib L1 host bytes", "gzip L6 host bytes", "zlib L9 host bytes")]
+    for label in ("gzip L6 host bytes", "zlib L9 host bytes"):
+        sort_groups += [group for _, group in match_edge_groups(
+            k7_inputs[label][0])]
+    sort_line = sort_vs_plain(mk, sort_groups)
+    del sort_groups
+    emit({"phase": "k7_sort_vs_plain", **sort_line})
+    check(sort_line["groups"] == 7
+          and sort_line["launches"] == sort_line["launches_expected"]
+          and set(sort_line["differing_elements"]) == {
+              "keys", "inv", "keys3", "inv3", "c3"}
+          and not any(sort_line["differing_elements"].values()), sort_line)
     k7_groups = {f"L{level}": match_split(k7_watch, k7_inputs[label][0], 10)
                  for level, label in ((6, "gzip L6 host bytes"),
                                       (1, "zlib L1 host bytes"))}
@@ -2484,9 +2558,12 @@ def main() -> int:
                                    "vs_plain": line}
     del edge_group
     emit({"phase": "match_tokens_groups", **k7_groups})
+    # Every device operation of a find_tokens call is one of K7's.
     check(k7_groups["L6"]["rows"] == td._group_size(12, td.BLOCK)
-          and k7_groups["L1"]["rows"] == td._group_size(2, td.BLOCK),
-          k7_groups)
+          and k7_groups["L1"]["rows"] == td._group_size(2, td.BLOCK)
+          and all(line["sort_ms"] == 0 and line["trace_device_ops_per_call"]
+                  == line["k7_ops_per_call"] > 0
+                  for line in k7_groups.values()), k7_groups)
 
     # K5 against its plain version on every group of those encodes and on
     # HUFFMAN_ROWS seeded rows, HUFFMAN_REPEATS times; then one K5 launch
@@ -2576,20 +2653,27 @@ def main() -> int:
     k5["launch_floor_multiple"] = k5["ms"] / floor_ms
     calls["huffman_tables_call_ms"] = call_ms(
         lambda: hk.huffman_tables(*group), 100)
-    # K7 at the first full group of the 64 MiB level-6 encode: its own
-    # launches' device ms, the library sort's apart.
-    g6 = k7_groups["L6"]
+    # K7 at the first full group of the 64 MiB level-6 encode: its
+    # launches' device ms, by stage; torch.sort of the group's keys as the
+    # sort stage's yardstick ("library_ms"); the level-1 group's beside.
+    g6, g1 = k7_groups["L6"], k7_groups["L1"]
     k7 = {"name": "match_tokens", "route": "cuda",
           "source": "zippy_tpu_torch/csrc/match.cu",
           "replaces": "zippy_tpu/ops/deflate_device.py:94",
           "launches": launches["match_tokens"],
           "max_abs_err": max(line["max_abs_err"]
                              for line in k7_lines.values()),
-          "ms": g6["ms"], "sort_ms": g6["sort_ms"],
-          "plain_ms": g6["plain_ms"], "bound_ms": g6["bound_ms"],
-          "bound_by": g6["bound_by"], "bound_share": g6.get("bound_share"),
-          "library_ms": None, "launches_per_group": g6["launches_per_group"],
-          "call_ms": g6["call_ms"]}
+          "ms": g6["ms"], "ms_by_stage": g6.get("ms_by_stage"),
+          "sort_ms": g6["sort_ms"], "plain_ms": g6["plain_ms"],
+          "bound_ms": g6["bound_ms"], "bound_by": g6["bound_by"],
+          "bound_share": g6.get("bound_share"),
+          "library_ms": g6["library_ms"],
+          "library_call": "torch.sort of the keys (the sort stage)",
+          "launches_per_group": g6["launches_per_group"],
+          "call_ms": g6["call_ms"],
+          "L1": {key: g1.get(key) for key in (
+              "rows", "ms", "ms_by_stage", "plain_ms", "library_ms",
+              "bound_ms", "bound_share")}}
     calls["match_tokens_call_ms"] = g6["call_ms"]
     emit({"phase": "kernel_calls", **calls})
     check(all(k["max_abs_err"] == 0 for k in kernels + [k5, k7])

@@ -16,7 +16,9 @@ itself runs only on the card: chip_smoke.py holds it to this plain
 version there.
 """
 
+import inspect
 import os
+import re
 import subprocess
 import sys
 import zlib
@@ -200,7 +202,7 @@ def test_encode_group_finds_tokens_through_match_tokens(one_thread,
 
 
 def test_launches_per_group():
-    assert mk.launches_per_group(False) == mk.LAUNCHES_PER_GROUP == 5
+    assert mk.launches_per_group(False) == mk.LAUNCHES_PER_GROUP == 10
     assert mk.launches_per_group(True) == mk.LAUNCHES_LITS_ONLY == 1
 
 
@@ -234,3 +236,108 @@ def test_match_kernels_imports_without_cuda_nvcc_or_jax(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def _reference_order(row: np.ndarray, three: bool):
+    """The reference's sort of one row's keys, as zippy_tpu's find_tokens
+    computes it (zippy_tpu/ops/deflate_device.py:141-143, and the 3-byte
+    keys at :278-284): (keys in order, order, h)."""
+    NA = row.shape[0] - td.PAD
+    U = jd._U
+    b = jnp.asarray(row).astype(U)
+    v = b[:NA] | (b[1:NA + 1] << U(8)) | (b[2:NA + 2] << U(16)) | (
+        b[3:NA + 3] << U(24))
+    if three:
+        v = v & U(0xFFFFFF)
+    h = ((v * U(0x9E3779B1)) >> U(32 - jd.HASH_BITS)).astype(jnp.int32)
+    pos = jnp.arange(NA, dtype=jnp.int32)
+    key = (h.astype(U) << U(17)) | pos.astype(U)
+    order = jnp.argsort(key).astype(jnp.int32)
+    return np.asarray(key[order]), np.asarray(order), np.asarray(h)
+
+
+@pytest.mark.parametrize("min3", [False, True])
+@pytest.mark.parametrize("hist", [0, 32768])
+def test_sort_keys_plain_is_the_reference_order(one_thread, hist, min3):
+    """K7's sort stage, plainly: the keys in the reference's argsort order,
+    each position's index in it and, under min3, the same of the 3-byte
+    keys and each position's 3-gram candidate as the reference's c3 before
+    its [hist:] slice; candidates3 reads the same c3 from the order."""
+    rows = _rows(hist, 300 + hist + min3)
+    data = _group(rows)[0]
+    got = mk.sort_keys_plain(data, hist, min3)
+    assert set(got) == ({"keys", "inv", "keys3", "inv3", "c3"} if min3
+                        else {"keys", "inv"})
+    for g, (kind, row, _, _) in enumerate(rows):
+        for tag in ("", "3") if min3 else ("",):
+            keys, order, h = _reference_order(row, tag == "3")
+            have = got["keys" + tag][g].numpy().view(np.uint32) ^ (1 << 31)
+            assert np.array_equal(have, keys), (kind, tag)
+            inv = np.empty_like(order)
+            inv[order] = np.arange(order.size)
+            assert np.array_equal(got["inv" + tag][g].numpy(), inv[hist:])
+            if tag == "3":
+                h3s = h[order]
+                same3 = (np.roll(h3s, 1) == h3s) & (np.arange(order.size)
+                                                    >= 1)
+                c3 = np.zeros(order.size, np.int64)
+                c3[order] = np.where(same3, np.roll(order, 1), -1)
+                assert np.array_equal(got["c3"][g].numpy(), c3[hist:]), kind
+    if min3:
+        assert torch.equal(mk.candidates3(got["keys3"], got["inv3"]),
+                           got["c3"])
+    # The zero row is one hash bucket: its order is the positions'.
+    zeros = [kind for kind, _, _, _ in rows].index("zeros")
+    assert torch.equal(got["inv"][zeros].long(),
+                       torch.arange(hist, data.shape[1] - td.PAD))
+
+
+def test_sort_keys_on_cpu_is_the_plain_version(one_thread):
+    data = _group(_rows(512, 17)[:3])[0]
+    before = dict(kb.LAUNCHES)
+    got = mk.sort_keys(data, 512, True)
+    want = mk.sort_keys_plain(data, 512, True)
+    assert kb.LAUNCHES == before
+    assert set(got) == set(want) - {"c3"}
+    assert all(torch.equal(got[key], want[key]) for key in got)
+    with pytest.raises(ZippyError):
+        mk.sort_keys(data.to(torch.int16))
+
+
+def test_match_tokens_cuda_path_calls_no_library_sort():
+    """K7 sorts its keys itself: neither wrapper's CUDA path, nor what it
+    calls in the module, holds a torch sort, argsort or topk."""
+    library = re.compile(r"torch\.sort|\.sort\(|argsort|topk|msort|kthvalue")
+    for fn in (mk.match_tokens, mk.sort_keys, mk._sort_scratch, mk._call,
+               mk._stream, mk._Args.of):
+        assert not library.search(inspect.getsource(fn)), fn.__name__
+    assert "torch.sort" not in (kb.CSRC / "match.cu").read_text()
+
+
+def test_match_args_and_shapes_follow_match_cu():
+    """The ctypes structure lists MatchArgs' pointers in the source's
+    order, and the wrapper's scratch shapes and launch counts are the
+    source's."""
+    src = (kb.CSRC / "match.cu").read_text()
+    body = re.search(r"struct MatchArgs \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"void\* (\w+);", body)
+    assert fields == [name for name, _ in mk._Args._fields_]
+
+    def const(name):
+        return int(re.search(rf"constexpr \w+ {name} = (\w+);", src)
+                   .group(1), 0)
+
+    assert const("kSortTile") == mk.SORT_TILE
+    assert const("kChunk") == mk.CHUNK
+    assert const("kExitStride") == mk.EXIT_STRIDE
+    assert const("kPad") == mk.PAD
+    sort = src[src.index("cudaError_t sort_keys("):]
+    sort = sort[:sort.index("\n}\n")]
+    tokens = src[src.index("int zt_match_tokens("):]
+    tokens = tokens[:tokens.index("\n}\n")]
+    assert sort.count("++*launched") == mk.LAUNCHES_SORT
+    assert (mk.LAUNCHES_SORT + tokens.count("++*launched")
+            == mk.LAUNCHES_PER_GROUP)
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\(\w+\)\n"
+                             r"(\w+)\(", src))
+    assert kernels and all(name.startswith("k7_") for name in kernels)

@@ -7,8 +7,8 @@ reference's vmap, written out as a leading group dimension G):
    (hash4, pos), the k bucket predecessors are the k most recent previous
    occurrences; match lengths; one-step lazy demotion; the token cover;
    symbol histograms. On a CUDA tensor it is the Hopper kernel K7
-   (ops/match_kernels.py, csrc/match.cu) around one torch.sort of the
-   keys; `match_kernels.find_tokens_plain`, torch ops with word-window XOR
+   (ops/match_kernels.py, csrc/match.cu), its key sort included;
+   `match_kernels.find_tokens_plain`, torch ops with word-window XOR
    compares and a pointer-doubling cover, is its plain version and the CPU
    path.
 2. `huffman_tables` (ops/huffman_kernels.py) — length-limited Huffman code

@@ -16,12 +16,13 @@ every byte a literal.
 The plain version, `find_tokens_plain`, computes it with torch ops that
 materialise every candidate's byte windows (gigabytes a group on the
 card). K7 computes the same outputs element for element in
-`LAUNCHES_PER_GROUP` launches and one torch.sort of the keys between the
-first two (csrc/match.cu says how), holding no window tensor; under
-`lits_only` it is one launch (`LAUNCHES_LITS_ONLY`).
+`LAUNCHES_PER_GROUP` launches of its own, the key sort included
+(csrc/match.cu says how), holding no window tensor; under `lits_only` it
+is one launch (`LAUNCHES_LITS_ONLY`). `sort_keys` runs K7's sort alone,
+and `sort_keys_plain` is its plain version.
 
-The wrapper launches K7 on CUDA tensors (or raises) and runs the plain
-version on CPU tensors. The kernel builds with nvcc at first CUDA use
+The wrappers launch K7 on CUDA tensors (or raise) and run the plain
+versions on CPU tensors. The kernel builds with nvcc at first CUDA use
 (ops/kernel_build.py); importing this module builds nothing.
 """
 
@@ -52,8 +53,16 @@ _M32 = 0xFFFFFFFF
 _HASH_MUL = 0x9E3779B1
 
 MAX_K = 32                      # the most candidates K7 holds a position
-LAUNCHES_PER_GROUP = 5          # keys, rank, match, select, cover
+# count, scan, scatter, hist, scan, scatter (the sort); match; exits, chain,
+# emit (the cover)
+LAUNCHES_PER_GROUP = 10
+LAUNCHES_SORT = 6
 LAUNCHES_LITS_ONLY = 1
+# csrc/match.cu's scratch shapes: keys a sort tile, positions a cover
+# chunk, a chunk's row of exits.
+SORT_TILE = 4096
+CHUNK = 1024
+EXIT_STRIDE = 264
 
 
 def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
@@ -65,6 +74,17 @@ def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 holding 32-bit values -> int32 with the same bit pattern."""
     return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def _words(data_pad: torch.Tensor, NA: int) -> torch.Tensor:
+    """(G, NA) int64: the little-endian word at each hashable position."""
+    b = data_pad.long()
+    return (b[:, :NA] | (b[:, 1:NA + 1] << 8) | (b[:, 2:NA + 2] << 16)
+            | (b[:, 3:NA + 3] << 24))
+
+
+def _hash(v: torch.Tensor) -> torch.Tensor:
+    return _mul32(v, _HASH_MUL) >> (32 - HASH_BITS)
 
 
 def _windows(flat: torch.Tensor, nwords: int) -> torch.Tensor:
@@ -138,9 +158,8 @@ def find_tokens_plain(data_pad: torch.Tensor, n, hist_len=0, *, k: int = 4,
         }
 
     b = data_pad.long()
-    v = (b[:, :NA] | (b[:, 1:NA + 1] << 8) | (b[:, 2:NA + 2] << 16)
-         | (b[:, 3:NA + 3] << 24))
-    h = _mul32(v, _HASH_MUL) >> (32 - HASH_BITS)
+    v = _words(data_pad, NA)
+    h = _hash(v)
     pos = torch.arange(NA, dtype=i64, device=dev)
 
     # Sort positions by (hash, pos): bucket predecessors = recent occurrences.
@@ -231,7 +250,7 @@ def find_tokens_plain(data_pad: torch.Tensor, n, hist_len=0, *, k: int = 4,
     if min3:
         # Length-3 matches at short distance (zlib's TOO_FAR = 4096 rule):
         # one recency candidate from a 3-gram sort.
-        h3 = _mul32(v & 0xFFFFFF, _HASH_MUL) >> (32 - HASH_BITS)
+        h3 = _hash(v & 0xFFFFFF)
         order3 = torch.argsort((h3 << 17) | pos, dim=1)
         h3s = h3.gather(1, order3)
         prev3 = torch.roll(order3, 1, dims=1)
@@ -301,6 +320,67 @@ def find_tokens_plain(data_pad: torch.Tensor, n, hist_len=0, *, k: int = 4,
     }
 
 
+def _flip(u: torch.Tensor) -> torch.Tensor:
+    """uint32 keys held in int64 -> int32 with the top bit flipped, whose
+    int32 order is the keys' unsigned order (K7 sorts them so)."""
+    return _to_i32(u ^ (1 << 31))
+
+
+def _unflip(keys: torch.Tensor) -> torch.Tensor:
+    return (keys.long() & _M32) ^ (1 << 31)
+
+
+def hash_keys_plain(data_pad: torch.Tensor, min3: bool = False
+                    ) -> torch.Tensor:
+    """The keys K7 sorts, unsorted, as k7_count makes them: per row of
+    data_pad (G, NA + PAD) uint8 the NA keys (hash << 17 | pos), flipped
+    int32 (see _flip); under min3 G more rows, the 3-byte keys."""
+    NA = data_pad.shape[1] - PAD
+    v = _words(data_pad, NA)
+    pos = torch.arange(NA, dtype=torch.int64, device=data_pad.device)
+    hashes = [_hash(v)] + ([_hash(v & 0xFFFFFF)] if min3 else [])
+    return torch.cat([_flip((h << 17) | pos) for h in hashes])
+
+
+def sort_keys_plain(data_pad: torch.Tensor, hist: int = 0,
+                    min3: bool = False) -> dict:
+    """K7's sort stage, the plain version: per row of data_pad (G, NA +
+    PAD) uint8, NA = hist + N, the NA keys (hash << 17 | pos) in order
+    ("keys", (G, NA) flipped int32) and each block position's index in
+    that order ("inv", (G, N) int32: positions hist ..); under min3 the
+    same of the 3-byte keys ("keys3", "inv3") and each block position's
+    3-gram candidate ("c3", (G, N) int64: the position before it in the
+    3-byte order where the hash is the same, else -1), as
+    find_tokens_plain computes them."""
+    G = data_pad.shape[0]
+    keys = hash_keys_plain(data_pad, min3)
+    order = torch.argsort(keys, dim=1)
+    pos = torch.arange(keys.shape[1], dtype=torch.int64,
+                       device=data_pad.device)
+    inv = torch.empty_like(order).scatter_(1, order, pos.expand_as(order))
+    keys, inv = keys.gather(1, order), inv[:, hist:].to(torch.int32)
+    out = {"keys": keys[:G], "inv": inv[:G]}
+    if min3:
+        out.update(keys3=keys[G:], inv3=inv[G:])
+        order3, h3s = order[G:], _unflip(keys[G:]) >> 17
+        same = (torch.roll(h3s, 1, dims=1) == h3s) & (pos >= 1)
+        out["c3"] = torch.zeros_like(order3).scatter_(
+            1, order3, torch.where(same, torch.roll(order3, 1, dims=1),
+                                   -1))[:, hist:]
+    return out
+
+
+def candidates3(keys3: torch.Tensor, inv3: torch.Tensor) -> torch.Tensor:
+    """Each block position's 3-gram candidate as k7_match reads it from the
+    3-byte order: the key before the position's own in keys3, where its
+    hash is the same, else -1. (G, N) int64, as inv3."""
+    u = _unflip(keys3)
+    s = inv3.long()
+    prev = u.gather(1, (s - 1).clamp(min=0))
+    same = (s >= 1) & ((prev >> 17) == (u.gather(1, s) >> 17))
+    return torch.where(same, prev & ((1 << 17) - 1), -1)
+
+
 # ---------------------------------------------------------------------------
 # The wrapper
 # ---------------------------------------------------------------------------
@@ -316,9 +396,13 @@ class _Args(ctypes.Structure):
     """csrc/match.cu's MatchArgs: device pointers, in its order."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "data", "n", "hist_len", "keys", "sorted", "inv", "c3", "lbest",
-        "dbest", "m3", "tlen", "tdist", "len_tab", "dist_lut",
+        "data", "n", "hist_len", "low", "sorted", "inv", "tiles", "lbest",
+        "dbest", "m3", "exits", "entry", "len_tab", "dist_lut",
         *(name for name, _ in TOKEN_OUTPUTS), "ll_hist", "dist_hist")]
+
+    @classmethod
+    def of(cls, tensors: dict) -> "_Args":
+        return cls(**{name: t.data_ptr() for name, t in tensors.items()})
 
 
 @functools.cache
@@ -329,19 +413,18 @@ def _lib() -> ctypes.CDLL:
         raise ZippyError(f"cannot load the match kernel: {e}") from e
     args, i32, p = ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p
     out = ctypes.POINTER(i32)
-    lib.zt_match_keys.argtypes = [args, i32, i32, i32, p, i32, out]
+    lib.zt_match_sort.argtypes = [args, i32, i32, i32, i32, p, i32, out]
     lib.zt_match_tokens.argtypes = [args, i32, i32, i32, i32, i32, i32, p,
                                     i32, out]
     lib.zt_match_literals.argtypes = [args, i32, i32, i32, p, i32, out]
-    for fn in (lib.zt_match_keys, lib.zt_match_tokens,
+    for fn in (lib.zt_match_sort, lib.zt_match_tokens,
                lib.zt_match_literals):
         fn.restype = i32
     return lib
 
 
 def launches_per_group(lits_only: bool) -> int:
-    """K7's kernel launches for one group (the sort between the first two
-    is torch's)."""
+    """K7's kernel launches for one group, its sort's included."""
     return LAUNCHES_LITS_ONLY if lits_only else LAUNCHES_PER_GROUP
 
 
@@ -369,14 +452,66 @@ def _check_rows(data_pad: torch.Tensor, n: torch.Tensor,
         raise ZippyError(f"k must lie in [1, {MAX_K}], got {k}")
 
 
+def _sort_scratch(low: torch.Tensor, N: int) -> dict:
+    """The sort's buffers for R = low.shape[0] rows of keys (G, and under
+    min3 G more): `low`, the keys after its low pass, (R, NA) int32; the
+    keys after both; inv; the tiles' histograms."""
+    R, NA = low.shape
+    i32, dev = torch.int32, low.device
+    return {"low": low,
+            "sorted": torch.empty(R, NA, dtype=i32, device=dev),
+            "inv": torch.empty(R, N, dtype=i32, device=dev),
+            "tiles": torch.empty(R, -(-NA // SORT_TILE), 256, dtype=i32,
+                                 device=dev)}
+
+
+def _call(fn, name: str, *args) -> None:
+    launched = ctypes.c_int(0)
+    rc = fn(*args, ctypes.byref(launched))
+    LAUNCHES["match_tokens"] += launched.value
+    kernel_build.check_launch(rc, name)
+
+
+def _stream(dev) -> tuple:
+    return torch.cuda.current_stream(dev).cuda_stream, dev.index or 0
+
+
+def sort_keys(data_pad: torch.Tensor, hist: int = 0,
+              min3: bool = False) -> dict:
+    """K7's sort stage alone, sort_keys_plain's dict but for "c3"
+    (candidates3 gives it): LAUNCHES_SORT launches of K7 on a CUDA
+    tensor, counted as match_tokens', the plain version on a CPU one."""
+    G, D = data_pad.shape
+    n = torch.zeros(G, dtype=torch.int64, device=data_pad.device)
+    _check_rows(data_pad, n, n, 1, hist)
+    dev = data_pad.device
+    if dev.type == "cpu":
+        out = sort_keys_plain(data_pad, hist, min3)
+        out.pop("c3", None)
+        return out
+    if dev.type != "cuda":
+        raise ZippyError(f"unsupported device {dev}")
+    NA = D - PAD
+    low = torch.empty((2 if min3 else 1) * G, NA, dtype=torch.int32,
+                      device=dev)
+    ptrs = {"data": data_pad, **_sort_scratch(low, NA - hist)}
+    args = _Args.of(ptrs)
+    _call(_lib().zt_match_sort, "match_tokens", ctypes.byref(args), G, D,
+          hist, int(min3), *_stream(dev))
+    keys, inv = ptrs["sorted"], ptrs["inv"]
+    out = {"keys": keys[:G], "inv": inv[:G]}
+    if min3:
+        out.update(keys3=keys[G:], inv3=inv[G:])
+    return out
+
+
 def match_tokens(data_pad: torch.Tensor, n: torch.Tensor,
                  hist_len: torch.Tensor, *, k: int, lazy: bool, hist: int,
                  min3: bool, lits_only: bool) -> dict:
     """find_tokens' dict for a group of rows: data_pad (G, hist + N + PAD)
     uint8, n and hist_len (G,) int64, contiguous, on one device. K7 on CUDA
-    tensors (launches_per_group(lits_only) launches, and under not
-    lits_only one torch.sort of the keys), find_tokens_plain on CPU
-    tensors."""
+    tensors (launches_per_group(lits_only) launches, no other device
+    work), find_tokens_plain on CPU tensors."""
     _check_rows(data_pad, n, hist_len, k, hist)
     dev = data_pad.device
     if dev.type == "cpu":
@@ -386,46 +521,37 @@ def match_tokens(data_pad: torch.Tensor, n: torch.Tensor,
         raise ZippyError(f"unsupported device {dev}")
     G, D = data_pad.shape
     N = D - PAD - hist
-    NA = hist + N
     out = {name: torch.empty(G, N, dtype=dtype, device=dev)
            for name, dtype in TOKEN_OUTPUTS}
     out["ll_hist"] = torch.empty(G, 286, dtype=torch.int64, device=dev)
     out["dist_hist"] = torch.empty(G, 30, dtype=torch.int64, device=dev)
     if G == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    index = dev.index or 0
     lib = _lib()
-    launched = ctypes.c_int(0)
     ptrs = {"data": data_pad, "n": n, "hist_len": hist_len,
             "len_tab": const("len_idx", dev),
             "dist_lut": const("dist_lut", dev), **out}
     if lits_only:
-        args = _Args(**{name: t.data_ptr() for name, t in ptrs.items()})
-        rc = lib.zt_match_literals(ctypes.byref(args), G, D, hist, stream,
-                                   index, ctypes.byref(launched))
-        LAUNCHES["match_tokens"] += launched.value
-        kernel_build.check_launch(rc, "match_tokens")
+        args = _Args.of(ptrs)
+        _call(lib.zt_match_literals, "match_tokens", ctypes.byref(args), G,
+              D, hist, *_stream(dev))
         return out
+    nch = -(-N // CHUNK)
     i32 = torch.int32
-    ptrs["keys"] = torch.empty((2 if min3 else 1) * G, NA, dtype=i32,
-                               device=dev)
-    args = _Args(**{name: t.data_ptr() for name, t in ptrs.items()})
-    rc = lib.zt_match_keys(ctypes.byref(args), G, D, int(min3), stream,
-                           index, ctypes.byref(launched))
-    LAUNCHES["match_tokens"] += launched.value
-    kernel_build.check_launch(rc, "match_tokens")
-    # The library sort (ROADMAP B3 queues a hand-written one): the keys
-    # are unique, so any sort gives the plain version's order.
-    ptrs["sorted"] = torch.sort(ptrs.pop("keys"), dim=1).values
-    ptrs["inv"] = torch.empty(G, NA, dtype=i32, device=dev)
-    ptrs["c3"] = torch.empty(G if min3 else 0, NA, dtype=i32, device=dev)
-    for name in ("lbest", "dbest", "m3", "tlen", "tdist"):
-        ptrs[name] = torch.empty(G, N, dtype=i32, device=dev)
-    args = _Args(**{name: t.data_ptr() for name, t in ptrs.items()})
-    rc = lib.zt_match_tokens(ctypes.byref(args), G, D, hist, k, int(lazy),
-                             int(min3), stream, index,
-                             ctypes.byref(launched))
-    LAUNCHES["match_tokens"] += launched.value
-    kernel_build.check_launch(rc, "match_tokens")
+    # The low pass's keys are dead once the high pass has read them (launch
+    # 6), so the match's best lengths, distances and (under min3) 3-gram
+    # distances (launch 7 on) take their memory.
+    R, NA, GN = (2 if min3 else 1) * G, hist + N, G * N
+    work = torch.empty(max(R * NA, (3 if min3 else 2) * GN), dtype=i32,
+                       device=dev)
+    ptrs.update(_sort_scratch(work[:R * NA].view(R, NA), N))
+    ptrs["lbest"] = work[:GN].view(G, N)
+    ptrs["dbest"] = work[GN:2 * GN].view(G, N)
+    ptrs["m3"] = (work[2 * GN:3 * GN] if min3 else work[:0]).view(-1, N)
+    ptrs["exits"] = torch.empty(G, nch, EXIT_STRIDE, dtype=torch.int16,
+                                device=dev)
+    ptrs["entry"] = torch.empty(G, nch, dtype=i32, device=dev)
+    args = _Args.of(ptrs)
+    _call(lib.zt_match_tokens, "match_tokens", ctypes.byref(args), G, D,
+          hist, k, int(lazy), int(min3), *_stream(dev))
     return out
