@@ -9,8 +9,10 @@ parent). The payload is chip_smoke.py's seeded 64 MiB mixed payload. Prints
 one JSON line a row, each with the tree and the card:
 
 - resolve_tile: the tree's `inflate_device._resolve` on the first tile of
-  the port's 64 MiB gzip L6 stream (CFG_L) and of the first 1 MiB member
-  of compress_device_indexed at 1 MiB members (CFG_S), inputs as the
+  the port's 64 MiB gzip L6 stream (CFG_L), of the first 1 MiB member
+  of compress_device_indexed at 1 MiB members (CFG_S) and of a zip
+  entry (chip_smoke.archive_tree's text entry nearest its 16 KiB median,
+  deflated at level 1, as create_zip_archive does), inputs as the
   decode forms them: ms a call from CUDA events (the host's issue counts),
   and from a profile of 20 calls the card's busy ms, operations and idle
   share a call; where the tree has ops/resolve_kernels (kernel K6), its
@@ -88,11 +90,16 @@ def main() -> int:
     member = gf.compress_device_indexed(data[:1 << 20], 6,
                                         member_size=1 << 20)
     body = member[gf.parse_header(member)["data_offset"]:]
+    entry = min((v for i, v in enumerate(cs.archive_tree(data).values())
+                 if i % 16 != 15 and v),
+                key=lambda v: abs(len(v) - cs.ARCHIVE_MEDIAN))
+    small = dd.deflate(entry, 1)
 
     for label, blob, idx, want in (
             ("gzip L6 64 MiB, first tile", gz6, index, data),
             ("1 MiB member, first tile", body, idev.build_decode_index(body),
-             data[:1 << 20])):
+             data[:1 << 20]),
+            ("zip entry", small, idev.build_decode_index(small), entry)):
         cfg = idev._pick_cfg(idx["total_out"])
         tile = idev._plan_tiles(idx, cfg)[0]
         nrounds = idev._nrounds_for_depth(tile.depth, cfg)
@@ -128,8 +135,12 @@ def main() -> int:
             pargs = (packed, seg_out[0, :lanes], words[0],
                      rk.stored_spans(sto[0][0]), halo, nrounds, cfg)
             plain = rk._resolve_plain(*pargs)
+            try:  # a tree whose K6 picks its regime by the tile's bytes
+                k6_launches = rk.launches_per_tile(nrounds, tile.used)
+            except TypeError:
+                k6_launches = rk.launches_per_tile(nrounds)
             fields.update(
-                k6_launches=rk.launches_per_tile(nrounds),
+                k6_launches=k6_launches,
                 launch_budget=nrounds + 3,
                 k6_ms=cs.kernel_ms(lambda: rk.lz_resolve(*call), 20),
                 plain_ms=cs.call_ms(lambda: rk._resolve_plain(*pargs), 2),

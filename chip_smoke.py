@@ -58,8 +58,9 @@ non-zero exit and no result line):
    streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
    (level 0) stream and of a two-member gzip, each equal to its input, with
    the launch counts zeroed before and read after (K1-K4 and K6 all
-   launched, K4 once per batch of tiles that has a busy lane, K6 2 +
-   nrounds times a tile, K5 and K7 never, K6's plain version never); per
+   launched, K4 once per batch of tiles that has a busy lane, K6
+   launches_per_tile times a tile, K5 and K7 never, K6's plain version
+   never); per
    stream the scan's seconds, the decode given its index (twice) and CPython's
    decompress; a decode given its index with no host sync from the first
    tile to the last (torch.cuda.set_sync_debug_mode("error")); the 64 MiB
@@ -72,10 +73,12 @@ non-zero exit and no result line):
    busy lanes and for the padded segment tables it wrote before; K6
    (lz_resolve) against its plain version on out[:HALO + used] of every
    tile of the six streams decoded given their indexes, with its launches
-   against nrounds + 3 a tile (`ResolveWatch`); K6 on the 64 MiB
-   stream's first tile timed, with its bound (`resolve_work`); and K6 on
-   a corrupt tile whose tokens run past its bytes, which must write
-   nothing past its scratch (`k6_bounds`);
+   equal to launches_per_tile's and within nrounds + 3 a tile
+   (`ResolveWatch`); K6 on the 64 MiB stream's first tile timed, with
+   its bound (`resolve_work`); and K6 on a corrupt tile of each round
+   shape (up to SMALL_TILE bytes and past it) whose tokens run past its
+   bytes, which must write nothing past its bytes and its scratch
+   (`k6_bounds`);
 6. the indexed serving format (`indexed` lines), at 1 MiB and 8 MiB
    members of the 64 MiB payload at level 6: compress_device_indexed's
    seconds beside phase 4's single-member compress, its K5 launches (one a
@@ -85,7 +88,7 @@ non-zero exit and no result line):
    their seconds beside the scanned uncompress() of phase 4's stream and
    CPython's decompress; the launch counts of one array=True decode (one
    K1 and one K2 + K3 per non-empty member, K4 once per batch with a busy
-   lane, K6 2 + nrounds times a tile); the dispatch of every member
+   lane, K6 launches_per_tile times a tile); the dispatch of every member
    under
    torch.cuda.set_sync_debug_mode("error") up to the one verification
    fetch; K4 against its plain version on every batch of that decode (at
@@ -134,7 +137,7 @@ non-zero exit and no result line):
    extracted by tarballs.extract_all; the launches of all that, counted
    from zero (K5 once a group of the batched encode and K7
    launches_per_group times, neither in a decode;
-   K6 2 + nrounds times a tile of every deflated entry);
+   K6 launches_per_tile times a tile of every deflated entry);
    torch.profiler traces of create_zip_archive and extract_all_zip of the
    tree's first 128 files; then K4 against its
    plain version on every batch and K6 on every tile of 8 sampled
@@ -159,7 +162,9 @@ K7's those of one call's launches over the same group (from a profile of
 10 calls, by stage in "ms_by_stage"; its "library_ms" is torch.sort of the
 group's keys, the sort stage's yardstick, which the port never calls),
 K6's those of one tile's launches on the 64 MiB stream's first tile (its
-row's cfg_s_tile: a 1 MiB member's first tile). A
+row's cfg_s_tile: a 1 MiB member's first tile; small_tile: a zip entry's
+tile, the archive tree's text entry nearest its 16 KiB median, deflated
+at level 1). A
 kernel's "launches" in the kernel line are those of the compress run,
 the decode run, the indexed compress and decode runs and the runs of
 phases 8, 9 and 10 together, each counted from zero just before its run.
@@ -1063,17 +1068,21 @@ class ResolveWatch:
     @contextlib.contextmanager
     def checking(self, label: str):
         """Yields the line that K6's calls inside fill: tiles, differing
-        bytes and the largest difference, K6's launches and their budget
-        (nrounds + 3 a tile)."""
+        bytes and the largest difference, K6's launches, the
+        launches_per_tile sum they must equal and their budget (nrounds + 3
+        a tile)."""
         from zippy_tpu_torch.ops import kernel_build as kb
 
         line = {"run": label, "tiles": 0, "differing_bytes": 0,
-                "max_abs_err": 0, "launches": 0, "launch_budget": 0}
+                "max_abs_err": 0, "launches": 0, "launches_expected": 0,
+                "launch_budget": 0}
 
         def checked(*args):
             before = kb.LAUNCHES["lz_resolve"]
             out = self.wrapper(*args)
             line["launches"] += kb.LAUNCHES["lz_resolve"] - before
+            line["launches_expected"] += self.rk.launches_per_tile(args[6],
+                                                                   args[5])
             line["launch_budget"] += args[6] + 3
             n = self.rk.HALO + args[5]
             got, want = out[:n].int(), self.plain_of(*args)[:n].int()
@@ -1092,22 +1101,27 @@ class ResolveWatch:
     @staticmethod
     def good(line) -> bool:
         return (line["tiles"] > 0 and line["differing_bytes"] == 0
+                and line["launches"] == line["launches_expected"]
                 and 0 < line["launches"] <= line["launch_budget"])
 
 
 def _k6_launches(idev, rk, index) -> int:
     """K6 launches one decode of `index` makes: launches_per_tile of each
-    tile's rounds."""
+    tile's rounds and bytes."""
     cfg = idev._pick_cfg(index["total_out"])
-    return sum(rk.launches_per_tile(idev._nrounds_for_depth(t.depth, cfg))
+    return sum(rk.launches_per_tile(idev._nrounds_for_depth(t.depth, cfg),
+                                    t.used)
                for t in idev._plan_tiles(index, cfg))
 
 
 def k6_tile(idev, ik, watch, label: str, blob: bytes, index, dev) -> dict:
     """K6 on the first tile of a decode index, its inputs as the decode
     forms them (K4 on the tile, a zero halo): against its plain version,
-    its device ms for the tile's launches from a CUDA graph, the plain
-    version's ms on the card, and its bound."""
+    its hops a round and its launches, counted, which must be
+    launches_per_tile's, its device ms for the tile's launches from a CUDA
+    graph, the plain version's ms on the card, and its bound."""
+    from zippy_tpu_torch.ops import kernel_build as kb
+
     rk = watch.rk
     cfg = idev._pick_cfg(index["total_out"])
     tile = idev._plan_tiles(index, cfg)[0]
@@ -1123,49 +1137,60 @@ def k6_tile(idev, ik, watch, label: str, blob: bytes, index, dev) -> dict:
     args = (packed, seg_out[0, :lanes], words[0], sto[0], halo, tile.used,
             nrounds, cfg)
     n = rk.HALO + tile.used
-    diff = int((rk.lz_resolve(*args)[:n] != watch.plain_of(*args)[:n])
-               .sum())
+    before = kb.LAUNCHES["lz_resolve"]
+    got = rk.lz_resolve(*args)[:n]
+    made = kb.LAUNCHES["lz_resolve"] - before
+    diff = int((got != watch.plain_of(*args)[:n]).sum())
     spans = rk.stored_spans(sto[0])
     tokens = int(index["segments"][tile.s0:tile.s1, 3].sum())
     bound_ms, bound_by = bound(resolve_work(
         k, lanes, cfg.nsto, sum(min(ln, rk.STO_MAX) for *_, ln in spans),
         rk.HALO, tile.used, tokens))
     ms = kernel_ms(lambda: rk.lz_resolve(*args), 20)
-    launches = rk.launches_per_tile(nrounds)
+    launches = rk.launches_per_tile(nrounds, tile.used)
     line = {"run": label, "tile_bytes": cfg.tile_out, "used": tile.used,
             "busy_lanes": lanes, "tokens": tokens,
             "stored_spans": len(spans), "nrounds": nrounds,
-            "launches": launches, "launch_budget": nrounds + 3,
+            "hops_per_round": rk.hops_per_round(tile.used),
+            "launches": launches, "launches_counted": made,
+            "launch_budget": nrounds + 3,
             "differing_bytes": diff, "ms": ms,
             "ms_per_launch": ms / launches,
             "plain_ms": call_ms(lambda: watch.plain_of(*args), 2),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / ms}
     del keep
-    check(diff == 0 and launches <= nrounds + 3, line)
+    check(diff == 0 and made == launches and launches <= nrounds + 3, line)
     return line
 
 
-# What K6's scratch holds past its `used` link ints in k6_bounds.
+# What K6's scratch and output hold, in k6_bounds, where it may not write.
 LINK_SENTINEL = 0x5A5A5A5A
+OUT_SENTINEL = 0xA5
+CORRUPT_LANE_BYTES = 1 + 31 * 258   # a literal and 31 matches at distance 1
 
 
-def k6_bounds(idev, watch, dev) -> dict:
-    """K6 on a corrupt CFG_S tile of 1,000 bytes: the first lane's tokens
-    run to 8,000 bytes, the second lane starts past the tile, the third
-    past 2^31 - 300 and the fourth at -2^31, as a corrupt stream or a
-    hostile index gives them. K6 is called with its scratch at the front
-    of a larger buffer filled with LINK_SENTINEL: it must equal its plain
-    version on out[:HALO + used] and leave the buffer's tail as it was."""
+def _k6_corrupt(idev, watch, dev, cfg, used: int) -> dict:
+    """K6 on a corrupt tile of `used` bytes: lanes of a literal ("A") and
+    31 matches of 258 bytes at distance 1, end to end from the tile's first
+    byte, the last running past `used`; then a lane of literals ("B")
+    that starts past the tile, one past 2^31 - 300 and one at -2^31, as a
+    corrupt stream or a hostile index gives them. The entry point is
+    called with its output filled with OUT_SENTINEL and its scratch (the
+    tile's int32 states) at the front of a larger buffer filled with
+    LINK_SENTINEL: it must equal its plain version on out[:HALO + used],
+    make launches_per_tile's launches, and leave out[HALO + used:] and the
+    buffer's tail as they were."""
     rk = watch.rk
-    cfg, used, k = idev.CFG_S, 1000, 32
+    k, lanes = 32, -(-used // CORRUPT_LANE_BYTES)
     out_pad = rk.HALO + cfg.tile_out
-    packed = torch.zeros(k, 4, dtype=torch.int32)
+    packed = torch.zeros(k, lanes + 3, dtype=torch.int32)
     packed[0] = (1 << 16) | 0x41
     packed[1:] = (258 << 16) | (1 + 256)
-    packed[:, 1] = (1 << 16) | 0x42
-    seg_out = torch.tensor([rk.HALO, rk.HALO + used + 5000, 2**31 - 300,
-                            -2**31], dtype=torch.int32)
+    packed[:, lanes] = (1 << 16) | 0x42
+    seg_out = torch.tensor(
+        [rk.HALO + CORRUPT_LANE_BYTES * i for i in range(lanes)]
+        + [rk.HALO + used + 5000, 2**31 - 300, -2**31], dtype=torch.int32)
     sto = torch.zeros(3, cfg.nsto, dtype=torch.int32)
     sto[1] = out_pad
     gen = torch.Generator().manual_seed(SEED)
@@ -1175,7 +1200,7 @@ def k6_bounds(idev, watch, dev) -> dict:
     nrounds = idev._nrounds_for_depth(0xFFFF, cfg)
     packed, seg_out, sto, halo, words = (
         x.to(dev) for x in (packed, seg_out, sto, halo, words))
-    out = torch.empty(out_pad, dtype=torch.uint8, device=dev)
+    out = torch.full((out_pad,), OUT_SENTINEL, dtype=torch.uint8, device=dev)
     scratch = torch.full((used + (1 << 16),), LINK_SENTINEL,
                          dtype=torch.int32, device=dev)
     launched = ctypes.c_int(0)
@@ -1189,16 +1214,32 @@ def k6_bounds(idev, watch, dev) -> dict:
     n = rk.HALO + used
     want = watch.plain_of(packed, seg_out, words, sto, halo, used, nrounds,
                           cfg)[:n]
-    line = {"used": used, "rc": rc, "launches": launched.value,
+    line = {"used": used, "hops_per_round": rk.hops_per_round(used),
+            "lanes": lanes + 3, "nrounds": nrounds, "rc": rc,
+            "launches": launched.value,
+            "launches_expected": rk.launches_per_tile(nrounds, used),
             "differing_bytes": int((out[:n] != want).sum()),
             "tile_is_the_literal_run": bool(
                 (out[rk.HALO:n] == 0x41).all()),
+            "out_past_used_overwritten": int(
+                (out[n:] != OUT_SENTINEL).sum()),
             "scratch_past_used_overwritten": int(
                 (scratch[used:] != LINK_SENTINEL).sum())}
-    check(rc == 0 and line["differing_bytes"] == 0
+    check(rc == 0 and line["launches"] == line["launches_expected"]
+          and line["differing_bytes"] == 0
           and line["tile_is_the_literal_run"]
+          and line["out_past_used_overwritten"] == 0
           and line["scratch_past_used_overwritten"] == 0, line)
     return line
+
+
+def k6_bounds(idev, watch, dev) -> dict:
+    """K6's bounds on both of its round shapes (`_k6_corrupt`): a corrupt
+    CFG_S tile of 1,000 bytes (7 hops a round, a byte a thread), and a
+    corrupt tile of CFG_L's shape and 300,000 bytes, past SMALL_TILE (3
+    hops a round, 8 bytes a thread); each over several expansion CTAs."""
+    return {"small": _k6_corrupt(idev, watch, dev, idev.CFG_S, 1000),
+            "large": _k6_corrupt(idev, watch, dev, idev.CFG_L, 300_000)}
 
 
 def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
@@ -1273,7 +1314,7 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
         all_indexes[label] = indexes
         emit(run)
     # K4 runs once per batch that has a busy lane, not once per tile; K6
-    # 2 + nrounds times a tile.
+    # launches_per_tile times a tile.
     batches = sum(run["k4_launches"] for run in runs)
     k6_want = sum(run["k6_launches"] for run in runs)
     emit({"phase": "decode_launches", **launches,
@@ -1365,7 +1406,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
           "launches": launches["lz_resolve"],
           "max_abs_err": max(line["max_abs_err"] for line in lines),
           **{key: tile[key] for key in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "share_of_bound")},
+                                        "bound_by", "share_of_bound",
+                                        "hops_per_round")},
           "library_ms": None}
     torch.cuda.empty_cache()
     return launches, row, k6
@@ -2350,7 +2392,8 @@ def main() -> int:
           "libraries": sorted(lib.name for lib in libs.values()),
           "ptxas": {name: [line.strip() for line in libs[name].with_suffix(
               ".log").read_text().splitlines()
-              if "registers" in line or "spill" in line]
+              if "entry function" in line or "registers" in line
+              or "spill" in line]
               for name in kb.CUDA_SOURCES}})
     # Phase 3: K1, K2 and K3 against their plain versions and zlib.
     gen = torch.Generator(device=dev)
@@ -2712,9 +2755,23 @@ def main() -> int:
                                  "lz_resolve": k6_err})
     # K6 on the first tile of a 1 MiB member (CFG_S) beside the row's
     # CFG_L tile.
-    k6["cfg_s_tile"] = {key: k6_tiles[0][key] for key in (
-        "tile_bytes", "used", "nrounds", "launches", "ms", "plain_ms",
-        "bound_ms", "bound_by")}
+    k6_keys = ("tile_bytes", "used", "nrounds", "hops_per_round",
+               "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+               "share_of_bound")
+    k6["cfg_s_tile"] = {key: k6_tiles[0][key] for key in k6_keys}
+    # And on a zip entry's tile: the archive tree's text entry nearest its
+    # median size, deflated at BestSpeed as create_zip_archive does.
+    from zippy_tpu_torch.ops import inflate_device as idev
+    from zippy_tpu_torch.ops import inflate_kernels as ik
+
+    entry = min((v for i, v in enumerate(archive_tree(data).values())
+                 if i % 16 != 15 and v),
+                key=lambda v: abs(len(v) - ARCHIVE_MEDIAN))
+    small = td.deflate(entry, 1)
+    small_tile = k6_tile(idev, ik, watch, "zip entry", small,
+                         idev.build_decode_index(small), dev)
+    emit({"phase": "lz_resolve_small_tile", **small_tile})
+    k6["small_tile"] = {key: small_tile[key] for key in k6_keys}
 
     # Phase 7: CPU and CUDA bytes.
     piece = data[:256 << 10]

@@ -238,3 +238,29 @@ def test_huffman_kernels_imports_without_cuda_nvcc_or_jax(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def _cu_int(text: str, name: str) -> int:
+    import re
+
+    m = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert m, name
+    return int(m.group(1))
+
+
+def test_layout_constants_match_the_kernel_source():
+    """The wrapper's LL_WARPS, ROWS_PER_CTA and THREADS are K5's kLLWarps,
+    kRowsPerCta and kThreads (two litlen groups and the distance warp), a
+    CTA's threads fit the card's 1,024, and the kernel's named barriers are
+    ids 1 to 15 (0 is __syncthreads, which it never uses)."""
+    text = (kb.CSRC / "huffman.cu").read_text()
+    assert _cu_int(text, "kLLWarps") == hk.LL_WARPS
+    assert _cu_int(text, "kRowsPerCta") == hk.ROWS_PER_CTA
+    assert "kThreads = (2 * kLLWarps + 1) * 32;" in text
+    assert hk.THREADS == (2 * hk.LL_WARPS + 1) * 32 <= 1024
+    assert "__syncthreads(" not in text
+    import re
+
+    bars = re.search(r"constexpr int (kBarA = 1,[^;]*);", text).group(1)
+    ids = [int(v) for v in re.findall(r"= (\d+)", bars)]
+    assert sorted(ids) == list(range(1, len(ids) + 1)) and max(ids) <= 15

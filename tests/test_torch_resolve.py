@@ -7,6 +7,7 @@ tokens; the stored-span tables the packs carry; and the K6 wrapper's
 argument checks. Every comparison is exact."""
 
 import functools
+import re
 import types
 
 import jax
@@ -26,6 +27,7 @@ from test_torch_inflate import STREAMS  # noqa: E402
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 HALO = rk.HALO
+STO_MAX = rk.STO_MAX
 CFG = port.CFG_S
 OUT_PAD = HALO + CFG.tile_out
 K = 32
@@ -367,14 +369,152 @@ def test_lz_resolve_checks_its_arguments():
             rk.lz_resolve(*args, CFG)
 
 
+def _cu_int(text: str, name: str) -> int:
+    m = re.search(rf"constexpr int {name} = ([^;]+);", text)
+    assert m, name
+    return int(eval(m.group(1), {}))
+
+
+def _kernel_source() -> str:
+    return open(rk.__file__.rsplit("/ops/", 1)[0] + "/csrc/resolve.cu").read()
+
+
 def test_launch_budget_and_kernel_source():
-    """K6 launches 2 + max(nrounds, 1) kernels a tile, within nrounds + 3;
-    its source has the wrapper's constants."""
-    for n in range(CAP + 1):
-        assert rk.launches_per_tile(n) <= n + 3
-    assert rk.launches_per_tile(0) == 3 and rk.launches_per_tile(5) == 7
-    text = open(rk.__file__.rsplit("/ops/", 1)[0]
-                + "/csrc/resolve.cu").read()
-    assert f"kHalo = {HALO};" in text
-    assert "kStoMax = 1 << 16;" in text and rk.STO_MAX == 1 << 16
+    """K6 launches an expansion and rounds_for(nrounds, hops) rounds a tile,
+    within nrounds + 3; its source has the wrapper's constants."""
+    cap_l = port._nrounds_for_depth(0xFFFF, port.CFG_L)
+    for used in (0, 1000, CFG.tile_out, CFG.tile_out + 1,
+                 port.CFG_L.tile_out):
+        for n in range(cap_l + 1):
+            assert rk.launches_per_tile(n, used) <= n + 3
+    assert rk.launches_per_tile(0, 1000) == 2
+    assert rk.launches_per_tile(6, 16399) == 3
+    assert rk.launches_per_tile(7, 164504) == 4
+    assert rk.launches_per_tile(8, 2835774) == 5
+    text = _kernel_source()
+    assert _cu_int(text, "kHalo") == HALO
+    assert _cu_int(text, "kStoMax") == rk.STO_MAX == 1 << 16
+    assert _cu_int(text, "kSmallTile") == rk.SMALL_TILE
+    assert _cu_int(text, "kSmallHops") == rk.SMALL_HOPS
+    assert _cu_int(text, "kLargeHops") == rk.LARGE_HOPS
+    assert "const int b = hops >= 7 ? 3 : hops >= 3 ? 2 : 1;" in text
+    assert "return nrounds > 0 ? (nrounds + b - 1) / b : 1;" in text
     assert "lz_resolve" in rk.LAUNCHES
+
+
+def test_round_shapes_reach_the_plain_rounds():
+    """Every CFG_S tile takes the small round shape (SMALL_HOPS hops a
+    round), a larger CFG_L tile the large one; and for every nrounds up to
+    CFG_L's cap, rounds_for's rounds of h hops reach (h + 1)^rounds hops
+    down a chain, at least the plain version's 2^nrounds."""
+    assert rk.hops_per_round(CFG.tile_out) == rk.SMALL_HOPS == 7
+    assert rk.hops_per_round(0) == rk.SMALL_HOPS
+    assert rk.hops_per_round(CFG.tile_out + 1) == rk.LARGE_HOPS == 3
+    assert rk.SMALL_TILE == CFG.tile_out
+    for hops in (1, 3, 7):
+        for n in range(port._nrounds_for_depth(0xFFFF, port.CFG_L) + 1):
+            rounds = rk.rounds_for(n, hops)
+            assert rounds >= 1 and (hops + 1) ** rounds >= 2 ** n
+            assert (hops + 1) ** (rounds - 1) < 2 ** n or n == 0
+
+
+def _k6_model(packed, seg_out, words, sto, halo, used: int, nrounds: int,
+              cfg, hops: int) -> torch.Tensor:
+    """K6's algorithm step for step on the CPU (csrc/resolve.cu), under the
+    slowest schedule its kernels allow: each hop of a round reads the
+    states as the round found them. The expansion writes each covered tile
+    byte's int32 state (~value for a literal, a stored byte or a distance
+    of 0; a match byte's link, start - d + (o mod d) clamped) and the
+    literals' and stored bytes' values; then rounds_for(nrounds, hops)
+    rounds, each taking `hops` hops an open byte (0 when nrounds is 0), the
+    last finishing with one more lookup and out[0]'s value for a byte still
+    open. Returns out[:HALO + used]; every tile byte must be covered."""
+    out_pad = HALO + cfg.tile_out
+    unset = 1 << 30  # no token or span covered the byte
+    out = torch.zeros(out_pad, dtype=torch.int64)
+    out[:HALO] = halo.to(torch.int64)
+    state = torch.full((used,), unset, dtype=torch.int64)
+    tok = packed.T.to(torch.int64)
+    length, low = tok >> 16, tok & 0xFFFF
+    start = seg_out.to(torch.int64)[:, None] + torch.cumsum(length, 1) - length
+    length, low, start = length.reshape(-1), low.reshape(-1), start.reshape(-1)
+    o = torch.arange(int(length.sum())) - torch.repeat_interleave(
+        torch.cumsum(length, 0) - length, length)
+    low_b = torch.repeat_interleave(low, length)
+    start_b = torch.repeat_interleave(start, length)
+    pos = start_b + o
+    inside = (pos >= HALO) & (pos < HALO + used)
+    d = (low_b - 256).clamp(min=1)
+    link = (start_b - d + o % d).clamp(0, out_pad - 1)
+    s = torch.where(low_b < 256, ~low_b, torch.where(low_b > 256, link, ~0))
+    state[pos[inside] - HALO] = s[inside]
+    lit = inside & (low_b <= 256)
+    out[pos[lit]] = torch.where(low_b[lit] < 256, low_b[lit], 0)
+    nbytes = words.numel() * 4
+    wbytes = words.contiguous().view(torch.uint8).to(torch.int64)
+    for src, o0, ln in rk.stored_spans(sto):
+        src = min(max(src, 0), nbytes)
+        o0 = min(max(o0, 0), out_pad)
+        ln = max(0, min(ln, STO_MAX, out_pad - o0))
+        n = min(ln, nbytes - src)
+        b = torch.cat([wbytes[src:src + n], torch.zeros(ln - n, dtype=torch.int64)])
+        p = torch.arange(o0, o0 + ln)
+        out[p[p < HALO + used]] = b[p < HALO + used]
+        keep = (p >= HALO) & (p < HALO + used)
+        state[p[keep] - HALO] = ~b[keep]
+    assert not (state == unset).any(), "a tile byte no token covered"
+
+    j = torch.arange(used)
+    zero = ~out[0]
+
+    def look(snap, p):
+        q = snap[(p - HALO).clamp(0, max(used - 1, 0))] if used else p
+        q = torch.where(q >= p, ~torch.zeros_like(q), q)
+        return torch.where(p < HALO, ~out[p.clamp(max=HALO - 1)], q)
+
+    for r in range(rk.rounds_for(nrounds, hops)):
+        snap = state.clone()
+        is_open = (state >= 0) & (state < HALO + j)
+        s = state.clone()
+        for _ in range(hops if nrounds > 0 else 0):
+            s = torch.where(is_open & (s >= 0), look(snap, s.clamp(min=0)), s)
+        if r == rk.rounds_for(nrounds, hops) - 1:
+            v = look(snap, s.clamp(min=0))
+            s = torch.where(is_open & (s >= 0),
+                            torch.where(v < 0, v, zero), s)
+        state = torch.where(is_open, s, state)
+        done = is_open & (state < 0)
+        out[HALO + j[done]] = ~state[done]
+    return out[:HALO + used].to(torch.uint8)
+
+
+def _corrupt_tile():
+    """The corrupt tile of test_tokens_past_used_change_no_byte_a_caller_reads
+    as a Tile-like namespace."""
+    used = 1000
+    tile = types.SimpleNamespace(
+        packed=np.zeros((K, 2), np.int32),
+        seg_out=np.array([HALO, HALO + used + 5000], np.int32),
+        words=_words(85), sto=np.zeros((3, CFG.nsto), np.int32),
+        halo=_halo(86), used=used)
+    tile.packed[0, 0] = (1 << 16) | 0x41
+    tile.packed[1:, 0] = (258 << 16) | (1 + 256)
+    tile.packed[:, 1] = (1 << 16) | 0x42
+    tile.sto[1] = OUT_PAD
+    return tile
+
+
+@pytest.mark.parametrize("hops", [rk.LARGE_HOPS, rk.SMALL_HOPS])
+@pytest.mark.parametrize("name", sorted(TILES) + ["corrupt"])
+def test_k6_model_equals_plain(name, hops):
+    """The step-for-step model of K6's expansion and rounds, with either
+    round shape, gives the plain version's out[:HALO + used] on every
+    synthetic tile, the 43,000-token chain at CFG_S's 17-round cap and the
+    corrupt tile whose tokens run past `used` included."""
+    tile = _corrupt_tile() if name == "corrupt" else TILES[name]()
+    args = Tile.port_args(tile)
+    n = HALO + tile.used
+    want = rk._resolve_plain(*args[:3], rk.stored_spans(args[3]), args[4],
+                             CAP, CFG)[:n]
+    got = _k6_model(*args, CAP, CFG, hops)
+    assert torch.equal(got, want)

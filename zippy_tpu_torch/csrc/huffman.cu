@@ -21,18 +21,40 @@
 //    Bound: neither bytes (about 10 KB a row) nor operations (a few hundred
 //    thousand a row): the launch, and then the chain of dependent passes
 //    inside a row (30 bisection steps, up to 2 * (15 + 15 + 34) repair
-//    passes, each a block-wide sort or reduction ended by a barrier). The
-//    torch version issued each pass as separate launches, about 13,400 a
-//    group with the card mostly idle.
-//    Design: everything a row needs stays in shared memory (histograms,
-//    float32 depths, both candidate length vectors, a 512-slot sort
-//    buffer); a pass is a bitonic sort of unique int32 keys, a block-wide
-//    scan or a block-wide reduction; a repair loop ends once a pass would
-//    change nothing (each pass is a function of the current lengths alone,
-//    so the result is the fixed loop count's). The float steps use the _rn
-//    intrinsics so that nvcc contracts nothing into an FMA, and the depths
-//    are computed as the plain version computes them: float32 ratio, the
-//    float64 log2 of CUDA's math library, rounded to float32.
+//    passes, each a sort, a scan or a reduction). The torch version issued
+//    each pass as separate launches, about 13,400 a group with the card
+//    mostly idle.
+//    Design: one CTA a row (kRowsPerCta), its warps in groups that each
+//    synchronize alone, with __syncwarp or a named barrier (bar.sync id,
+//    n), never a barrier of the whole CTA:
+//    - group A, kLLWarps warps: the litlen code's candidate (a), the
+//      bisected water-filling, and its repair;
+//    - group B, kLLWarps warps, beside it: candidate (b), nearest
+//      rounding, and its repair; it hands its lengths and cost to A
+//      (barrier kBarAB), which picks the winner and reassigns it;
+//    - warp D, beside both: the distance code (both candidates, one warp)
+//      and the litlen symbols' frequency-rank order, which it hands to A
+//      for the reassignment (kBarRank); then, once A hands it the litlen
+//      lengths (kBarLL), the header's run lengths, the code-length code
+//      (one warp), the header cost and the stored/fixed/dynamic choice,
+//      which it hands to A and B (kBarMode); meanwhile A and B compute the
+//      litlen code's canonical codes, and then write the litlen outputs.
+//    kLLWarps is the fastest of 1, 2, 4 and 8 warps a group, timed in
+//    turns on an L6 group on the H100.
+//    A symbol stays with one thread (its frequency, depth and lengths in
+//    registers). A repair pass that would sort (the original's bitonic
+//    sorts of 512 slots) computes each symbol's prefix in the sorted order
+//    directly, as the sum over the symbols whose key is smaller: the keys
+//    are unique (the index in their low bits), so the sum is the sorted
+//    scan's. In one warp the other symbols come by shuffles; in a group,
+//    from shared memory. A reduction is a 5-shuffle warp reduction and,
+//    in a group, one named barrier over alternating slots.
+//    A repair loop ends once a pass changes nothing (each pass is a
+//    function of the current lengths alone, so the result is the fixed
+//    loop count's). The float steps use the _rn intrinsics so that nvcc
+//    contracts nothing into an FMA, and the depths are computed as the
+//    plain version computes them: float32 ratio, the float64 log2 of
+//    CUDA's math library, rounded to float32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,36 +88,29 @@ struct HuffmanArgs {
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kLitLen = 286;
 constexpr int kDist = 30;
 constexpr int kCodeLen = 19;
-constexpr int kSort = 512;             // sort slots: 2 * kThreads
+constexpr int kLLWarps = 4;            // warps of group A, and of group B
+constexpr int kRowsPerCta = 1;
+constexpr int kThreads = (2 * kLLWarps + 1) * 32;
+constexpr int kGroup = kLLWarps * 32;  // threads of group A (and of B)
+constexpr int kPerThread = (kLitLen + kGroup - 1) / kGroup;
 constexpr int kFkeyMax = (1 << 20) - 1;
-constexpr int kPadKey = 1 << 30;       // after every real key (< 2^29 + 512)
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
+// Named barriers (0 is __syncthreads, which nothing here uses).
+constexpr int kBarA = 1, kBarB = 2, kBarAB = 3, kBarLL = 4, kBarMode = 5,
+              kBarRank = 6;
 
-static_assert(kSort == 2 * kThreads, "one compare-exchange a thread");
+static_assert(kCodeLen <= 32 && kDist <= 32, "one symbol a lane");
 
-// One row's workspace, all in shared memory.
-struct Shared {
-  long long ll_hist[kLitLen];
-  long long d_hist[kDist];
-  long long cl_freq[kCodeLen];
-  long long red[kWarps];
-  float nll[kLitLen];
-  int fkey[kLitLen];
-  int la[kLitLen];
-  int lb[kLitLen];
-  int key[kSort];
-  int val[kSort];
-  int buf[kSort];
-  int cnt[16];
-  int first[16];
-  int ll_len[kLitLen];
-  int d_len[kDist];
-  int cl_len[kCodeLen];
-};
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
 
 struct Sum {
   __device__ long long operator()(long long a, long long b) const {
@@ -108,298 +123,375 @@ struct Max {
   }
 };
 
-// The reduction of every thread's v, returned to every thread.
 template <typename Op>
-__device__ long long block_reduce(long long v, Op op, Shared& sh) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // the previous reduction's reads are done
-  if ((threadIdx.x & 31) == 0) sh.red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  long long r = sh.red[0];
-  for (int w = 1; w < kWarps; ++w) r = op(r, sh.red[w]);
-  return r;
+__device__ __forceinline__ long long warp_reduce(long long v, Op op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kAll, v, o));
+  return v;
 }
 
-__device__ long long block_sum(long long v, Shared& sh) {
-  return block_reduce(v, Sum(), sh);
-}
+// A group of NW warps that synchronizes alone: __syncwarp for one warp, a
+// named barrier for more. Its reductions alternate between two sets of
+// slots, so that one barrier a reduction suffices: a set is written again
+// only after the next reduction's barrier, which every thread reaches
+// after it has read this one.
+template <int NW>
+struct Group {
+  int t;           // this thread's index in the group
+  int bar;         // its named barrier (NW > 1)
+  long long* red;  // 2 * NW slots of shared memory (NW > 1)
+  int parity;
 
-__device__ long long block_max(long long v, Shared& sh) {
-  return block_reduce(v, Max(), sh);
-}
-
-// Inclusive prefix sum of buf[0 .. n), n <= kSort, in place; two slots a
-// thread. Every value and sum fits int32 (at most 286 * 2^14).
-__device__ void block_scan(int* buf, int n, Shared& sh) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  // Other threads wrote buf, and may still read the previous reduction's
-  // red.
-  __syncthreads();
-  const int a0 = 2 * t < n ? buf[2 * t] : 0;
-  const int a1 = 2 * t + 1 < n ? buf[2 * t + 1] : 0;
-  int x = a0 + a1;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+  __device__ void sync() const {
+    if (NW == 1)
+      __syncwarp();
+    else
+      bar_sync(bar, NW * 32);
   }
-  if (lane == 31) sh.red[warp] = x;
-  __syncthreads();
-  int base = 0;
-  for (int w = 0; w < warp; ++w) base += (int)sh.red[w];
-  const int before = base + x - a0 - a1;
-  if (2 * t < n) buf[2 * t] = before + a0;
-  if (2 * t + 1 < n) buf[2 * t + 1] = before + a0 + a1;
-  __syncthreads();
-}
+  template <typename Op>
+  __device__ long long reduce(long long v, Op op) {
+    v = warp_reduce(v, op);
+    if (NW == 1) return v;
+    long long* r = red + parity * NW;
+    parity ^= 1;
+    if ((t & 31) == 0) r[t >> 5] = v;
+    sync();
+    long long out = r[0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) out = op(out, r[w]);
+    return out;
+  }
+  __device__ long long sum(long long v) { return reduce(v, Sum()); }
+  __device__ long long max(long long v) { return reduce(v, Max()); }
+};
 
-// Ascending bitonic sort of key[0 .. n) with val beside it, n a power of
-// two <= kSort. The keys are unique, so the order is the argsort's.
-__device__ void sort_pairs(int* key, int* val, int n) {
-  __syncthreads();
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < (n >> 1); p += kThreads) {
-        const int i = 2 * p - (p & (j - 1));
-        const int q = i + j;
-        const int ki = key[i], kq = key[q];
-        if ((ki > kq) == ((i & k) == 0)) {
-          key[i] = kq;
-          key[q] = ki;
-          const int v = val[i];
-          val[i] = val[q];
-          val[q] = v;
+// A code's symbols as one group holds them: symbol t + i * NW * 32 with
+// thread t, P of them a thread, and two shared arrays of S ints for the
+// passes that read other threads' symbols (keys and gains or costs; with
+// one warp, shuffles take their place).
+template <int NW, int P>
+struct Code {
+  int S, limit;
+  long long f[P];  // frequency (0 past S)
+  int l[P];        // the candidate's lengths
+  float nll[P];    // ideal depth
+  int fkey[P];     // min(frequency, kFkeyMax)
+  int* key;        // shared, S
+  int* val;        // shared, S
+
+  __device__ int sym(const Group<NW>& g, int i) const {
+    return g.t + i * NW * 32;
+  }
+
+  // sum over the symbols j with key[j] < mine (less_equal: <=) of val[j],
+  // for each of this thread's symbols, keys and vals given per symbol.
+  // Unique keys make it the scan of the vals in the key order.
+  template <bool kLessEqual>
+  __device__ void prefix(Group<NW>& g, const int (&k)[P], const int (&v)[P],
+                         long long (&out)[P]) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) out[i] = 0;
+    if (NW == 1) {
+      // S <= 32 * P: symbol j is lane j % 32's slot j / 32.
+#pragma unroll
+      for (int i2 = 0; i2 < P; ++i2)
+        for (int lane = 0; lane < 32; ++lane) {
+          const int kj = __shfl_sync(kAll, k[i2], lane);
+          const int vj = __shfl_sync(kAll, v[i2], lane);
+#pragma unroll
+          for (int i = 0; i < P; ++i)
+            if (kLessEqual ? kj <= k[i] : kj < k[i]) out[i] += vj;
         }
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int s = sym(g, i);
+      if (s < S) {
+        key[s] = k[i];
+        val[s] = v[i];
       }
-      __syncthreads();
     }
+    g.sync();
+    for (int j = 0; j < S; ++j) {
+      const int kj = key[j], vj = val[j];
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        if (kLessEqual ? kj <= k[i] : kj < k[i]) out[i] += vj;
+    }
+    g.sync();  // key and val are written again by the next pass
   }
-}
 
-// The Kraft sum sum(2^(limit - l)) over the active symbols, block-wide.
-__device__ long long kraft_sum(const long long* freq, const int* l, int S,
-                               int limit, Shared& sh) {
-  long long part = 0;
-  for (int s = threadIdx.x; s < S; s += kThreads)
-    if (freq[s] > 0) part += 1 << (limit - l[s]);
-  return block_sum(part, sh);
-}
+  __device__ long long kraft(Group<NW>& g) {
+    long long part = 0;
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      if (f[i] > 0) part += 1 << (limit - l[i]);
+    return g.sum(part);
+  }
 
-// `_kraft_lengths`' refine: clamp, then the lengthen, bulk_shorten and
-// consume passes, in place on l. Each loop ends early once a pass changes
-// nothing: the next pass would see the same lengths.
-__device__ void refine(const long long* freq, int* l, int S, int limit,
-                       Shared& sh) {
-  const int t = threadIdx.x;
-  const int budget = 1 << limit;
-  const int n = S > 32 ? kSort : 32;
-  for (int s = t; s < S; s += kThreads)
-    l[s] = freq[s] > 0 ? min(max(l[s], 1), limit) : 0;
+  // `_kraft_lengths`' refine: clamp, then the lengthen, bulk_shorten and
+  // consume passes, on l. Each loop ends early once a pass changes
+  // nothing: the next pass would see the same lengths.
+  __device__ void refine(Group<NW>& g) {
+    const long long budget = 1 << limit;
+    int k[P], v[P];
+    long long pre[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      l[i] = f[i] > 0 ? min(max(l[i], 1), limit) : 0;
 
-  // Over-subscribed: lengthen the cheapest (least frequent) symbols.
-  for (int it = 0; it < limit; ++it) {
-    const long long need = kraft_sum(freq, l, S, limit, sh) - budget;
-    if (need <= 0) break;
-    for (int i = t; i < n; i += kThreads) {
-      sh.val[i] = i;
-      sh.key[i] = i < S ? (freq[i] > 0 && l[i] < limit ? sh.fkey[i] : 1 << 20)
-                              * 512 + i
-                        : kPadKey + i;
-    }
-    sort_pairs(sh.key, sh.val, n);
-    for (int i = t; i < n; i += kThreads) {
-      const int s = sh.val[i];
-      sh.buf[i] = s < S && freq[s] > 0 && l[s] < limit
-                      ? 1 << (limit - l[s] - 1) : 0;
-    }
-    block_scan(sh.buf, n, sh);
-    long long changed = 0;
-    for (int i = t; i < n; i += kThreads) {
-      const int s = sh.val[i];
-      if (s < S && freq[s] > 0 && l[s] < limit) {
-        const int gain = 1 << (limit - l[s] - 1);
-        if (sh.buf[i] - gain < need) {
-          l[s] += 1;
+    // Over-subscribed: lengthen the cheapest (least frequent) symbols,
+    // those whose gains before them in (frequency, index) order are short
+    // of the need.
+    for (int it = 0; it < limit; ++it) {
+      const long long need = kraft(g) - budget;
+      if (need <= 0) break;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const bool cand = f[i] > 0 && l[i] < limit;
+        k[i] = (cand ? fkey[i] : 1 << 20) * 512 + sym(g, i);
+        v[i] = cand ? 1 << (limit - l[i] - 1) : 0;
+      }
+      prefix<false>(g, k, v, pre);
+      long long changed = 0;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        if (v[i] > 0 && pre[i] < need) {
+          l[i] += 1;
           changed = 1;
         }
-      }
+      if (!g.max(changed)) break;
     }
-    if (!block_max(changed, sh)) break;
-  }
 
-  // Spend the slack wholesale, best benefit density first.
-  for (int it = 0; it < limit; ++it) {
-    const long long slack = budget - kraft_sum(freq, l, S, limit, sh);
-    if (slack <= 0) break;
-    for (int i = t; i < n; i += kThreads) {
-      sh.val[i] = i;
-      if (i < S) {
-        const bool cand = freq[i] > 0 && l[i] >= 2;
+    // Spend the slack wholesale, best benefit density first: those whose
+    // costs up to and including theirs in (density descending, index)
+    // order fit the slack.
+    for (int it = 0; it < limit; ++it) {
+      const long long slack = budget - kraft(g);
+      if (slack <= 0) break;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const bool cand = f[i] > 0 && l[i] >= 2;
         const long long density =
-            cand ? min(freq[i] >> (limit - l[i]), (long long)kFkeyMax) : -1;
-        sh.key[i] = (int)(i - density * 512);  // -(density * 512 - idx)
-      } else {
-        sh.key[i] = kPadKey + i;
+            cand ? min(f[i] >> (limit - l[i]), (long long)kFkeyMax) : -1;
+        k[i] = (int)(sym(g, i) - density * 512);  // -(density * 512 - idx)
+        v[i] = cand ? 1 << (limit - l[i]) : 0;
       }
+      prefix<true>(g, k, v, pre);
+      long long changed = 0;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        if (v[i] > 0 && pre[i] <= slack) {
+          l[i] -= 1;
+          changed = 1;
+        }
+      if (!g.max(changed)) break;
     }
-    sort_pairs(sh.key, sh.val, n);
-    for (int i = t; i < n; i += kThreads) {
-      const int s = sh.val[i];
-      sh.buf[i] = s < S && freq[s] > 0 && l[s] >= 2 ? 1 << (limit - l[s])
-                                                     : 0;
-    }
-    block_scan(sh.buf, n, sh);
-    long long changed = 0;
-    for (int i = t; i < n; i += kThreads) {
-      const int s = sh.val[i];
-      if (s < S && freq[s] > 0 && l[s] >= 2 && sh.buf[i] <= slack) {
-        l[s] -= 1;
-        changed = 1;
+
+    // Exact completion: shorten the most frequent symbol (the first of
+    // tied maxima) of the largest cost that still fits. Shortening a
+    // symbol of cost c doubles its cost, so the Kraft sum grows by exactly
+    // c: the slack is carried, not summed again.
+    long long slack = budget - kraft(g);
+    for (int it = 0; it < 2 * limit + 4; ++it) {
+      long long best = -1;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const long long cost =
+            f[i] > 0 && l[i] >= 2 ? 1 << (limit - l[i]) : 1 << 28;
+        if (cost <= slack) best = best > cost ? best : cost;
       }
+      const long long maxcost = g.max(best);
+      if (slack <= 0 || maxcost <= 0) break;  // nothing fits: no change
+      long long pick = 0;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const long long cost =
+            f[i] > 0 && l[i] >= 2 ? 1 << (limit - l[i]) : 1 << 28;
+        const long long fv = cost == maxcost ? f[i] : -1;
+        const long long p = ((fv + 1) << 9) | (511 - sym(g, i));
+        pick = pick > p ? pick : p;
+      }
+      const int s = 511 - (int)(g.max(pick) & 511);
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        if (sym(g, i) == s) l[i] -= 1;
+      slack -= maxcost;
     }
-    if (!block_max(changed, sh)) break;
   }
 
-  // Exact completion: shorten the most frequent symbol (the first of tied
-  // maxima) of the largest cost that still fits.
-  for (int it = 0; it < 2 * limit + 4; ++it) {
-    const long long slack = budget - kraft_sum(freq, l, S, limit, sh);
-    long long best = -1;
-    for (int s = t; s < S; s += kThreads) {
-      const int cost = freq[s] > 0 && l[s] >= 2 ? 1 << (limit - l[s])
-                                                : 1 << 28;
-      if (cost <= slack) best = max(best, (long long)cost);
-    }
-    const long long maxcost = block_max(best, sh);
-    if (slack <= 0 || maxcost <= 0) break;  // nothing fits: no change
-    long long pick = 0;
-    for (int s = t; s < S; s += kThreads) {
-      const int cost = freq[s] > 0 && l[s] >= 2 ? 1 << (limit - l[s])
-                                                : 1 << 28;
-      const long long f = cost == maxcost ? freq[s] : -1;
-      pick = max(pick, ((f + 1) << 9) | (511 - s));
-    }
-    pick = 511 - (block_max(pick, sh) & 511);
-    if (t == 0) l[pick] -= 1;
-    __syncthreads();
-  }
-}
-
-// `_kraft_lengths(freq, limit)` of one row of S <= 286 symbols into out.
-__device__ void kraft_lengths(const long long* freq, int S, int limit,
-                              int* out, Shared& sh) {
-  const int t = threadIdx.x;
-  const int budget = 1 << limit;
-  const int n = S > 32 ? kSort : 32;
-  __syncthreads();
-  long long part = 0;
-  for (int s = t; s < S; s += kThreads) part += freq[s];
-  long long total = block_sum(part, sh);
-  if (total < 1) total = 1;
   // The ideal depths as deflate_device._ideal_depth computes them.
-  const float ftotal = __ll2float_rn(total);
-  for (int s = t; s < S; s += kThreads) {
-    const long long f = freq[s];
-    const float ratio = __fdiv_rn(ftotal, __ll2float_rn(f > 1 ? f : 1));
-    sh.nll[s] = __double2float_rn(log2((double)ratio));
-    sh.fkey[s] = (int)min(f, (long long)kFkeyMax);
+  __device__ void depths(Group<NW>& g) {
+    long long part = 0;
+#pragma unroll
+    for (int i = 0; i < P; ++i) part += f[i];
+    long long total = g.sum(part);
+    if (total < 1) total = 1;
+    const float ftotal = __ll2float_rn(total);
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const float ratio =
+          __fdiv_rn(ftotal, __ll2float_rn(f[i] > 1 ? f[i] : 1));
+      nll[i] = __double2float_rn(log2((double)ratio));
+      fkey[i] = (int)min(f[i], (long long)kFkeyMax);
+    }
   }
-  __syncthreads();
 
-  // Candidate (a): water-filled ceil with a bisected offset.
-  float lo = -(float)limit, hi = (float)limit;
-  for (int it = 0; it < 30; ++it) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    long long ks = 0;
-    for (int s = t; s < S; s += kThreads) {
-      if (freq[s] > 0) {
-        const float c = fminf(fmaxf(ceilf(__fadd_rn(sh.nll[s], mid)), 1.0f),
-                              (float)limit);
-        ks += 1 << (limit - (int)c);
+  // Candidate (a): water-filled ceil with a bisected offset, repaired.
+  __device__ void candidate_a(Group<NW>& g) {
+    const long long budget = 1 << limit;
+    float lo = -(float)limit, hi = (float)limit;
+    for (int it = 0; it < 30; ++it) {
+      const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+      long long ks = 0;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        if (f[i] > 0) {
+          const float c = fminf(
+              fmaxf(ceilf(__fadd_rn(nll[i], mid)), 1.0f), (float)limit);
+          ks += 1 << (limit - (int)c);
+        }
+      if (g.sum(ks) <= budget)
+        hi = mid;
+      else
+        lo = mid;
+    }
+    // Clamped to [1, limit] by refine (the depths lie in [0, 64), so the
+    // float -> int conversion is exact).
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      l[i] = (int)fminf(ceilf(__fadd_rn(nll[i], hi)), 64.0f);
+    refine(g);
+  }
+
+  // Candidate (b): nearest rounding, repaired.
+  __device__ void candidate_b(Group<NW>& g) {
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      l[i] = (int)fminf(floorf(__fadd_rn(nll[i], 0.5f)), 64.0f);
+    refine(g);
+  }
+
+  __device__ long long bits(Group<NW>& g) {
+    long long part = 0;
+#pragma unroll
+    for (int i = 0; i < P; ++i) part += f[i] * l[i];
+    return g.sum(part);
+  }
+
+  // Reassign the lengths l (the winner's) by frequency rank into out: the
+  // active symbols in (frequency descending, index ascending) order take
+  // the lengths in ascending order; ranks[s] is symbol s's place in that
+  // order (rank_order). cnt: 16 shared ints.
+  __device__ void reassign(Group<NW>& g, const int* ranks, int* cnt,
+                           int* out) {
+    if (g.t < 16) cnt[g.t] = 0;
+    g.sync();
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      if (f[i] > 0) atomicAdd(&cnt[l[i]], 1);
+    g.sync();
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int s = sym(g, i);
+      if (s >= S) continue;
+      int v = 0;
+      if (f[i] > 0) {
+        int below = 0;
+        for (v = 1; v < 16; ++v) {
+          below += cnt[v];
+          if (ranks[s] < below) break;
+        }
       }
-    }
-    if (block_sum(ks, sh) <= budget) {
-      hi = mid;
-    } else {
-      lo = mid;
+      out[s] = v;
     }
   }
-  // Candidate (b): nearest rounding. Both clamped to [1, limit] by refine
-  // (the depths lie in [0, 64), so the float -> int conversion is exact).
-  for (int s = t; s < S; s += kThreads) {
-    sh.la[s] = (int)fminf(ceilf(__fadd_rn(sh.nll[s], hi)), 64.0f);
-    sh.lb[s] = (int)fminf(floorf(__fadd_rn(sh.nll[s], 0.5f)), 64.0f);
-  }
-  __syncthreads();
-  refine(freq, sh.la, S, limit, sh);
-  refine(freq, sh.lb, S, limit, sh);
+};
 
-  long long bits_a = 0, bits_b = 0;
-  for (int s = t; s < S; s += kThreads) {
-    bits_a += freq[s] * sh.la[s];
-    bits_b += freq[s] * sh.lb[s];
+// ranks[s], for s < S, the place of symbol s in (frequency descending,
+// index ascending) order, from its histogram, by one warp: the number of
+// symbols whose key ((2^20 - min(frequency, kFkeyMax)) * 512 + index,
+// unique) is smaller. key: S shared ints of scratch.
+__device__ void rank_order(const long long* hist, int S, int* key,
+                           int* ranks) {
+  const int t = (int)threadIdx.x & 31;
+  for (int s = t; s < S; s += 32)
+    key[s] = ((1 << 20) - (int)min(hist[s], (long long)kFkeyMax)) * 512 + s;
+  __syncwarp();
+  for (int s = t; s < S; s += 32) {
+    const int ks = key[s];
+    int r = 0;
+    for (int j = 0; j < S; ++j) r += key[j] < ks;
+    ranks[s] = r;
   }
-  bits_a = block_sum(bits_a, sh);
-  bits_b = block_sum(bits_b, sh);
-  const int* lens = bits_a <= bits_b ? sh.la : sh.lb;
-
-  // Reassign the winning multiset by frequency rank: the active symbols in
-  // (frequency descending, index ascending) order take the lengths in
-  // ascending order.
-  if (t < 16) sh.cnt[t] = 0;
-  for (int i = t; i < n; i += kThreads) {
-    sh.val[i] = i;
-    sh.key[i] = i < S ? ((1 << 20) - sh.fkey[i]) * 512 + i : kPadKey + i;
-  }
-  __syncthreads();
-  for (int s = t; s < S; s += kThreads)
-    if (freq[s] > 0) atomicAdd(&sh.cnt[lens[s]], 1);
-  sort_pairs(sh.key, sh.val, n);
-  for (int r = t; r < S; r += kThreads) {
-    const int s = sh.val[r];
-    int v = 0;
-    if (freq[s] > 0) {
-      int below = 0;
-      for (v = 1; v < 16; ++v) {
-        below += sh.cnt[v];
-        if (r < below) break;
-      }
-    }
-    out[s] = v;
-  }
-  __syncthreads();
+  __syncwarp();
 }
 
 // Canonical codes of one code (RFC 1951 3.2.2), bit-reversed for LSB-first
-// emission, as deflate_device._rev_codes_device computes them.
-__device__ void rev_codes(const int* lens, int S, long long* out,
-                          Shared& sh) {
-  const int t = threadIdx.x;
-  __syncthreads();
-  if (t < 16) sh.cnt[t] = 0;
-  __syncthreads();
-  for (int s = t; s < S; s += kThreads) atomicAdd(&sh.cnt[lens[s]], 1);
-  __syncthreads();
+// emission, as deflate_device._rev_codes_device computes them: symbol s of
+// lens[0 .. S), first[] the first code of each length.
+__device__ long long rev_code(const int* lens, const int* first, int s) {
+  const int len = lens[s];
+  if (len == 0) return 0;
+  long long x = first[len];
+  for (int u = 0; u < s; ++u) x += lens[u] == len;
+  x = ((x & 0x5555) << 1) | ((x >> 1) & 0x5555);
+  x = ((x & 0x3333) << 2) | ((x >> 2) & 0x3333);
+  x = ((x & 0x0F0F) << 4) | ((x >> 4) & 0x0F0F);
+  x = ((x & 0x00FF) << 8) | ((x >> 8) & 0x00FF);
+  return (x >> 1) >> (15 - len);
+}
+
+// first[b], the first canonical code of length b, for lens[0 .. S), by one
+// warp; cnt: 16 shared ints of scratch.
+__device__ void first_codes(const int* lens, int S, int* cnt, int* first) {
+  const int t = (int)threadIdx.x & 31;
+  if (t < 16) cnt[t] = 0;
+  __syncwarp();
+  for (int s = t; s < S; s += 32) atomicAdd(&cnt[lens[s]], 1);
+  __syncwarp();
   if (t == 0) {
-    sh.first[0] = sh.first[1] = 0;
+    first[0] = first[1] = 0;
     for (int b = 2; b < 16; ++b)
-      sh.first[b] = (sh.first[b - 1] + sh.cnt[b - 1]) << 1;
+      first[b] = (first[b - 1] + cnt[b - 1]) << 1;
   }
-  __syncthreads();
-  for (int s = t; s < S; s += kThreads) {
-    const int len = lens[s];
-    long long code = 0;
-    if (len > 0) {
-      long long x = sh.first[len];
-      for (int u = 0; u < s; ++u) x += lens[u] == len;
-      x = ((x & 0x5555) << 1) | ((x >> 1) & 0x5555);
-      x = ((x & 0x3333) << 2) | ((x >> 2) & 0x3333);
-      x = ((x & 0x0F0F) << 4) | ((x >> 4) & 0x0F0F);
-      x = ((x & 0x00FF) << 8) | ((x >> 8) & 0x00FF);
-      code = (x >> 1) >> (15 - len);
-    }
-    out[s] = code;
+  __syncwarp();
+}
+
+// One code of at most 32 symbols (lane s holds symbol s, frequency f) built
+// by one warp: both candidates, the cheaper ((a) on a tie), reassigned by
+// frequency rank. Returns the lane's length.
+__device__ int warp_code(long long f, int S, int limit) {
+  const int lane = (int)threadIdx.x & 31;
+  Group<1> g{lane, 0, nullptr, 0};
+  Code<1, 1> c;
+  c.S = S;
+  c.limit = limit;
+  c.f[0] = lane < S ? f : 0;
+  c.depths(g);
+  c.candidate_b(g);
+  const int lb = c.l[0];
+  const long long bits_b = c.bits(g);
+  c.candidate_a(g);
+  if (c.bits(g) > bits_b) c.l[0] = lb;
+  // Lane b < 16 counts the active symbols of length b.
+  const unsigned act = __ballot_sync(kAll, c.f[0] > 0);
+  int cnt = 0;
+  for (int s = 0; s < S; ++s) {
+    const int ls = __shfl_sync(kAll, c.l[0], s);
+    cnt += (act >> s & 1) && ls == lane;
   }
+  int k[1] = {((1 << 20) - c.fkey[0]) * 512 + lane};
+  int one[1] = {lane < S};
+  long long rank[1];
+  c.prefix<false>(g, k, one, rank);
+  int len = 0, below = 0;
+  for (int b = 1; b < 16; ++b) {
+    below += __shfl_sync(kAll, cnt, b);
+    if (len == 0 && rank[0] < below) len = b;
+  }
+  return c.f[0] > 0 ? len : 0;
 }
 
 __device__ long long floor_div(long long a, long long b) {
@@ -407,106 +499,209 @@ __device__ long long floor_div(long long a, long long b) {
   return q * b > a ? q - 1 : q;
 }
 
+struct Shared {
+  long long red_a[2 * kLLWarps];
+  long long red_b[2 * kLLWarps];
+  int key_a[kLitLen], val_a[kLitLen];
+  int key_b[kLitLen], val_b[kLitLen];
+  int cnt_a[16], cnt_ll[16], cnt_d[16];
+  int rkey[kLitLen], rank_ll[kLitLen];
+  int first_ll[16], first_d[16];
+  unsigned long long cl_freq[kCodeLen];
+  int ll_len[kLitLen];
+  int d_len[kDist];
+  int cl_len[kCodeLen];
+  long long bits_b;
+  int lb[kLitLen];  // group B's repaired candidate
+  int mode;
+};
+
 __global__ void __launch_bounds__(kThreads)
     huffman_tables_kernel(HuffmanArgs a) {
   __shared__ Shared sh;
-  const int t = threadIdx.x;
+  const int tid = (int)threadIdx.x;
   const long long row = blockIdx.x;
-  for (int s = t; s < kLitLen; s += kThreads)
-    sh.ll_hist[s] = a.ll_hist[row * kLitLen + s];
-  for (int s = t; s < kDist; s += kThreads)
-    sh.d_hist[s] = a.dist_hist[row * kDist + s];
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long* ll_hist = a.ll_hist + row * kLitLen;
+  const long long* d_hist = a.dist_hist + row * kDist;
 
-  kraft_lengths(sh.ll_hist, kLitLen, 15, sh.ll_len, sh);
-  kraft_lengths(sh.d_hist, kDist, 15, sh.d_len, sh);
+  if (warp < 2 * kLLWarps) {
+    // Groups A and B: the litlen code, candidate (a) and (b) side by side.
+    const bool is_a = warp < kLLWarps;
+    Group<kLLWarps> g{is_a ? tid : tid - kGroup, is_a ? kBarA : kBarB,
+                      is_a ? sh.red_a : sh.red_b, 0};
+    Code<kLLWarps, kPerThread> c;
+    c.S = kLitLen;
+    c.limit = 15;
+    c.key = is_a ? sh.key_a : sh.key_b;
+    c.val = is_a ? sh.val_a : sh.val_b;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int s = c.sym(g, i);
+      c.f[i] = s < kLitLen ? ll_hist[s] : 0;
+    }
+    c.depths(g);
+    if (!is_a) {
+      c.candidate_b(g);
+      const long long bits = c.bits(g);
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i)
+        if (c.sym(g, i) < kLitLen) sh.lb[c.sym(g, i)] = c.l[i];
+      if (g.t == 0) sh.bits_b = bits;
+      bar_arrive(kBarAB, 2 * kGroup);  // B's lengths and cost to A
+    } else {
+      c.candidate_a(g);
+      const long long bits_a = c.bits(g);
+      bar_sync(kBarAB, 2 * kGroup);
+      if (bits_a > sh.bits_b) {  // the cheaper wins, (a) on a tie
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i)
+          if (c.sym(g, i) < kLitLen) c.l[i] = sh.lb[c.sym(g, i)];
+      }
+      bar_sync(kBarRank, kGroup + 32);  // D's rank order of the symbols
+      c.reassign(g, sh.rank_ll, sh.cnt_a, sh.ll_len);
+    }
+    bar_sync(kBarLL, 2 * kGroup + 32);  // the litlen lengths to A, B, D
+    // A and B: the litlen code's canonical codes while D finishes the
+    // header; then, given the mode, the litlen outputs.
+    const int t2 = tid;  // 0 .. 2 * kGroup
+    if (warp == 0) first_codes(sh.ll_len, kLitLen, sh.cnt_ll, sh.first_ll);
+    bar_sync(kBarAB, 2 * kGroup);
+    long long code[(kLitLen + 2 * kGroup - 1) / (2 * kGroup)];
+#pragma unroll
+    for (int i = 0; i < (kLitLen + 2 * kGroup - 1) / (2 * kGroup); ++i) {
+      const int s = t2 + i * 2 * kGroup;
+      code[i] = s < kLitLen ? rev_code(sh.ll_len, sh.first_ll, s) : 0;
+    }
+    bar_sync(kBarMode, 2 * kGroup + 32);
+    const int mode = sh.mode;
+#pragma unroll
+    for (int i = 0; i < (kLitLen + 2 * kGroup - 1) / (2 * kGroup); ++i) {
+      const int s = t2 + i * 2 * kGroup;
+      if (s >= kLitLen) continue;
+      const long long len = sh.ll_len[s];
+      a.ll_lens[row * kLitLen + s] = len;
+      a.use_ll[row * kLitLen + s] = mode == 2 ? len : a.fixed_ll[s];
+      a.ll_codes[row * kLitLen + s] =
+          mode == 2 ? code[i] : a.fixed_ll_codes[s];
+    }
+    return;
+  }
+
+  // Warp D: the distance code, then the header, the code-length code and
+  // the mode.
+  const int d_len = warp_code(lane < kDist ? d_hist[lane] : 0, kDist, 15);
+  if (lane < kDist) sh.d_len[lane] = d_len;
+  // While A and B build their candidates: the litlen code's rank order,
+  // for A's reassignment.
+  rank_order(ll_hist, kLitLen, sh.rkey, sh.rank_ll);
+  bar_arrive(kBarRank, kGroup + 32);
+  bar_sync(kBarLL, 2 * kGroup + 32);
 
   // The dynamic header: HLIT, HDIST, the RLE of the lengths in closed form
-  // per run (each run's first thread walks it), the code-length code.
+  // per run, the code-length code. Lane t takes lengths t, t + 32, ...
+  constexpr int kTotalMax = kLitLen + kDist;
+  constexpr int kPerLane = (kTotalMax + 31) / 32;
   long long last = -1;
-  for (int s = t; s < kLitLen; s += kThreads)
-    if (sh.ll_len[s] > 0) last = max(last, (long long)s);
-  const int hlit = max(257, (int)block_max(last, sh) + 1);
-  last = -1;
-  for (int s = t; s < kDist; s += kThreads)
-    if (sh.d_len[s] > 0) last = max(last, (long long)s);
-  const int hdist = max(1, (int)block_max(last, sh) + 1);
+  for (int s = lane; s < kLitLen; s += 32)
+    if (sh.ll_len[s] > 0) last = s;
+  const int hlit = max(257, (int)warp_reduce(last, Max()) + 1);
+  last = lane < kDist && sh.d_len[lane] > 0 ? lane : -1;
+  const int hdist = max(1, (int)warp_reduce(last, Max()) + 1);
   const int total = hlit + hdist;
-  if (t < kCodeLen) sh.cl_freq[t] = 0;
-  __syncthreads();
-  for (int j = t; j < total; j += kThreads) {
-    const int v = j < hlit ? sh.ll_len[j] : sh.d_len[j - hlit];
-    const int prev = j == 0 ? -2
-                     : j - 1 < hlit ? sh.ll_len[j - 1]
-                                    : sh.d_len[j - 1 - hlit];
-    if (v == prev) continue;
-    int r = 1;
-    while (j + r < total
-           && (j + r < hlit ? sh.ll_len[j + r] : sh.d_len[j + r - hlit]) == v)
-      ++r;
-    unsigned long long* f = (unsigned long long*)sh.cl_freq;
-    if (v == 0) {
-      const int q = r / 138, m = r % 138;
-      if (q + (m > 10)) atomicAdd(&f[18], (unsigned long long)(q + (m > 10)));
-      if (m >= 3 && m <= 10) atomicAdd(&f[17], 1ull);
-      if (m < 3 && m) atomicAdd(&f[0], (unsigned long long)m);
+  const auto len_at = [&](int j) {
+    return j < hlit ? sh.ll_len[j] : sh.d_len[j - hlit];
+  };
+  // Each run's first position, and its end: the next run's first position
+  // (a suffix minimum over the lanes' slices of the 316 positions).
+  if (lane < kCodeLen) sh.cl_freq[lane] = 0;
+  int mine = total;  // the first run start in this lane's slice
+  for (int i = kPerLane - 1; i >= 0; --i) {
+    const int j = lane * kPerLane + i;
+    if (j < total && (j == 0 || len_at(j) != len_at(j - 1))) mine = j;
+  }
+  int m = mine;  // the first run start in this lane's slice or later ones
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_down_sync(kAll, m, o);
+    if (lane + o < 32) m = min(m, y);
+  }
+  int end = __shfl_down_sync(kAll, m, 1);
+  if (lane == 31) end = total;
+  __syncwarp();
+  for (int i = kPerLane - 1; i >= 0; --i) {
+    const int j = lane * kPerLane + i;
+    if (j >= total) continue;
+    const int vj = len_at(j);
+    if (j > 0 && vj == len_at(j - 1)) continue;
+    const int r = end - j;
+    end = j;
+    if (vj == 0) {
+      const int q = r / 138, mm = r % 138;
+      if (q + (mm > 10))
+        atomicAdd(&sh.cl_freq[18], (unsigned long long)(q + (mm > 10)));
+      if (mm >= 3 && mm <= 10) atomicAdd(&sh.cl_freq[17], 1ull);
+      if (mm < 3 && mm) atomicAdd(&sh.cl_freq[0], (unsigned long long)mm);
     } else {
-      const int r1 = r - 1, q = r1 / 6, m = r1 % 6;
-      if (q + (m >= 3)) atomicAdd(&f[16], (unsigned long long)(q + (m >= 3)));
-      atomicAdd(&f[v], (unsigned long long)(1 + (m < 3 ? m : 0)));
+      const int r1 = r - 1, q = r1 / 6, mm = r1 % 6;
+      if (q + (mm >= 3))
+        atomicAdd(&sh.cl_freq[16], (unsigned long long)(q + (mm >= 3)));
+      atomicAdd(&sh.cl_freq[vj],
+                (unsigned long long)(1 + (mm < 3 ? mm : 0)));
     }
   }
-  kraft_lengths(sh.cl_freq, kCodeLen, 7, sh.cl_len, sh);
+  __syncwarp();
+  const long long cl_freq =
+      lane < kCodeLen ? (long long)sh.cl_freq[lane] : 0;
+  const int cl_len = warp_code(cl_freq, kCodeLen, 7);
+  if (lane < kCodeLen) sh.cl_len[lane] = cl_len;
+  __syncwarp();
   long long emis = 0;
   last = -1;
-  if (t < kCodeLen) {
-    emis = sh.cl_freq[t] * (sh.cl_len[t] + a.cl_extra[t]);
-    if (sh.cl_len[a.clcl_order[t]] > 0) last = t;
+  if (lane < kCodeLen) {
+    emis = cl_freq * (sh.cl_len[lane] + a.cl_extra[lane]);
+    if (sh.cl_len[a.clcl_order[lane]] > 0) last = lane;
   }
-  const int hclen = max(4, (int)block_max(last, sh) + 1);
-  const long long header_bits = 14 + 3 * hclen + block_sum(emis, sh);
+  const int hclen = max(4, (int)warp_reduce(last, Max()) + 1);
+  const long long header_bits = 14 + 3 * hclen + warp_reduce(emis, Sum());
 
   // The stored/fixed/dynamic choice.
   long long dyn = 0, fix = 0, extra = 0;
-  for (int s = t; s < kLitLen; s += kThreads) {
-    const long long h = sh.ll_hist[s];
+  for (int s = lane; s < kLitLen; s += 32) {
+    const long long h = ll_hist[s];
     dyn += h * sh.ll_len[s];
     fix += h * a.fixed_ll[s];
     if (s >= 257) extra += h * a.len_extra[s - 257];
   }
-  for (int s = t; s < kDist; s += kThreads) {
-    const long long h = sh.d_hist[s];
-    dyn += h * sh.d_len[s];
-    fix += h * a.fixed_d[s];
-    extra += h * a.dist_extra[s];
+  if (lane < kDist) {
+    const long long h = d_hist[lane];
+    dyn += h * sh.d_len[lane];
+    fix += h * a.fixed_d[lane];
+    extra += h * a.dist_extra[lane];
   }
-  extra = block_sum(extra, sh);
-  const long long dyn_bits = 3 + header_bits + block_sum(dyn, sh) + extra;
-  const long long fix_bits = 3 + block_sum(fix, sh) + extra;
+  extra = warp_reduce(extra, Sum());
+  const long long dyn_bits =
+      3 + header_bits + warp_reduce(dyn, Sum()) + extra;
+  const long long fix_bits = 3 + warp_reduce(fix, Sum()) + extra;
   const long long n = a.n[row];
   const long long stored_bits =
       8 * (n + 5 * floor_div(n + 0xFFFE, 0xFFFF)) + 7;
   const int mode = stored_bits < min(dyn_bits, fix_bits) ? 0
                    : fix_bits <= dyn_bits                 ? 1
                                                           : 2;
+  if (lane == 0) sh.mode = mode;
+  bar_arrive(kBarMode, 2 * kGroup + 32);  // the mode to A and B
 
-  if (t == 0) a.mode[row] = mode;
-  for (int s = t; s < kLitLen; s += kThreads) {
-    a.ll_lens[row * kLitLen + s] = sh.ll_len[s];
-    a.use_ll[row * kLitLen + s] = mode == 2 ? sh.ll_len[s] : a.fixed_ll[s];
-  }
-  for (int s = t; s < kDist; s += kThreads) {
-    a.d_lens[row * kDist + s] = sh.d_len[s];
-    a.use_d[row * kDist + s] = mode == 2 ? sh.d_len[s] : a.fixed_d[s];
-  }
-  if (t < kCodeLen) a.cl_lens[row * kCodeLen + t] = sh.cl_len[t];
-  if (mode == 2) {
-    rev_codes(sh.ll_len, kLitLen, a.ll_codes + row * kLitLen, sh);
-    rev_codes(sh.d_len, kDist, a.d_codes + row * kDist, sh);
-  } else {
-    for (int s = t; s < kLitLen; s += kThreads)
-      a.ll_codes[row * kLitLen + s] = a.fixed_ll_codes[s];
-    for (int s = t; s < kDist; s += kThreads)
-      a.d_codes[row * kDist + s] = a.fixed_d_codes[s];
+  if (lane == 0) a.mode[row] = mode;
+  if (lane < kCodeLen) a.cl_lens[row * kCodeLen + lane] = sh.cl_len[lane];
+  first_codes(sh.d_len, kDist, sh.cnt_d, sh.first_d);
+  if (lane < kDist) {
+    const long long len = sh.d_len[lane];
+    a.d_lens[row * kDist + lane] = len;
+    a.use_d[row * kDist + lane] = mode == 2 ? len : a.fixed_d[lane];
+    a.d_codes[row * kDist + lane] =
+        mode == 2 ? rev_code(sh.d_len, sh.first_d, lane)
+                  : a.fixed_d_codes[lane];
   }
 }
 
@@ -514,17 +709,18 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// One K5 launch: `rows` CTAs, each building one row of the group from
-// args' inputs into args' outputs (every pointer a contiguous int64 device
-// buffer of the shape HuffmanArgs gives it).
+// One K5 launch: one CTA of kThreads threads a row (kRowsPerCta), each
+// building its row of the group from args' inputs into args' outputs
+// (every pointer a contiguous int64 device buffer of the shape HuffmanArgs
+// gives it).
 int zt_huffman_tables(const HuffmanArgs* args, int rows, void* stream,
                       int device) {
   DeviceScope scope;
   cudaError_t err = scope.enter(device);
   if (err != cudaSuccess) return (int)err;
   if (rows > 0) {
-    huffman_tables_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-        *args);
+    huffman_tables_kernel<<<(rows + kRowsPerCta - 1) / kRowsPerCta,
+                            kThreads, 0, (cudaStream_t)stream>>>(*args);
   }
   return (int)cudaGetLastError();
 }

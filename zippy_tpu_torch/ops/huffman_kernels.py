@@ -5,12 +5,15 @@ between find_tokens and pack_tokens (zippy_tpu/ops/deflate_device.py):
 `_kraft_lengths` (:464) for the litlen, distance and code-length codes,
 `_header_stats_device` (:596), `_rev_codes_device` (:582) and the
 stored/fixed/dynamic choice (:676-700). One launch builds a group's tables,
-one CTA a row, with every intermediate in shared memory: the torch ops of
-its plain version, `deflate_device.huffman_tables_plain`, issue about
-13,400 launches a group and leave the card mostly idle. Its work is a few
-hundred thousand integer operations and about 10 KB a row, so the launch
-and the chain of barriers inside a row bound it, not bytes or operations
-(csrc/huffman.cu says how the design follows from that). Its outputs equal
+one CTA a row (ROWS_PER_CTA), with every intermediate in registers or
+shared memory: the torch ops of its plain version,
+`deflate_device.huffman_tables_plain`, issue about 13,400 launches a group
+and leave the card mostly idle. Its work is a few hundred thousand integer
+operations and about 10 KB a row, so the launch and the chain of dependent
+passes inside a row bound it, not bytes or operations. A row's warps work
+in groups that synchronize alone: two groups of LL_WARPS warps build the
+litlen code's two candidates side by side, and one warp the distance code
+and then the code-length code (csrc/huffman.cu says how). Its outputs equal
 the plain version's element for element: the ideal depths are computed the
 same way (float32 ratio, float64 log2, rounded to float32) and nvcc may
 contract no float step into an FMA.
@@ -33,6 +36,11 @@ from .device_tables import const
 from .kernel_build import LAUNCHES
 
 LL_SYMS, D_SYMS, CL_SYMS = 286, 30, 19
+# K5's layout (csrc/huffman.cu's kLLWarps, kRowsPerCta): the warps of each
+# litlen candidate's group, and the rows a CTA builds; a CTA has
+# THREADS = (2 * LL_WARPS + 1) * 32 threads.
+LL_WARPS, ROWS_PER_CTA = 4, 1
+THREADS = (2 * LL_WARPS + 1) * 32
 # The fixed tables K5 reads, device_tables.CONSTS' names.
 TABLES = ("fixed_ll", "fixed_ll_codes", "fixed_d", "fixed_d_codes",
           "len_extra", "dist_extra", "clcl_order", "cl_extra")
@@ -71,7 +79,8 @@ def huffman_tables(ll_hist: torch.Tensor, dist_hist: torch.Tensor,
     (0 stored / 1 fixed / 2 dynamic); and the lengths and bit-reversed codes
     that pack_tokens takes, use_ll, ll_codes, use_d, d_codes (the dynamic
     code's where mode is 2, else the fixed code's). K5 on CUDA tensors (one
-    launch), deflate_device.huffman_tables_plain on CPU tensors."""
+    launch of ceil(G / ROWS_PER_CTA) CTAs of THREADS threads),
+    deflate_device.huffman_tables_plain on CPU tensors."""
     for x, name, shape in ((ll_hist, "ll_hist", (LL_SYMS,)),
                            (dist_hist, "dist_hist", (D_SYMS,)),
                            (n, "n", ())):

@@ -16,9 +16,11 @@ The index-based tiled decode of the reference, on a CUDA card:
    (`_cmp_tables`, torch ops), token extraction of every busy lane in one
    launch of kernel K4 `inflate_extract` (ops/inflate_kernels.py), then per
    tile the LZ resolution (`_resolve`: kernel K6 `lz_resolve`,
-   ops/resolve_kernels.py, in 2 + nrounds launches: the tokens and stored
-   spans expanded, then pointer doubling over the match bytes). Tiles
-   chain through a 32 KiB halo of decoded bytes, device to device.
+   ops/resolve_kernels.py: the tokens and stored spans expanded, then
+   rounds of several pointer-doubling hops over the match bytes, in
+   1 + ceil(nrounds / 3) launches for a CFG_S tile and 1 + ceil(nrounds / 2)
+   for a CFG_L one). Tiles chain through a 32 KiB halo of decoded bytes,
+   device to device.
 4. Every tile's bytes land in one output buffer, whose adler32 (kernel K1)
    must equal the scan's, and for gzip whose crc32 (K2 + K3) must equal the
    trailer: a corrupt stream that passes the scan cannot return silent

@@ -16,10 +16,15 @@ The plain version, `_resolve_plain`, computes it with torch ops: one token
 scatter, a forward fill (`_ffill`), a copy per stored span, match-byte
 compaction and `nrounds` rounds of pointer doubling over the compacted
 match bytes, then a value gather and a scatter back. K6 computes the same
-bytes in 2 + max(nrounds, 1) launches (csrc/resolve.cu says how): every
-byte a caller reads, out[:HALO + used], equals the plain version's. Past
-HALO + used the output is padding, which the plain version fills with the
-last token's payload and K6 leaves unwritten.
+bytes (csrc/resolve.cu says how) in 1 + ceil(max(nrounds, 1) / b)
+launches (`launches_per_tile`): an expansion of the tokens and stored spans into one
+int32 state a byte, then rounds over the tile's bytes that each take
+2^b - 1 hops a byte and so reach as far as b of the plain version's
+doubling rounds (b = 3 for a tile of up to SMALL_TILE bytes, every CFG_S
+tile; 2 for a larger one).
+Every byte a caller reads, out[:HALO + used], equals the plain version's.
+Past HALO + used the output is padding, which the plain version fills with
+the last token's payload and K6 leaves unwritten.
 
 The wrapper launches K6 on CUDA tensors (or raises) and runs the plain
 version on CPU tensors. The kernel builds with nvcc at first CUDA use
@@ -39,6 +44,11 @@ from .kernel_build import LAUNCHES
 
 HALO = 32768        # DEFLATE window: matches never reach further back
 STO_MAX = 1 << 16   # a stored span's LEN field is 16-bit
+# K6's rounds (csrc/resolve.cu's kSmallTile, kSmallHops, kLargeHops): the
+# hops a byte a round for a tile of up to SMALL_TILE bytes and for a larger
+# one.
+SMALL_TILE = 1 << 18
+SMALL_HOPS, LARGE_HOPS = 7, 3
 
 
 @functools.cache
@@ -55,11 +65,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launches_per_tile(nrounds: int) -> int:
-    """K6's kernel launches for one tile: the halo copy and fill, the
-    expansion of tokens and stored spans, and max(nrounds, 1) doubling
-    rounds, the last of which also gathers the values."""
-    return 2 + max(nrounds, 1)
+def hops_per_round(used: int) -> int:
+    """The hops K6's rounds take a byte on a tile of `used` bytes."""
+    return SMALL_HOPS if used <= SMALL_TILE else LARGE_HOPS
+
+
+def rounds_for(nrounds: int, hops: int) -> int:
+    """Rounds of `hops` hops that reach as far down every chain as nrounds
+    doubling rounds: h hops multiply a byte's reach by h + 1, so that
+    2^b - 1 hops make b doubling rounds of each (csrc/resolve.cu's
+    rounds_for)."""
+    b = 3 if hops >= 7 else 2 if hops >= 3 else 1
+    return -(-nrounds // b) if nrounds > 0 else 1
+
+
+def launches_per_tile(nrounds: int, used: int) -> int:
+    """K6's kernel launches for one tile of `used` bytes: the expansion,
+    then the rounds, the last of which also writes the bytes still open."""
+    return 1 + rounds_for(nrounds, hops_per_round(used))
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +239,8 @@ def lz_resolve(packed, seg_out, words, sto, halo, used: int, nrounds: int,
     output position, length; empty slots of length 0); halo (HALO,) uint8;
     used, the tile's output bytes; nrounds, the pointer-doubling rounds its
     depth needs (_nrounds_for_depth). out[:HALO + used] is what a caller
-    reads. K6 on CUDA tensors (launches_per_tile(nrounds) launches), the
-    plain version on CPU tensors."""
+    reads. K6 on CUDA tensors (launches_per_tile(nrounds, used) launches),
+    the plain version on CPU tensors."""
     _check(packed, "packed", 2)
     _check(seg_out, "seg_out", 1)
     _check(words, "words", 1)
@@ -248,14 +271,15 @@ def lz_resolve(packed, seg_out, words, sto, halo, used: int, nrounds: int,
         raise ZippyError(f"unsupported device {dev}")
     out_pad = HALO + cfg.tile_out
     out = torch.empty(out_pad, dtype=torch.uint8, device=dev)
-    link = torch.empty(max(used, 1), dtype=torch.int32, device=dev)
+    state = torch.empty(max(used, 1), dtype=torch.int32, device=dev)
     launched = ctypes.c_int(0)
     rc = _lib().zt_lz_resolve(
         packed.data_ptr(), packed.stride(0), lanes, k, seg_out.data_ptr(),
         words.data_ptr(), words.shape[0], sto.data_ptr(), sto.shape[1],
         halo.data_ptr(), used, out_pad, nrounds, out.data_ptr(),
-        link.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        dev.index or 0, ctypes.byref(launched))
+        state.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0,
+        ctypes.byref(launched))
     LAUNCHES["lz_resolve"] += launched.value
     kernel_build.check_launch(rc, "lz_resolve")
     return out
