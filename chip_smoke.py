@@ -8,8 +8,9 @@ non-zero exit and no result line):
 
 1. the card (nvidia-smi's name and power limit, torch's device name);
 2. the build of every native library, with its seconds: csrc/checksums.cu,
-   csrc/inflate.cu, csrc/huffman.cu, csrc/resolve.cu and csrc/match.cu
-   with nvcc (started together) and the decode's host scan csrc/inflate_scan.cpp with c++;
+   csrc/inflate.cu, csrc/huffman.cu, csrc/resolve.cu, csrc/match.cu and
+   csrc/pack.cu with nvcc (started together) and the decode's host scan
+   csrc/inflate_scan.cpp with c++;
    and what `nvcc -Xptxas -v` said of each kernel (registers, shared
    memory, spills);
 3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
@@ -29,8 +30,9 @@ non-zero exit and no result line):
    payload to gzip at level 6, from host bytes and from a CUDA tensor, and
    of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
    gzip/zlib; the kernels' launch counts are zeroed before and read after
-   (K5 exactly once per encode group, K7 exactly launches_per_group times
-   a group); K7 (match_tokens) against its plain version on every output
+   (K5 and K8 exactly once per encode group, K7 exactly
+   launches_per_group times a group); K7 (match_tokens) against its plain
+   version on every output
    of every group of the host-bytes encodes (inputs kept as its wrapper
    got them, `MatchWatch`) and on seeded rows (`match_rows`) at levels 1,
    6, 9, -1 and -2 with a full history and with none; one encode group
@@ -53,28 +55,41 @@ non-zero exit and no result line):
    plain version on every group of the host-bytes encodes (inputs kept as
    its wrapper got them) and on HUFFMAN_ROWS seeded rows of every edge
    kind, launched HUFFMAN_REPEATS times; traces of one K5 launch and one
-   plain build of a full level-6 group;
+   plain build of a full level-6 group; K8 (pack_tokens) against its plain
+   version on every group of the host-bytes encodes (inputs kept as its
+   wrapper got them, `PackWatch`) and on the edge cases of
+   `pack_edge_inputs` (level -2, the fixed tables, stored rows, n < N,
+   n = 1 and n = 0, 15-bit codes, 256-byte blocks), every word and bit
+   count (`pack_tokens_vs_plain`); traces of one K8 launch and one plain
+   pack of the first level-6 group;
 5. the decode path: uncompress() of phase 4's 64 MiB gzip and 8 MiB zlib
    streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
    (level 0) stream and of a two-member gzip, each equal to its input, with
-   the launch counts zeroed before and read after (K1-K4 and K6 all
-   launched, K4 once per batch of tiles that has a busy lane, K6
-   launches_per_tile times a tile, K5 and K7 never, K6's plain version
-   never); per
+   the launch counts zeroed before and read after (K1-K4, K6 and K9 all
+   launched, K4 and K9 once per batch of tiles that has a busy lane, K6
+   launches_per_tile times a tile, K5, K7 and K8 never, the plain versions
+   of K6 and K9 never); per
    stream the scan's seconds, the decode given its index (twice) and CPython's
    decompress; a decode given its index with no host sync from the first
    tile to the last (torch.cuda.set_sync_debug_mode("error")); the 64 MiB
    stream in batches of 8 tiles; a flipped crc raising ZippyError; one
    decode's synchronized stage seconds; a torch.profiler trace of a decode
-   given its index; K4 against its plain version on every tile of all six
-   streams, batched as the decode batches them, with the lanes whose block
+   given its index, and of one tile decoded from its uploaded pack (K9,
+   K4 and K6's launches); K4 against its plain version on every tile of
+   all six streams, batched as the decode batches them, with the lanes
+   whose block
    row K4 read from device memory rather than shared memory; one K4
    launch over the 64 MiB stream's batch timed, with its bound for the
    busy lanes and for the padded segment tables it wrote before; K6
    (lz_resolve) against its plain version on out[:HALO + used] of every
    tile of the six streams decoded given their indexes, with its launches
    equal to launches_per_tile's and within nrounds + 3 a tile
-   (`ResolveWatch`); K6 on the 64 MiB stream's first tile timed, with
+   (`ResolveWatch`), and K9 (block_tables) on every batch of the same
+   decodes (`TablesWatch`: every element, one launch a batch) and on
+   seeded corrupt code-length records (bytes above 15, over-subscribed,
+   incomplete, all zeros), with one launch over the 64 MiB stream's
+   first batch timed beside its bound and the launch floor
+   (`block_tables`); K6 on the 64 MiB stream's first tile timed, with
    its bound (`resolve_work`); and K6 on a corrupt tile of each round
    shape (up to SMALL_TILE bytes and past it) whose tokens run past its
    bytes, which must write nothing past its bytes and its scratch
@@ -92,8 +107,9 @@ non-zero exit and no result line):
    under
    torch.cuda.set_sync_debug_mode("error") up to the one verification
    fetch; K4 against its plain version on every batch of that decode (at
-   1 MiB members its tiles are CFG_S's, at 8 MiB CFG_L's) and K6 on every
-   tile of the same decode, with the first member's first tile timed; the
+   1 MiB members its tiles are CFG_S's, at 8 MiB CFG_L's), K6 on every
+   tile and K9 on every batch of the same decode, with the first member's
+   first tile timed; the
    same stream
    decoded the other way, every member scanned (member_indexes) and then
    decoded given its index; a flipped member crc and a flipped byte in a
@@ -109,11 +125,12 @@ non-zero exit and no result line):
    64 MiB and 256 MiB + 7 against zlib; inflate_device(devices=[cuda:0,
    cuda:0]) of the 64 MiB body; the launches of these runs, counted from
    zero (K1-K3 once per device share, K4 once per share with busy lanes
-   per batch, K5 once per encode group of each device's run, K6 2 +
-   nrounds times a tile, K7 launches_per_group times an encode group),
-   then K1-K3 on each 64 MiB share and K4 on each
-   share of every batch against their plain versions, and K6 on every
-   tile of the decode over [cuda:0, cuda:0]; two ranks spawned on gloo
+   per batch, K9 once a batch with busy lanes, K5 and K8 once per encode
+   group of each device's run, K6 launches_per_tile times a tile, K7
+   launches_per_group times an encode group), then K1-K3 on each 64 MiB
+   share and K4 on each share of every batch against their plain
+   versions, and K6 on every tile and K9 on every batch of the decode
+   over [cuda:0, cuda:0]; two ranks spawned on gloo
    and cuda:0 (compress_gzip_all_hosts at level 6 of two 4 MiB shards,
    the same stream on both, decoded by CPython and by
    uncompress_gzip_all_hosts on the card); in a fresh process, warmup()
@@ -135,22 +152,23 @@ non-zero exit and no result line):
    ZipArchive (add_dir, write_zip_archive, open) read by zipfile and the
    port; a .tgz from the v1 Tarball read by CPython's tarfile and
    extracted by tarballs.extract_all; the launches of all that, counted
-   from zero (K5 once a group of the batched encode and K7
-   launches_per_group times, neither in a decode;
-   K6 launches_per_tile times a tile of every deflated entry);
+   from zero (K5 and K8 once a group of the batched encode and K7
+   launches_per_group times, none of them in a decode; K4 and K9 once a
+   batch with busy lanes, K6 launches_per_tile times a tile of every
+   deflated entry);
    torch.profiler traces of create_zip_archive and extract_all_zip of the
-   tree's first 128 files; then K4 against its
-   plain version on every batch and K6 on every tile of 8 sampled
+   tree's first 128 files; then K4 and K9 against their
+   plain versions on every batch and K6 on every tile of 8 sampled
    entries' decodes, and K1-K3 on 8 entries against theirs;
 10. the driver hooks (`driver_hooks` lines, zippy_tpu_torch.entry):
    entry("cuda")'s step (compress_block_fixed of one 64 KiB block) equal to
    entry("cpu")'s, words, bit count and both histograms, its packed block
-   decoded by zlib behind a fixed-Huffman block header, no K5 launch and
-   one group's K7 launches;
+   decoded by zlib behind a fixed-Huffman block header, no K5 launch, one
+   group's K7 launches and one K8 launch (the fixed tables);
    dryrun_multichip(2, ["cuda:0", "cuda:0"]) and, on a host with two cards
    or more, dryrun_multichip over default_devices(), with seconds; their
-   launches counted from zero (K1 for the decode's gate, K4 a share, K5
-   and K7 a group of each encode, K6 for the decode); then
+   launches counted from zero (K1 for the decode's gate, K4 a share, K9
+   a batch, K5, K7 and K8 a group of each encode, K6 for the decode); then
    K4 on their streams and K1-K3 on their data against the plain versions.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
@@ -160,7 +178,11 @@ are those of one launch over the 64 MiB stream's batch of tiles, K5's
 those of one launch over the first group of the 64 MiB level-6 encode,
 K7's those of one call's launches over the same group (from a profile of
 10 calls, by stage in "ms_by_stage"; its "library_ms" is torch.sort of the
-group's keys, the sort stage's yardstick, which the port never calls),
+group's keys, the sort stage's yardstick, which the port never calls), K8's
+those of one launch over the same group (its bound from the 32-byte
+sectors its tokens and matches touch, "interface_bound_ms" from the
+interface's whole arrays), K9's those of
+one launch over the 64 MiB stream's first batch of tiles' records,
 K6's those of one tile's launches on the 64 MiB stream's first tile (its
 row's cfg_s_tile: a 1 MiB member's first tile; small_tile: a zip entry's
 tile, the archive tree's text entry nearest its 16 KiB median, deflated
@@ -168,11 +190,11 @@ at level 1). A
 kernel's "launches" in the kernel line are those of the compress run,
 the decode run, the indexed compress and decode runs and the runs of
 phases 8, 9 and 10 together, each counted from zero just before its run.
-The launch floor ("launch_floor_ms", on the `kernel_calls` line and in K3's
-and K5's rows) is the same timing of a one-element zero_() on the card.
+The launch floor ("launch_floor_ms", on the `kernel_calls` line and in K3's,
+K5's and K9's rows) is the same timing of a one-element zero_() on the card.
 
-After phase 10, the counts of K6's and K7's plain versions' calls on CUDA
-tensors over the whole run, which must be 0. Then the kernel table (one JSON
+After phase 10, the counts of K6's, K7's, K8's and K9's plain versions'
+calls on CUDA tensors over the whole run, which must be 0. Then the kernel table (one JSON
 line), the card's name and power limit, and last {"ok": true, "device":
 {...}}.
 """
@@ -206,9 +228,10 @@ SEED = 20261016
 MAIN_BYTES = 64 << 20
 ZLIB_BYTES = 8 << 20
 BIG_BYTES = (256 << 20) + 7    # phase 8's largest checksum payload
-# The kernels a decode launches; an encode adds K5 (huffman_tables).
+# The kernels a decode launches; an encode adds K5 (huffman_tables), K7
+# (match_tokens) and K8 (pack_tokens).
 DECODE_KERNELS = ("adler_chunks", "crc_rows", "crc_combine",
-                  "inflate_extract", "lz_resolve")
+                  "block_tables", "inflate_extract", "lz_resolve")
 
 
 def emit(obj) -> None:
@@ -473,12 +496,12 @@ def encode_groups(nbytes: int, level: int, shares: int = 1,
 
 def encode_launches(nbytes: int, level: int, shares: int = 1,
                     block_size: int = 1 << 16) -> dict:
-    """K5's and K7's launches of one encode (encode_groups' groups): K5
-    once a group, K7 match_kernels.launches_per_group a group."""
+    """K5's, K7's and K8's launches of one encode (encode_groups' groups):
+    K5 and K8 once a group, K7 match_kernels.launches_per_group a group."""
     from zippy_tpu_torch.ops import match_kernels as mk
 
     groups = encode_groups(nbytes, level, shares, block_size)
-    return {"huffman_tables": groups,
+    return {"huffman_tables": groups, "pack_tokens": groups,
             "match_tokens": groups * mk.launches_per_group(level == -2)}
 
 
@@ -500,6 +523,239 @@ def find_work(rows: int, n_block: int, width: int, k: int, min3: bool):
     per = words + scored + mk.EXTW + 1 + min3
     return (rows * width + rows * n_block * (2 + 5 * 8)
             + rows * (286 + 30) * 8, rows * n_block * per)
+
+
+def sectors(mask: torch.Tensor) -> int:
+    """The 32-byte sectors of a contiguous (G, N) int64 array, laid out as
+    `mask`, that hold a position where `mask` is set: what reading the
+    array at those positions alone moves."""
+    flat = mask.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 4)])
+    return int(flat.view(-1, 4).any(1).sum())
+
+
+def pack_work(rows: int, n_block: int, tok: dict | None = None):
+    """(bytes, operations) K8 must move and do on a group of `rows` rows of
+    n_block positions. With the group's token cover `tok`, what its data
+    needs: the two bools of every position, the 32-byte sectors of `sym`
+    that hold a token and those of each of the four match fields that hold
+    a match (K8 reads no other); without it, the interface's arrays, two
+    bools and five int64 a position. Either way the (G, n_block // 2 + 8)
+    int64 words and the bit counts written once and the tables (two of 286
+    and two of 30 int64 a row, the four constant tables) read once.
+    Operations: two a position (its two tests), four a token component
+    (lookup, mask, shift, OR) and one a word stored."""
+    wn = n_block // 2 + 8
+    tables = rows * 2 * (286 + 30) * 8 + (29 + 29 + 30 + 30) * 8
+    out = rows * (wn + 1) * 8
+    if tok is None:
+        reads = rows * n_block * (2 + 5 * 8)
+        tokens = matches = 0
+    else:
+        tokens, matches = (int(tok[key].sum()) for key in ("is_tok",
+                                                           "is_match"))
+        reads = rows * n_block * 2 + 32 * (sectors(tok["is_tok"])
+                                           + 4 * sectors(tok["is_match"]))
+    ops = 2 * rows * n_block + 4 * tokens + 12 * matches + rows * wn
+    return reads + tables + out, ops
+
+
+def tables_work(rows: int):
+    """(bytes, operations) K9 must move and do for `rows` code-length
+    records: each record's 318 bytes read once, its 382 int32 written once,
+    the 318 entries read once; per symbol its clamp, its rank (a compare,
+    a count) and its entry's address and store, 8 operations, and 16 sums
+    of 15 terms a code."""
+    return (rows * (318 + 382 * 4) + 318 * 8,
+            rows * (318 * 8 + 2 * 16 * 15 * 2))
+
+
+class PackWatch:
+    """K8 (pack_tokens): the inputs its wrapper gets inside `keeping`, K8
+    against its plain version on kept inputs (`vs_plain`), and, for the
+    whole run, a count of the plain version's calls on CUDA tensors, which
+    no encode path may make."""
+
+    def __init__(self, pk):
+        self.pk = pk
+        self.plain = pk.pack_tokens_plain
+        self.wrapper = pk.pack_tokens
+        self.plain_cuda_calls = 0
+        pk.pack_tokens_plain = self._counted_plain
+
+    def _counted_plain(self, tok, *tables):
+        self.plain_cuda_calls += tok["is_tok"].is_cuda
+        return self.plain(tok, *tables)
+
+    @contextlib.contextmanager
+    def keeping(self, kept: list):
+        """Appends (the token cover, the four tables) of every call,
+        cloned."""
+        def keep(tok, *tables):
+            kept.append(({name: tok[name].clone()
+                          for name, _ in self.pk.TOKEN_INPUTS},
+                         [t.clone() for t in tables]))
+            return self.wrapper(tok, *tables)
+
+        self.pk.pack_tokens = keep
+        try:
+            yield kept
+        finally:
+            self.pk.pack_tokens = self.wrapper
+
+    def vs_plain(self, inputs) -> dict:
+        """K8 against its plain version (uncounted) on each (token cover,
+        tables): groups, rows, K8's launches (one a group), differing words
+        and bit counts and the largest difference, and the plain version's
+        tokens, matches and bits."""
+        from zippy_tpu_torch.ops import kernel_build as kb
+
+        line = {"groups": 0, "rows": 0, "launches": 0,
+                "differing_words": 0, "differing_total_bits": 0,
+                "max_abs_err": 0, "tokens": 0, "matches": 0, "bits": 0}
+        for tok, tables in inputs:
+            before = kb.LAUNCHES["pack_tokens"]
+            words, bits = self.wrapper(tok, *tables)
+            line["launches"] += kb.LAUNCHES["pack_tokens"] - before
+            want_words, want_bits = self.plain(tok, *tables)
+            line["differing_words"] += int((words != want_words).sum())
+            line["differing_total_bits"] += int((bits != want_bits).sum())
+            line["max_abs_err"] = max(
+                line["max_abs_err"], int((words - want_words).abs().max()),
+                int((bits - want_bits).abs().max()))
+            line["groups"] += 1
+            line["rows"] += bits.shape[0]
+            line["tokens"] += int(tok["is_tok"].sum())
+            line["matches"] += int(tok["is_match"].sum())
+            line["bits"] += int(want_bits.sum())
+            del words, want_words
+        return line
+
+    @staticmethod
+    def good(line) -> bool:
+        return (line["groups"] > 0 and line["differing_words"] == 0
+                and line["differing_total_bits"] == 0
+                and line["max_abs_err"] == 0
+                and line["launches"] == line["groups"])
+
+
+def pack_edge_inputs(group, dev) -> dict:
+    """K8's edge cases, {kind: (token cover, tables)}, from a kept K7 group
+    (data_pad, n, hist_len, params) of the level-6 encode: all literals
+    (level -2) with their own tables; the group's tokens with the fixed
+    tables (the stored and fixed modes' and compress_block_fixed's); a
+    stored-mode group of random bytes with the tables K5 gives it (the
+    fixed ones); rows of n < N, n = 1 and n = 0 (the end-of-block code
+    alone); every used symbol at 15 bits with random 15-bit codes, near
+    the 16 N-bit worst case; and a group of 256-byte blocks."""
+    from zippy_tpu_torch.ops import deflate_device as td
+    from zippy_tpu_torch.ops import huffman_kernels as hk
+    from zippy_tpu_torch.ops.device_tables import const
+
+    data_pad, n, hist_len, params = group
+    rows, width = data_pad.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def cover(data, nn, hl, **over):
+        tok = td.find_tokens(data, nn, hl, **{**params, **over})
+        tab = hk.huffman_tables(tok["ll_hist"], tok["dist_hist"], nn)
+        return tok, [tab[key] for key in ("use_ll", "ll_codes", "use_d",
+                                          "d_codes")], tab["mode"]
+
+    fixed = [const(name, dev)[None].expand(rows, -1) for name in (
+        "fixed_ll", "fixed_ll_codes", "fixed_d", "fixed_d_codes")]
+    tok, tables, _ = cover(data_pad, n, hist_len)
+    fifteen = []
+    for lens in (tables[0], tables[2]):
+        fifteen.append(torch.where(lens > 0, 15, 0))
+        fifteen.append(torch.randint(0, 1 << 15, tuple(lens.shape),
+                                     generator=gen, device=dev))
+    out = {"fixed tables": (tok, fixed), "15-bit codes": (tok, fifteen)}
+    lits, lit_tables, _ = cover(data_pad, n, hist_len, lits_only=True)
+    out["level -2"] = (lits, lit_tables)
+    noise = torch.randint(0, 256, (rows, width), dtype=torch.uint8,
+                          generator=gen, device=dev)
+    tok, tables, mode = cover(noise, n, hist_len)
+    check(bool((mode == 0).all()), "random rows are stored blocks")
+    out["stored rows"] = (tok, tables)
+    short = n.clone()
+    short[0], short[1], short[2] = n[0] - 1000, 1, 0
+    tok, tables, _ = cover(data_pad, short, hist_len)
+    out["n < N, 1, 0"] = (tok, tables)
+    small = data_pad[:, :td.HIST + 256 + td.PAD].contiguous()
+    tok, tables, _ = cover(small, torch.full_like(n, 256), hist_len)
+    out["256-byte blocks"] = (tok, tables)
+    return out
+
+
+class TablesWatch:
+    """K9 (block_tables) held against its plain version on every batch of
+    tables a decode builds inside `checking`; and, for the whole run, a
+    count of the plain version's calls on CUDA tensors, which no decode
+    path may make."""
+
+    def __init__(self, ik):
+        self.ik = ik
+        self.plain = ik.block_tables_plain
+        self.wrapper = ik.block_tables
+        self.plain_cuda_calls = 0
+        ik.block_tables_plain = self._counted_plain
+
+    def _counted_plain(self, lens8):
+        self.plain_cuda_calls += lens8.is_cuda
+        return self.plain(lens8)
+
+    def compare(self, lens8, line: dict) -> torch.Tensor:
+        """K9 on lens8 against the plain version (uncounted), into line."""
+        from zippy_tpu_torch.ops import kernel_build as kb
+
+        before = kb.LAUNCHES["block_tables"]
+        out = self.wrapper(lens8)
+        line["launches"] += kb.LAUNCHES["block_tables"] - before
+        want = self.plain(lens8.reshape(-1, 318))
+        line["batches"] += 1
+        line["rows"] += out.shape[0]
+        line["differing_elements"] += int((out != want).sum())
+        line["max_abs_err"] = max(line["max_abs_err"], int(
+            (out.long() - want.long()).abs().max()) if out.numel() else 0)
+        return out
+
+    @staticmethod
+    def new_line(label: str) -> dict:
+        return {"run": label, "batches": 0, "rows": 0, "launches": 0,
+                "differing_elements": 0, "max_abs_err": 0}
+
+    @contextlib.contextmanager
+    def checking(self, label: str):
+        """Yields the line that K9's calls inside fill: batches, rows,
+        launches (one a batch), differing elements, largest difference."""
+        line = self.new_line(label)
+        self.ik.block_tables = lambda lens8: self.compare(lens8, line)
+        try:
+            yield line
+        finally:
+            self.ik.block_tables = self.wrapper
+
+    @staticmethod
+    def good(line, batches: bool = True) -> bool:
+        """Equal, one launch a batch, and (with `batches`) some batch."""
+        return ((line["batches"] > 0 or not batches)
+                and line["differing_elements"] == 0
+                and line["max_abs_err"] == 0
+                and line["launches"] == line["batches"])
+
+
+def corrupt_lens8(dev) -> dict:
+    """Seeded code-length records as a corrupt stream could leave them:
+    any byte (above 15 too), over-subscribed codes, codes of lengths 10-15
+    (incomplete), all zeros; on `dev`."""
+    rng = np.random.default_rng(SEED)
+    rows = {"bytes above 15": rng.integers(0, 256, (2048, 318)),
+            "over-subscribed": rng.integers(1, 4, (2048, 318)),
+            "incomplete": rng.integers(10, 16, (2048, 318)),
+            "all zero": np.zeros((64, 318))}
+    return {kind: torch.from_numpy(a.astype(np.uint8)).to(dev)
+            for kind, a in rows.items()}
 
 
 class MatchWatch:
@@ -1243,9 +1499,9 @@ def k6_bounds(idev, watch, dev) -> dict:
 
 
 def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
-                 watch: ResolveWatch):
-    """Phase 5, the decode path. Returns (the run's kernel launches, K4's
-    row and K6's row for the kernel line)."""
+                 watch: ResolveWatch, tables_watch: TablesWatch):
+    """Phase 5, the decode path. Returns (the run's kernel launches, K4's,
+    K6's and K9's rows for the kernel line)."""
     from zippy_tpu_torch import api, common, gzip_format
     from zippy_tpu_torch.ops import checksums as tc
     from zippy_tpu_torch.ops import inflate_device as idev
@@ -1283,7 +1539,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
     launches = dict(kb.LAUNCHES)
     check(all(launches[k] > 0 for k in DECODE_KERNELS)
           and launches["huffman_tables"] == 0
-          and launches["match_tokens"] == 0, launches)
+          and launches["match_tokens"] == 0
+          and launches["pack_tokens"] == 0, launches)
 
     # Outside the counted run: the scan alone, the decode given its index
     # (twice) and CPython's decompress, per stream.
@@ -1313,18 +1570,22 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
         check(back == want, label + " CPython")
         all_indexes[label] = indexes
         emit(run)
-    # K4 runs once per batch that has a busy lane, not once per tile; K6
-    # launches_per_tile times a tile.
+    # K4 and K9 run once per batch that has a busy lane, not once per
+    # tile; K6 launches_per_tile times a tile.
     batches = sum(run["k4_launches"] for run in runs)
     k6_want = sum(run["k6_launches"] for run in runs)
     emit({"phase": "decode_launches", **launches,
           "tiles": sum(run["tiles"] for run in runs),
           "k4_batches_with_busy_lanes": batches,
           "lz_resolve_expected": k6_want,
-          "lz_resolve_plain_cuda_calls": watch.plain_cuda_calls})
+          "lz_resolve_plain_cuda_calls": watch.plain_cuda_calls,
+          "block_tables_plain_cuda_calls": tables_watch.plain_cuda_calls})
     check(launches["inflate_extract"] == batches
+          and launches["block_tables"] == batches
           and launches["lz_resolve"] == k6_want
-          and watch.plain_cuda_calls == 0, (launches, batches, k6_want))
+          and watch.plain_cuda_calls == 0
+          and tables_watch.plain_cuda_calls == 0,
+          (launches, batches, k6_want))
 
     # The 64 MiB gzip stream given its index: no host sync from the first
     # tile to the last, then the checksums and the bytes.
@@ -1346,21 +1607,26 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
     check(all(v for k, v in no_sync.items() if k not in ("phase", "run")),
           no_sync)
 
-    # The same stream in batches of 8 tiles: one K4 launch per batch.
+    # The same stream in batches of 8 tiles: one K4 and one K9 launch per
+    # batch.
     cap, idev._TILES_PER_LAUNCH = idev._TILES_PER_LAUNCH, 8
-    before = kb.LAUNCHES["inflate_extract"]
+    before = dict(kb.LAUNCHES)
     try:
         out = api.uncompress(gz6)
         capped = {"phase": "decode_batch_cap", "run": streams[0][0],
                   "tiles_per_launch": idev._TILES_PER_LAUNCH,
-                  "k4_launches": kb.LAUNCHES["inflate_extract"] - before,
+                  "k4_launches": kb.LAUNCHES["inflate_extract"]
+                  - before["inflate_extract"],
+                  "k9_launches": kb.LAUNCHES["block_tables"]
+                  - before["block_tables"],
                   "k4_batches_with_busy_lanes": _k4_launches(idev, index),
                   "equal_input": out == data}
     finally:
         idev._TILES_PER_LAUNCH = cap
     emit(capped)
     check(capped["equal_input"] and capped["k4_launches"]
-          == capped["k4_batches_with_busy_lanes"], capped)
+          == capped["k4_batches_with_busy_lanes"] == capped["k9_launches"],
+          capped)
 
     bad = bytearray(two)
     bad[-5] ^= 0xFF
@@ -1383,19 +1649,36 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
     emit({"phase": "trace", "run": "decode given its index, "
           + streams[0][0], **device_trace(
               lambda: idev.inflate_device_array(gz6, index))})
+    # One tile from its uploaded pack, as bench_torch_device.py's
+    # device_inflate_tile rows decode it: K9, K4 and K6's launches.
+    cfg = idev._pick_cfg(index["total_out"])
+    tile = idev._plan_tiles(index, cfg)[0]
+    keep: list = []
+    packs = idev._upload_packs([idev._tile_pack(
+        gz6, index, tile, cfg, idev._nrounds_for_depth(tile.depth, cfg))],
+        dev, keep)
+    halo = torch.zeros(idev.HALO, dtype=torch.uint8, device=dev)
+    emit({"phase": "trace", "run": "one-tile decode, " + streams[0][0],
+          **device_trace(lambda: idev._decode_tile(
+              packs[0], halo, tile, k=int(index["every"]), cfg=cfg))})
+    del packs, keep
 
     row = k4_phase(idev, ik, streams, all_indexes, dev)
     row["launches"] = launches["inflate_extract"]
 
-    # K6 against its plain version on every tile of the six streams, each
-    # decoded given its index; then K6 on the 64 MiB stream's first tile.
-    lines = []
+    # K6 against its plain version on every tile and K9 on every batch of
+    # the six streams, each decoded given its index; then K6 on the 64 MiB
+    # stream's first tile.
+    lines, k9_lines = [], []
     for label, blob, want, fmt in streams:
-        with watch.checking(label) as line:
+        with watch.checking(label) as line, \
+                tables_watch.checking(label) as k9_line:
             out = _decode_given(idev, gzip_format, blob, fmt,
                                 all_indexes[label])
         lines.append(line)
-        check(out == want and watch.good(line), line)
+        k9_lines.append(k9_line)
+        check(out == want and watch.good(line)
+              and TablesWatch.good(k9_line, batches=False), (line, k9_line))
     tile = k6_tile(idev, ik, watch, streams[0][0], gz6,
                    all_indexes[streams[0][0]][0][1], dev)
     emit({"phase": "lz_resolve_streams", "streams": lines, "tile": tile,
@@ -1409,18 +1692,67 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
                                         "bound_by", "share_of_bound",
                                         "hops_per_round")},
           "library_ms": None}
+    k9 = block_tables_phase(idev, tables_watch, gz6, index, k9_lines, dev)
+    k9["launches"] = launches["block_tables"]
     torch.cuda.empty_cache()
-    return launches, row, k6
+    return launches, row, k6, k9
+
+
+def block_tables_phase(idev, tables_watch, blob: bytes, index, lines: list,
+                       dev) -> dict:
+    """K9 against its plain version on corrupt records, the lines of the
+    decodes it was checked on beside; then one launch over the first batch
+    of `index`'s decode (its records as the decode passes them, a view into
+    the packed buffers) timed, with its bound and the launch floor. Returns
+    K9's row for the kernel line (launches filled in by the caller)."""
+    corrupt = {}
+    for kind, lens8 in corrupt_lens8(dev).items():
+        corrupt[kind] = tables_watch.new_line(kind)
+        tables_watch.compare(lens8, corrupt[kind])
+    cfg = idev._pick_cfg(index["total_out"])
+    batch = _batches(idev, idev._plan_tiles(index, cfg))[0]
+    keep: list = []
+    packs = idev._upload_packs(
+        [idev._tile_pack(blob, index, t, cfg,
+                         idev._nrounds_for_depth(t.depth, cfg))
+         for t in batch], dev, keep)
+    lens8 = idev._unpack(packs, cfg)[4]
+    rows = lens8.shape[0] * lens8.shape[1]
+    floor_ms = launch_floor_ms(dev)
+    bound_ms, bound_by = bound(tables_work(rows))
+    ms = kernel_ms(lambda: tables_watch.wrapper(lens8), 100)
+    line = {"phase": "block_tables", "streams": lines, "corrupt": corrupt,
+            "batch_tiles": len(batch), "batch_rows": rows, "ms": ms,
+            "plain_ms": call_ms(lambda: tables_watch.plain(
+                lens8.reshape(-1, 318)), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "launch_floor_ms": floor_ms,
+            "traced": device_trace(lambda: tables_watch.wrapper(lens8))}
+    emit(line)
+    checked = lines + list(corrupt.values())
+    check(all(TablesWatch.good(ln, batches=False) for ln in checked)
+          and sum(ln["batches"] for ln in lines) > 0
+          and all(ln["batches"] for ln in corrupt.values()), line)
+    del packs, keep
+    return {"name": "block_tables", "route": "cuda",
+            "source": "zippy_tpu_torch/csrc/inflate.cu",
+            "replaces": "zippy_tpu/ops/inflate_device.py:176",
+            "launches": None,
+            "max_abs_err": max(ln["max_abs_err"] for ln in checked),
+            "ms": ms, "plain_ms": line["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "rows": rows,
+            "launch_floor_ms": floor_ms,
+            "launch_floor_multiple": ms / floor_ms}
 
 
 INDEXED_MEMBERS = (1 << 20, 8 << 20)
 
 
 def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
-                  watch: ResolveWatch):
+                  watch: ResolveWatch, tables_watch: TablesWatch):
     """Phase 6, the indexed serving format, at each of INDEXED_MEMBERS.
-    Returns the kernel launches of its counted array=True decodes, K4's
-    and K6's largest differences from their plain versions on their
+    Returns the kernel launches of its counted array=True decodes, K4's,
+    K6's and K9's largest differences from their plain versions on their
     batches and tiles, and K6 on the first tile of each member size."""
     from zippy_tpu_torch import api, common
     from zippy_tpu_torch import gzip_format as gf
@@ -1451,6 +1783,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         return acc(data, index, *args, **kwargs)
 
     total, k4_err, k6_err, k6_tiles = dict.fromkeys(kb.LAUNCHES, 0), 0, 0, []
+    k9_err = 0
     for member_size in INDEXED_MEMBERS:
         label = f"{member_size >> 20} MiB members"
         torch.cuda.synchronize()
@@ -1459,11 +1792,14 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         t0 = time.perf_counter()
         blob = gf.compress_device_indexed(data, 6, member_size=member_size)
         compress_s = time.perf_counter() - t0
-        # One K5 launch a group of each member's encode, and K7's.
+        # One K5 and one K8 launch a group of each member's encode, and
+        # K7's.
         compress_k5 = kb.LAUNCHES["huffman_tables"]
         compress_k7 = kb.LAUNCHES["match_tokens"]
+        compress_k8 = kb.LAUNCHES["pack_tokens"]
         total["huffman_tables"] += compress_k5
         total["match_tokens"] += compress_k7
+        total["pack_tokens"] += compress_k8
         want_k5, want_k7 = (sum(
             encode_launches(min(member_size, len(data) - i), 6)[key]
             for i in range(0, len(data), member_size))
@@ -1485,6 +1821,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
                 "compress_huffman_tables_expected": want_k5,
                 "compress_match_tokens_launches": compress_k7,
                 "compress_match_tokens_expected": want_k7,
+                "compress_pack_tokens_launches": compress_k8,
                 "single_member_compress_s": single_compress_s,
                 "cpython_decompress_s": time.perf_counter() - t0,
                 "scanned_uncompress_s": scanned_s,
@@ -1512,7 +1849,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
             check(scans[0] == 0, f"{label}: {scans[0]} scans")
 
             # One array=True decode counted: one K1 and one K2 + K3 per
-            # non-empty member, K4 once per batch with a busy lane.
+            # non-empty member, K4 and K9 once per batch with a busy lane.
             given.clear()
             torch.cuda.synchronize()
             for key in kb.LAUNCHES:
@@ -1526,7 +1863,9 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         want = {"adler_chunks": busy, "crc_rows": busy, "crc_combine": busy,
                 "inflate_extract": sum(_k4_launches(idev, index)
                                        for index in given),
-                "huffman_tables": 0, "match_tokens": 0,
+                "block_tables": sum(_k4_launches(idev, index)
+                                    for index in given),
+                "huffman_tables": 0, "match_tokens": 0, "pack_tokens": 0,
                 "lz_resolve": sum(_k6_launches(idev, watch.rk, index)
                                   for index in given)}
         line["launches"] = launches
@@ -1534,7 +1873,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         for key in total:
             total[key] += launches[key]
         check(launches == want and compress_k5 == want_k5
-              and compress_k7 == want_k7
+              and compress_k7 == want_k7 and compress_k8 == want_k5
               and all(launches[k] for k in DECODE_KERNELS), line)
 
         # K4 against its plain version on every batch of that decode, at
@@ -1544,14 +1883,19 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         line["inflate_extract_vs_plain"] = k4_line
         k4_err = max(k4_err, k4_line["max_abs_err"])
         check(k4_line["equal_plain"], line)
-        # K6 against its plain version on every tile of the same decode,
-        # and on the first member's first tile timed.
-        with watch.checking(label) as k6_line:
+        # K6 against its plain version on every tile and K9 on every batch
+        # of the same decode, and K6 on the first member's first tile
+        # timed.
+        with watch.checking(label) as k6_line, \
+                tables_watch.checking(label) as k9_line:
             parts = gf.uncompress_device(blob, array=True)
         line["lz_resolve_vs_plain"] = k6_line
+        line["block_tables_vs_plain"] = k9_line
         k6_err = max(k6_err, k6_line["max_abs_err"])
+        k9_err = max(k9_err, k9_line["max_abs_err"])
         check(b"".join(buf.cpu().numpy().tobytes() for buf, _ in parts)
-              == data and watch.good(k6_line), line)
+              == data and watch.good(k6_line)
+              and TablesWatch.good(k9_line), line)
         del parts
         k6_tiles.append(k6_tile(idev, ik, watch, label, blob, given[0], dev))
         del given[:]
@@ -1614,7 +1958,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         del blob, bad
         torch.cuda.empty_cache()
     emit({"phase": "lz_resolve_tiles", "tiles": k6_tiles})
-    return total, k4_err, k6_err, k6_tiles
+    return total, k4_err, k6_err, k9_err, k6_tiles
 
 
 RANK_WORKER = r"""
@@ -1754,12 +2098,12 @@ def share_kernels_vs_plain(ck, x: torch.Tensor) -> int:
     return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
 
 
-def parallel_phase(dev, data: bytes, gz6: bytes,
-                   watch: ResolveWatch) -> tuple[dict, list]:
+def parallel_phase(dev, data: bytes, gz6: bytes, watch: ResolveWatch,
+                   tables_watch: TablesWatch) -> tuple[dict, list]:
     """Phase 8, the multi-device layers. Returns the kernel launches of its
-    counted run and the largest differences of K1-K3, of K4 and of K6 from
-    their plain versions on the shares and the devices= decode's tiles
-    ([k1-k3, k4, k6])."""
+    counted run and the largest differences of K1-K3, of K4, of K6 and of
+    K9 from their plain versions on the shares and the devices= decode's
+    tiles and batches ([k1-k3, k4, k6, k9])."""
     from zippy_tpu_torch import gzip_format, parallel
     from zippy_tpu_torch.ops import checksum_kernels as ck
     from zippy_tpu_torch.ops import inflate_device as idev
@@ -1865,6 +2209,7 @@ def parallel_phase(dev, data: bytes, gz6: bytes,
             want["adler_chunks"] += 1
             want["inflate_extract"] += sum(min(len(devs or [dev]), lanes)
                                            for lanes in batch_lanes if lanes)
+            want["block_tables"] += sum(1 for lanes in batch_lanes if lanes)
             want["lz_resolve"] += _k6_launches(idev, watch.rk, index)
     launches = dict(kb.LAUNCHES)
     line = {"phase": "parallel", "run": "decode 64 MiB body given its "
@@ -1909,14 +2254,19 @@ def parallel_phase(dev, data: bytes, gz6: bytes,
     emit(line)
     check(k13_err == 0 and k4_err == 0 and equal, line)
 
-    # K6 against its plain version on every tile of the decode over two
-    # shares on one card (the tokens come back to the first device, which
+    # K6 against its plain version on every tile, and K9 on every batch, of
+    # the decode over two shares on one card (the tables are built once a
+    # batch on the first device, and the tokens come back to it, which
     # resolves).
-    with watch.checking("decode 64 MiB body given its index, cuda:0 x2") \
-            as line:
+    label = "decode 64 MiB body given its index, cuda:0 x2"
+    with watch.checking(label) as line, \
+            tables_watch.checking(label) as k9_line:
         out = idev.inflate_device(body, index, devices=two)
     emit({"phase": "parallel", "run": "lz_resolve against plain", **line})
-    check(out == data and watch.good(line), line)
+    emit({"phase": "parallel", "run": "block_tables against plain",
+          **k9_line})
+    check(out == data and watch.good(line) and TablesWatch.good(k9_line),
+          (line, k9_line))
     same_device("K6 after a devices= decode")
     k6_err = line["max_abs_err"]
 
@@ -1945,7 +2295,7 @@ def parallel_phase(dev, data: bytes, gz6: bytes,
           and line["names_annotation"], line)
     shutil.rmtree(SCRATCH, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches, [k13_err, k4_err, k6_err]
+    return launches, [k13_err, k4_err, k6_err, k9_line["max_abs_err"]]
 
 
 ARCHIVE_FILES = 1024
@@ -1999,11 +2349,12 @@ def _read_tree(root: pathlib.Path) -> dict:
             for p in root.rglob("*") if p.is_file()}
 
 
-def archive_phase(dev, data: bytes,
-                  watch: ResolveWatch) -> tuple[dict, int, int, int]:
+def archive_phase(dev, data: bytes, watch: ResolveWatch,
+                  tables_watch: TablesWatch) -> tuple[dict, int, int, int,
+                                                      int]:
     """Phase 9, the archive layer. Returns the kernel launches of its
-    counted run and the largest differences of K1-K3, of K4 and of K6 from
-    their plain versions on its sampled entries."""
+    counted run and the largest differences of K1-K3, of K4, of K6 and of
+    K9 from their plain versions on its sampled entries."""
     import io
     import tarfile
     import zipfile
@@ -2069,7 +2420,9 @@ def archive_phase(dev, data: bytes,
                                   "crc_rows": len(nonempty),
                                   "crc_combine": len(nonempty),
                                   "inflate_extract": 0,
+                                  "block_tables": 0,
                                   "huffman_tables": groups,
+                                  "pack_tokens": groups,
                                   "lz_resolve": 0,
                                   "match_tokens": groups
                                   * mk.launches_per_group(False)},
@@ -2162,8 +2515,10 @@ def archive_phase(dev, data: bytes,
           and all(extract_l[k] == len(nonempty) for k in
                   ("adler_chunks", "crc_rows", "crc_combine"))
           and extract_l["inflate_extract"] > 0
+          and extract_l["block_tables"] == extract_l["inflate_extract"]
           and extract_l["lz_resolve"] == k6_want
           and extract_l["huffman_tables"] == 0
+          and extract_l["pack_tokens"] == 0
           and extract_l["match_tokens"] == 0, line)
 
     # The v1 ZipArchive and the v1 Tarball, from the tree on disk.
@@ -2233,9 +2588,9 @@ def archive_phase(dev, data: bytes,
                                                     root / "part_out"))})
     check(_read_tree(root / "part_out") == part, "traced extract")
 
-    # K4 on every batch and K6 on every tile of 8 sampled entries'
+    # K4 and K9 on every batch and K6 on every tile of 8 sampled entries'
     # decodes and K1-K3 on 8 entries, against their plain versions.
-    k4_lines, k4_err, k6_lines = [], 0, []
+    k4_lines, k4_err, k6_lines, k9_lines = [], 0, [], []
     for name in [n for n in sample if n not in rand][-8:]:
         stream = _zip_stream(blob, infos[name])
         index = idev.build_decode_index(stream)
@@ -2243,10 +2598,13 @@ def archive_phase(dev, data: bytes,
                                       [(None, index)], dev)
         k4_lines.append(k4_line)
         k4_err = max(k4_err, k4_line["max_abs_err"])
-        with watch.checking(name) as k6_line:
+        with watch.checking(name) as k6_line, \
+                tables_watch.checking(name) as k9_line:
             out = idev.inflate_device(stream, index)
         k6_lines.append(k6_line)
-        check(out == tree[name] and watch.good(k6_line), k6_line)
+        k9_lines.append(k9_line)
+        check(out == tree[name] and watch.good(k6_line)
+              and TablesWatch.good(k9_line), (k6_line, k9_line))
     k6_err = max(ln["max_abs_err"] for ln in k6_lines)
     k13_err = max(share_kernels_vs_plain(ck, torch.from_numpy(
         np.frombuffer(tree[n], np.uint8).copy()).to(dev))
@@ -2257,14 +2615,16 @@ def archive_phase(dev, data: bytes,
                                      "equal_plain", "max_abs_err")}
                            for ln in k4_lines],
             "k4_max_abs_err": k4_err, "k1_k3_entries": len(sample[-8:]),
-            "k1_k3_max_abs_err": k13_err, "k6_entries": k6_lines}
+            "k1_k3_max_abs_err": k13_err, "k6_entries": k6_lines,
+            "k9_entries": k9_lines}
     emit(line)
     check(k4_err == 0 and k13_err == 0
           and all(ln["equal_plain"] and ln["batches"] for ln in k4_lines),
           line)
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    return phase_launches, k13_err, k4_err, k6_err
+    return (phase_launches, k13_err, k4_err, k6_err,
+            max(ln["max_abs_err"] for ln in k9_lines))
 
 
 def driver_hooks_phase(dev) -> tuple[dict, int, int]:
@@ -2306,10 +2666,11 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
             "zlib_decodes_block": zlib.decompress(bytes(out.out), -15)
             == block, "launches": step_launches}
     emit(line)
-    # The fixed-code step builds no Huffman tables and finds its tokens
-    # with K7, once.
+    # The fixed-code step builds no Huffman tables, finds its tokens with
+    # K7, once, and packs them with K8, once.
     check(all(line["equal_cpu"]) and line["zlib_decodes_block"]
           and step_launches["huffman_tables"] == 0
+          and step_launches["pack_tokens"] == 1
           and step_launches["match_tokens"] == mk.launches_per_group(False),
           line)
 
@@ -2317,8 +2678,9 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
     if torch.cuda.device_count() >= 2:
         n = len(default_devices())
         runs.append(("default_devices()", n, None))
-    # The step's K7 launches count here too.
+    # The step's K7 and K8 launches count here too.
     streams, want_k5, want_k7 = [], 0, mk.launches_per_group(False)
+    want_k8 = 1
     for label, n, devices in runs:
         t0 = time.perf_counter()
         data, blob = ze.dryrun_multichip(n, devices)
@@ -2332,16 +2694,19 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
             counts = encode_launches(len(data), 6, shares, 2048)
             want_k5 += counts["huffman_tables"]
             want_k7 += counts["match_tokens"]
+            want_k8 += counts["pack_tokens"]
     torch.cuda.synchronize()
     launches = dict(kb.LAUNCHES)
     emit({"phase": "driver_hooks", "run": "launches", **launches,
           "huffman_tables_expected": want_k5,
-          "match_tokens_expected": want_k7})
-    # The decode's adler32 gate (K1), its extraction (K4, a share) and
-    # its resolution (K6).
+          "match_tokens_expected": want_k7,
+          "pack_tokens_expected": want_k8})
+    # The decode's adler32 gate (K1), its tables (K9), its extraction (K4,
+    # a share) and its resolution (K6).
     check(launches["adler_chunks"] > 0 and launches["inflate_extract"] > 0
-          and launches["lz_resolve"] > 0
+          and launches["block_tables"] > 0 and launches["lz_resolve"] > 0
           and launches["huffman_tables"] == want_k5
+          and launches["pack_tokens"] == want_k8
           and launches["match_tokens"] == want_k7, launches)
 
     k4_lines, k4_err, k13_err = [], 0, 0
@@ -2372,12 +2737,17 @@ def main() -> int:
     from zippy_tpu_torch.ops import deflate_device as td
     from zippy_tpu_torch.ops import huffman_kernels as hk
     from zippy_tpu_torch.ops import kernel_build as kb
+    from zippy_tpu_torch.ops import inflate_device as idev
+    from zippy_tpu_torch.ops import inflate_kernels as ik
     from zippy_tpu_torch.ops import match_kernels as mk
+    from zippy_tpu_torch.ops import pack_kernels as pk
     from zippy_tpu_torch.ops import resolve_kernels as rk
 
     dev = torch.device("cuda")
     watch = ResolveWatch(rk)
     k7_watch = MatchWatch(mk)
+    k8_watch = PackWatch(pk)
+    k9_watch = TablesWatch(ik)
     card = card_line()
     # Phase 1: the card.
     emit({"phase": "card", "nvidia_smi": card,
@@ -2482,10 +2852,10 @@ def main() -> int:
     data = mixed_text(MAIN_BYTES, SEED)
     small = data[:ZLIB_BYTES]
     x_dev = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
-    # K5's and K7's inputs are kept as the encodes from host bytes hand
-    # them to their wrappers (the cuda tensor's groups are the same), for
-    # phase 4's checks.
-    wrapper, k5_inputs, k7_inputs = hk.huffman_tables, {}, {}
+    # K5's, K7's and K8's inputs are kept as the encodes from host bytes
+    # hand them to their wrappers (the cuda tensor's groups are the same),
+    # for phase 4's checks.
+    wrapper, k5_inputs, k7_inputs, k8_inputs = hk.huffman_tables, {}, {}, {}
 
     def keeping(label):
         def tables(ll, d, n):
@@ -2504,13 +2874,14 @@ def main() -> int:
             ("zlib L1 host bytes", small, 1, common.dfZlib, small),
             ("zlib L9 host bytes", small, 9, common.dfZlib, small)):
         torch.cuda.reset_peak_memory_stats()
-        keep_k7 = contextlib.nullcontext()
+        keep_k7 = keep_k8 = contextlib.nullcontext()
         if isinstance(src, bytes):
             hk.huffman_tables = keeping(label)
             keep_k7 = k7_watch.keeping(k7_inputs.setdefault(label, []))
+            keep_k8 = k8_watch.keeping(k8_inputs.setdefault(label, []))
         t0 = time.perf_counter()
         try:
-            with keep_k7:
+            with keep_k7, keep_k8:
                 blob = api.compress(src, level, fmt)
         finally:
             hk.huffman_tables = wrapper
@@ -2527,29 +2898,33 @@ def main() -> int:
         check(back == want, label)
         blobs[label] = blob
     compress_kernels = ("adler_chunks", "crc_rows", "crc_combine",
-                        "huffman_tables", "match_tokens")
+                        "huffman_tables", "match_tokens", "pack_tokens")
     launches = {key: kb.LAUNCHES[key] for key in compress_kernels}
-    # K5 once a group and K7 launches_per_group times a group: 64 MiB at L6
-    # twice, 8 MiB at L1 and at L9.
+    # K5 and K8 once a group and K7 launches_per_group times a group:
+    # 64 MiB at L6 twice, 8 MiB at L1 and at L9.
     want = {key: sum(encode_launches(nbytes, level)[key]
                      for nbytes, level in ((MAIN_BYTES, 6), (MAIN_BYTES, 6),
                                            (ZLIB_BYTES, 1), (ZLIB_BYTES, 9)))
-            for key in ("huffman_tables", "match_tokens")}
+            for key in ("huffman_tables", "match_tokens", "pack_tokens")}
     want_k5 = want["huffman_tables"]
     emit({"phase": "main_path_launches", **launches,
           "huffman_tables_expected": want_k5,
           "match_tokens_expected": want["match_tokens"],
+          "pack_tokens_expected": want["pack_tokens"],
           "huffman_tables_groups_kept": {k: len(v)
                                          for k, v in k5_inputs.items()},
           "match_tokens_groups_kept": {k: len(v)
-                                       for k, v in k7_inputs.items()}})
+                                       for k, v in k7_inputs.items()},
+          "pack_tokens_groups_kept": {k: len(v)
+                                      for k, v in k8_inputs.items()}})
+    kept_groups = want_k5 - encode_groups(MAIN_BYTES, 6)
     check(all(v > 0 for v in launches.values())
           and launches["huffman_tables"] == want_k5
           and launches["match_tokens"] == want["match_tokens"]
-          and sum(map(len, k5_inputs.values())) == want_k5
-          - encode_groups(MAIN_BYTES, 6)
-          and sum(map(len, k7_inputs.values())) == want_k5
-          - encode_groups(MAIN_BYTES, 6), launches)
+          and launches["pack_tokens"] == want["pack_tokens"] == want_k5
+          and sum(map(len, k5_inputs.values())) == kept_groups
+          and sum(map(len, k7_inputs.values())) == kept_groups
+          and sum(map(len, k8_inputs.values())) == kept_groups, launches)
 
     # K7 against its plain version on every group of those encodes and on
     # seeded rows at every level of MATCH_LEVELS; one group issued with no
@@ -2630,6 +3005,27 @@ def main() -> int:
           **device_trace(lambda: hk.huffman_tables(*group))})
     emit({"phase": "trace", "run": f"huffman_tables_plain ({g} rows)",
           **device_trace(lambda: td.huffman_tables_plain(*group))})
+
+    # K8 against its plain version on every group of those encodes and on
+    # the edge cases (pack_edge_inputs) at the first L6 group's shape; then
+    # one K8 launch and one plain pack of that group traced.
+    k8_lines = {label: k8_watch.vs_plain(inputs)
+                for label, inputs in k8_inputs.items()}
+    for kind, edge in pack_edge_inputs(k7_inputs["gzip L6 host bytes"][0],
+                                       dev).items():
+        k8_lines[kind] = k8_watch.vs_plain([edge])
+    del edge
+    emit({"phase": "pack_tokens_vs_plain", "runs": k8_lines})
+    check(all(PackWatch.good(line) for line in k8_lines.values()), k8_lines)
+    pack_group = k8_inputs["gzip L6 host bytes"][0]
+    g8 = pack_group[1][0].shape[0]
+    check(g8 == g, f"first L6 pack group of {g8} rows")
+    emit({"phase": "trace", "run": f"pack_tokens, K8 ({g8} rows)",
+          **device_trace(lambda: pk.pack_tokens(*pack_group[:1],
+                                                *pack_group[1]))})
+    emit({"phase": "trace", "run": f"pack_tokens_plain ({g8} rows)",
+          **device_trace(lambda: k8_watch.plain(*pack_group[:1],
+                                                *pack_group[1]))})
 
     stages: dict = {}
     t0 = time.perf_counter()
@@ -2718,41 +3114,70 @@ def main() -> int:
               "rows", "ms", "ms_by_stage", "plain_ms", "library_ms",
               "bound_ms", "bound_share")}}
     calls["match_tokens_call_ms"] = g6["call_ms"]
+    # K8 at the first full group of the 64 MiB level-6 encode: its bound
+    # from the sectors its tokens touch, the interface's arrays' beside it.
+    tok8, tables8 = pack_group
+    tokens, matches = (int(tok8[key].sum()) for key in ("is_tok",
+                                                        "is_match"))
+    n_block = tok8["is_tok"].shape[1]
+    bound_ms, bound_by = bound(pack_work(g8, n_block, tok8))
+    interface_ms, interface_by = bound(pack_work(g8, n_block))
+    k8 = {"name": "pack_tokens", "route": "cuda",
+          "source": "zippy_tpu_torch/csrc/pack.cu",
+          "replaces": "zippy_tpu/ops/deflate_device.py:361",
+          "launches": launches["pack_tokens"],
+          "max_abs_err": max(line["max_abs_err"]
+                             for line in k8_lines.values()),
+          "ms": kernel_ms(lambda: pk.pack_tokens(tok8, *tables8), 100),
+          "plain_ms": call_ms(lambda: k8_watch.plain(tok8, *tables8), 3),
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+          "rows": g8, "tokens": tokens, "matches": matches,
+          "interface_bound_ms": interface_ms,
+          "interface_bound_by": interface_by}
+    k8["bound_share"] = bound_ms / k8["ms"]
+    calls["pack_tokens_call_ms"] = call_ms(
+        lambda: pk.pack_tokens(tok8, *tables8), 100)
     emit({"phase": "kernel_calls", **calls})
-    check(all(k["max_abs_err"] == 0 for k in kernels + [k5, k7])
+    check(all(k["max_abs_err"] == 0 for k in kernels + [k5, k7, k8])
           and k7["ms"] is not None, kernels)
     del x_dev, chunks, rows, row_crcs, k5_inputs, group, k7_inputs
+    del k8_inputs, pack_group, tok8, tables8
     torch.cuda.empty_cache()
 
     # Phase 5: the decode path.
-    decode_launches, k4, k6 = decode_phase(
+    decode_launches, k4, k6, k9 = decode_phase(
         dev, data, blobs["gzip L6 host bytes"], blobs["zlib L1 host bytes"],
-        blobs["zlib L9 host bytes"], watch)
-    for row in kernels:
+        blobs["zlib L9 host bytes"], watch, k9_watch)
+    for row in kernels + [k8]:
         row["launches"] += decode_launches[row["name"]]
-    kernels += [k4, k6]
-    check(k4["max_abs_err"] == 0 and k6["max_abs_err"] == 0, (k4, k6))
+    kernels += [k4, k6, k9]
+    check(k4["max_abs_err"] == 0 and k6["max_abs_err"] == 0
+          and k9["max_abs_err"] == 0, (k4, k6, k9))
 
     def add_phase(launches: dict, errs: dict) -> None:
         """A phase's counted launches into every kernel's row, and its
         largest differences from the plain versions (by kernel name) into
         the rows of the kernels it checked."""
-        for row in kernels + [k5, k7]:
+        for row in kernels + [k5, k7, k8]:
             row["launches"] += launches[row["name"]]
             if row["name"] in errs:
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          errs[row["name"]])
 
-    def kernel_errs(k13_err: int, k4_err: int, k6_err: int | None) -> dict:
+    def kernel_errs(k13_err: int, k4_err: int, k6_err: int | None = None,
+                    k9_err: int | None = None) -> dict:
         errs = {"adler_chunks": k13_err, "crc_rows": k13_err,
-                "crc_combine": k13_err, "inflate_extract": k4_err}
-        return errs if k6_err is None else {**errs, "lz_resolve": k6_err}
+                "crc_combine": k13_err, "inflate_extract": k4_err,
+                "lz_resolve": k6_err, "block_tables": k9_err}
+        return {k: v for k, v in errs.items() if v is not None}
 
     # Phase 6: the indexed serving format.
-    indexed_launches, k4_err, k6_err, k6_tiles = indexed_phase(
-        dev, data, blobs["gzip L6 host bytes"], runs[0]["seconds"], watch)
+    indexed_launches, k4_err, k6_err, k9_err, k6_tiles = indexed_phase(
+        dev, data, blobs["gzip L6 host bytes"], runs[0]["seconds"], watch,
+        k9_watch)
     add_phase(indexed_launches, {"inflate_extract": k4_err,
-                                 "lz_resolve": k6_err})
+                                 "lz_resolve": k6_err,
+                                 "block_tables": k9_err})
     # K6 on the first tile of a 1 MiB member (CFG_S) beside the row's
     # CFG_L tile.
     k6_keys = ("tile_bytes", "used", "nrounds", "hops_per_round",
@@ -2761,9 +3186,6 @@ def main() -> int:
     k6["cfg_s_tile"] = {key: k6_tiles[0][key] for key in k6_keys}
     # And on a zip entry's tile: the archive tree's text entry nearest its
     # median size, deflated at BestSpeed as create_zip_archive does.
-    from zippy_tpu_torch.ops import inflate_device as idev
-    from zippy_tpu_torch.ops import inflate_kernels as ik
-
     entry = min((v for i, v in enumerate(archive_tree(data).values())
                  if i % 16 != 15 and v),
                 key=lambda v: abs(len(v) - ARCHIVE_MEDIAN))
@@ -2789,27 +3211,26 @@ def main() -> int:
 
     # Phase 8: the multi-device layers.
     parallel_launches, errs = parallel_phase(
-        dev, data, blobs["gzip L6 host bytes"], watch)
+        dev, data, blobs["gzip L6 host bytes"], watch, k9_watch)
     add_phase(parallel_launches, kernel_errs(*errs))
 
     # Phase 9: the archive layer.
-    archive_launches, *errs = archive_phase(dev, data, watch)
+    archive_launches, *errs = archive_phase(dev, data, watch, k9_watch)
     add_phase(archive_launches, kernel_errs(*errs))
 
     # Phase 10: the driver hooks.
     hook_launches, k13_err, k4_err = driver_hooks_phase(dev)
-    add_phase(hook_launches, kernel_errs(k13_err, k4_err, None))
+    add_phase(hook_launches, kernel_errs(k13_err, k4_err))
 
-    # No decode path ran K6's plain version on the card, and no encode path
-    # K7's.
-    emit({"phase": "lz_resolve_plain", "cuda_calls": watch.plain_cuda_calls})
-    check(watch.plain_cuda_calls == 0, "K6's plain version ran on the card")
-    emit({"phase": "match_tokens_plain",
-          "cuda_calls": k7_watch.plain_cuda_calls})
-    check(k7_watch.plain_cuda_calls == 0,
-          "K7's plain version ran on the card")
+    # No decode path ran K6's or K9's plain version on the card, and no
+    # encode path K7's or K8's.
+    for name, w in (("lz_resolve", watch), ("match_tokens", k7_watch),
+                    ("pack_tokens", k8_watch), ("block_tables", k9_watch)):
+        emit({"phase": f"{name}_plain", "cuda_calls": w.plain_cuda_calls})
+        check(w.plain_cuda_calls == 0,
+              f"{name}'s plain version ran on the card")
 
-    emit({"kernels": kernels + [k5, k7]})
+    emit({"kernels": kernels + [k5, k7, k8]})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,8 +76,8 @@ def test_cmp_tables_equal_reference(name):
     for cols, ent in ((slice(0, 288), ref._LL_ENT),
                       (slice(288, 318), ref._D_ENT)):
         want = ref._cmp_tables(jnp.asarray(lens[:, cols]), jnp.asarray(ent))
-        got = port._cmp_tables(torch.from_numpy(lens[:, cols].copy()),
-                               torch.from_numpy(ent.astype(np.int64)))
+        got = ik._cmp_tables(torch.from_numpy(lens[:, cols].copy()),
+                             torch.from_numpy(ent.astype(np.int64)))
         for w, g in zip(want, got):
             assert g.dtype == torch.int32
             assert np.array_equal(np.asarray(w), g.numpy())
@@ -335,3 +335,144 @@ def test_table_layout_matches_the_kernel_source():
     assert f"kED = kOffD + 16;     // {ik.E_D}" in text
     assert f"kThreads = {ik.LANES_PER_CTA};" in text
     assert f"kFastBits = {ik.FAST_BITS};" in text
+
+
+# ---------------------------------------------------------------------------
+# K9 (block_tables): its plain version against the reference, and a numpy
+# model of the kernel's rank scheme
+# ---------------------------------------------------------------------------
+
+
+def _reference_block_tables(lens8: np.ndarray) -> np.ndarray:
+    """The reference's `_cmp_tables` of both halves of (rows, 318) records,
+    side by side in the port's (rows, 382) layout."""
+    lens = lens8.astype(np.int32)
+    parts = []
+    for cols, ent in ((slice(0, 288), ref._LL_ENT),
+                      (slice(288, 318), ref._D_ENT)):
+        parts += [np.asarray(x) for x in ref._cmp_tables(
+            jnp.asarray(lens[:, cols]), jnp.asarray(ent))]
+    return np.concatenate(parts, axis=1)
+
+
+def _corrupt_lens8() -> dict:
+    """Seeded records a corrupt stream could leave: any byte, over-
+    subscribed codes (many short lengths), incomplete ones, all zeros."""
+    rng = np.random.default_rng(53)
+    kinds = ("complete", "incomplete", "single", "none", "random")
+    return {
+        "bytes above 15": rng.integers(0, 256, (64, 318)).astype(np.uint8),
+        "over-subscribed": rng.integers(1, 4, (64, 318)).astype(np.uint8),
+        "incomplete and mixed": np.stack([
+            np.concatenate([_code(rng, 288, a), _code(rng, 30, b)])
+            for a in kinds for b in kinds]),
+        "all zero": np.zeros((8, 318), np.uint8),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_block_tables_equal_reference(name):
+    """The `_block_tables` wrapper (K9's plain version on CPU tensors) on
+    every block of a stream equals the reference's `_cmp_tables` of both
+    halves; a 3-D view into the tiles' packed buffers gives the same rows
+    as their records copied out."""
+    lens8 = ref.build_decode_index(STREAMS[name]())["block_lens"].astype(
+        np.uint8)
+    before = dict(ik.LAUNCHES)
+    got = port._block_tables(torch.from_numpy(lens8))
+    assert ik.LAUNCHES == before          # no launch on the CPU
+    assert got.dtype == torch.int32 and got.shape == (len(lens8), 382)
+    assert np.array_equal(got.numpy(), _reference_block_tables(lens8))
+    _, cfg, _, packs = _tile_packs(STREAMS[name]())
+    view = port._unpack(torch.from_numpy(np.stack(packs).view(np.int32)),
+                        cfg)[4]
+    assert view.dim() == 3 and not view.is_contiguous()
+    assert torch.equal(port._block_tables(view),
+                       port._block_tables(view.reshape(-1, 318)))
+
+
+@pytest.mark.parametrize("kind", sorted(_corrupt_lens8()))
+def test_block_tables_on_corrupt_records(kind):
+    """On corrupt records the plain version equals the reference on the
+    records clamped to 0..15, as both the plain version and K9 clamp them
+    first (the reference, given a byte above 15, leaves its symbol out of
+    the counts but not out of the ranks; no stream the scan passes holds
+    one)."""
+    lens8 = _corrupt_lens8()[kind]
+    got = port._block_tables(torch.from_numpy(lens8)).numpy()
+    assert np.array_equal(got, _reference_block_tables(np.minimum(lens8,
+                                                                  15)))
+    if kind != "bytes above 15":
+        assert np.array_equal(got, _reference_block_tables(lens8))
+
+
+def _k9_code_model(lens: np.ndarray, ent: np.ndarray) -> np.ndarray:
+    """K9's warp on one code of one record, step for step: rounds of 32
+    lanes; a lane's rank within its length is the running count of that
+    length plus the lanes of its __match_any_sync group below it, and the
+    group's lowest lane adds the group to the running count; lane b then
+    sums first[b] and sym_base[b] over the counts of lengths 1 .. b - 1;
+    each symbol of nonzero length writes its entry at sym_base + rank into
+    a zeroed E, dropped at S or past. Returns fc, off, E side by side."""
+    S = lens.shape[0]
+    cnt = np.zeros(16, np.int64)
+    length, rank = [], []
+    for r0 in range(0, S, 32):
+        lane_len = [min(int(lens[s]), 15) if s < S else 16
+                    for s in range(r0, r0 + 32)]
+        groups = {}
+        for lane, ln in enumerate(lane_len):
+            groups.setdefault(ln, []).append(lane)
+        for lane, ln in enumerate(lane_len):
+            if ln < 16:
+                below = sum(1 for other in groups[ln] if other < lane)
+                length.append(ln)
+                rank.append(cnt[ln] + below)
+        for ln, lanes in groups.items():
+            if ln < 16:
+                cnt[ln] += len(lanes)
+    first = np.zeros(16, np.int64)
+    base = np.zeros(16, np.int64)
+    for b in range(16):
+        for j in range(1, b):
+            first[b] += cnt[j] << (b - j)
+            base[b] += cnt[j]
+    E = np.zeros(S, np.int64)
+    for s, (ln, rk) in enumerate(zip(length, rank)):
+        if ln > 0 and base[ln] + rk < S:
+            E[base[ln] + rk] = int(ent[s]) | ln
+    return np.concatenate([first + cnt, base - first, E])
+
+
+@pytest.mark.parametrize("kind", ["stream blocks"] + sorted(_corrupt_lens8()))
+def test_k9_model_equals_plain(kind):
+    if kind == "stream blocks":
+        lens8 = np.concatenate([ref.build_decode_index(STREAMS[name]())[
+            "block_lens"].astype(np.uint8) for name in sorted(STREAMS)])
+    else:
+        lens8 = _corrupt_lens8()[kind]
+    want = port._block_tables(torch.from_numpy(lens8)).numpy()
+    got = np.stack([np.concatenate([
+        _k9_code_model(row[:288], ik._LL_ENT),
+        _k9_code_model(row[288:], ik._D_ENT)]) for row in lens8])
+    assert np.array_equal(got, want)
+
+
+def test_block_tables_checks_its_arguments():
+    lens8 = torch.zeros(4, 318, dtype=torch.uint8)
+    assert ik.block_tables(lens8).shape == (4, ik.TABLE_WORDS)
+    assert ik.block_tables(lens8[:0]).shape == (0, ik.TABLE_WORDS)
+    for bad in (lens8.int(), lens8[:, :317], lens8[0], lens8[None, None],
+                lens8.t().contiguous().t(), lens8[:, ::2]):
+        with pytest.raises(ZippyError):
+            ik.block_tables(bad)
+    with pytest.raises(ZippyError, match="unsupported device"):
+        ik.block_tables(lens8.to("meta"))
+
+
+def test_block_tables_kernel_source():
+    text = open(port.__file__.rsplit("/ops/", 1)[0]
+                + "/csrc/inflate.cu").read()
+    assert "int zt_block_tables(" in text
+    assert f"kLensPerRow = kNL + kND;  // {ik.LENS_PER_ROW}" in text
+    assert "block_tables" in ik.LAUNCHES

@@ -65,7 +65,7 @@ def warmup(max_bytes: int = 16 << 20, levels=(1, -1), decode: bool = True,
 
     from .common import resolve_devices
     from .ops import (checksum_kernels, deflate_device, device_tables,
-                      inflate_device)
+                      inflate_device, inflate_kernels)
     from .ops import kernel_build
     from .parallel import default_devices
 
@@ -85,7 +85,7 @@ def warmup(max_bytes: int = 16 << 20, levels=(1, -1), decode: bool = True,
         checksum_kernels._tables_on(dev)
         for name in device_tables.CONSTS:
             device_tables.const(name, dev)
-        inflate_device._entries(dev)
+        inflate_kernels._entries(dev)
         if encode:
             for level in levels:
                 compress(piece, level, dfGzip, device=dev)

@@ -1,11 +1,45 @@
-// Hand-written Hopper (sm_90a) kernel for the device decode's token
-// extraction.
+// Hand-written Hopper (sm_90a) kernels for the device decode's per-block
+// code tables and its token extraction.
 //
 // Built by zippy_tpu_torch/ops/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and bound through ctypes: the entry point takes raw device pointers and the
-// caller's stream, launches one kernel, allocates nothing, and returns the
-// first CUDA error it met (0 when the launch was accepted).
+// and bound through ctypes: each entry point takes raw device pointers and
+// the caller's stream, launches one kernel, allocates nothing, and returns
+// the first CUDA error it met (0 when the launch was accepted).
+//
+// K9 zt_block_tables replaces `_cmp_tables`
+//    (zippy_tpu/ops/inflate_device.py:176) as `_build_lane_tables` (:229)
+//    applies it to the litlen half and the distance half of the scan's
+//    code-length records. In the port its plain version is
+//    inflate_kernels.block_tables_plain, whose (rows, 382) int32 output it
+//    equals element for element: per row, for the 288 litlen symbols and
+//    then the 30 distance symbols, fc (16) = first code + count per length
+//    (the Moffat boundaries), off (16) = rank base - first code, and E (S)
+//    = `ent | len` of the symbol at each canonical rank, 0 where no symbol
+//    has that rank (ent: inflate_kernels._LL_ENT, _D_ENT). Lengths are
+//    clamped to 0..15 first, as the plain version clamps them: a corrupt
+//    stream's record may hold any byte. Ranks of symbols with a nonzero
+//    length are unique (each length's symbols take the ranks sym_base[len]
+//    .. sym_base[len] + count[len] - 1), so no two write one slot; a rank
+//    at or past S is dropped, as the plain version's spare column drops it.
+//
+//    Bound: the launch. A row is 318 bytes in and 1,528 out, about 30
+//    operations a symbol; a batch of 32 CFG_L tiles is 2,048 rows, a few
+//    MB. The plain version issued about 80 torch ops a batch, which led
+//    the decode's device operations (84-86 in a one-tile decode).
+//    Design: one warp a code of a row, kTableRowsPerCta = 4 rows (8 warps)
+//    a CTA, everything in registers and the warp's shared memory:
+//    - lane i takes symbols i, i + 32, ...; per round of 32 symbols,
+//      __match_any_sync groups the lanes of equal length, a lane's rank
+//      within its length is the running count of that length (a per-warp
+//      table of 16) plus the lanes of its group below it, and the group's
+//      lowest lane adds the group to the running count;
+//    - lane b (0..15) then sums first[b] = sum_{1 <= j < b} count[j] <<
+//      (b - j) and sym_base[b] = sum_{1 <= j < b} count[j] directly, and
+//      writes fc and off;
+//    - each symbol of nonzero length writes its entry at sym_base[len] +
+//      rank into the warp's zeroed E in shared memory, which the warp then
+//      copies out coalesced.
 //
 // K4 zt_inflate_extract replaces the jnp/XLA `_extract`
 //    (zippy_tpu/ops/inflate_device.py:268) with `_cmp_decode` (:246) and
@@ -327,9 +361,104 @@ inflate_extract_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// K9: one warp builds one code's fc, off and E of a row from its S
+// lengths `lens`, into `out` (fc at +0, off at +16, E at +32); `s_e` is
+// the warp's S words of shared memory, `s_cnt` and `s_base` its 16.
+template <int S>
+__device__ __forceinline__ void block_code(const uint8_t* __restrict__ lens,
+                                           const long long* __restrict__ ent,
+                                           int32_t* __restrict__ out,
+                                           int32_t* s_e, int32_t* s_cnt,
+                                           int32_t* s_base, int lane) {
+  constexpr int kRounds = (S + 31) / 32;
+  for (int j = lane; j < S; j += 32) s_e[j] = 0;
+  if (lane < 16) s_cnt[lane] = 0;
+  __syncwarp();
+  int len[kRounds], rank[kRounds];
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int s = r * 32 + lane;
+    len[r] = s < S ? min((int)lens[s], 15) : 16;   // 16: no symbol
+    const unsigned group = __match_any_sync(0xffffffffu, len[r]);
+    rank[r] = len[r] < 16 ? s_cnt[len[r]] + __popc(group & below) : 0;
+    __syncwarp();
+    if (len[r] < 16 && (group & below) == 0) s_cnt[len[r]] += __popc(group);
+    __syncwarp();
+  }
+  if (lane < 16) {
+    int32_t first = 0, base = 0;
+    for (int j = 1; j < lane; ++j) {
+      first += s_cnt[j] << (lane - j);
+      base += s_cnt[j];
+    }
+    s_base[lane] = base;
+    out[lane] = first + s_cnt[lane];
+    out[kOff + lane] = base - first;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if (len[r] > 0 && len[r] < 16) {
+      const int pos = s_base[len[r]] + rank[r];
+      if (pos < S) s_e[pos] = (int32_t)(ent[r * 32 + lane] | len[r]);
+    }
+  }
+  __syncwarp();
+  for (int j = lane; j < S; j += 32) out[kE + j] = s_e[j];
+}
+
+constexpr int kTableRowsPerCta = 4;
+constexpr int kLensPerRow = kNL + kND;  // 318
+
+__global__ void __launch_bounds__(64 * kTableRowsPerCta)
+block_tables_kernel(const uint8_t* __restrict__ lens8, long long tile_stride,
+                    long long row_stride, int nblk, int rows,
+                    const long long* __restrict__ ll_ent,
+                    const long long* __restrict__ d_ent,
+                    int32_t* __restrict__ out) {
+  __shared__ int32_t s_e[kTableRowsPerCta][kLensPerRow];
+  __shared__ int32_t s_cnt[2 * kTableRowsPerCta][16];
+  __shared__ int32_t s_base[2 * kTableRowsPerCta][16];
+  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
+  const int slot = warp >> 1;
+  const int row = (int)blockIdx.x * kTableRowsPerCta + slot;
+  if (row >= rows) return;
+  const uint8_t* lens = lens8 + (long long)(row / nblk) * tile_stride +
+                        (long long)(row % nblk) * row_stride;
+  int32_t* o = out + (long long)row * kTableWords;
+  if (warp & 1) {
+    block_code<kND>(lens + kNL, d_ent, o + kFcD, s_e[slot] + kNL,
+                    s_cnt[warp], s_base[warp], lane);
+  } else {
+    block_code<kNL>(lens, ll_ent, o + kFcL, s_e[slot], s_cnt[warp],
+                    s_base[warp], lane);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// K9: rows = ntiles * nblk code-length records of 318 uint8, row r at
+// lens8 + (r / nblk) * tile_stride + (r % nblk) * row_stride (bytes), into
+// out, rows * 382 int32; ll_ent (288) and d_ent (30) int64, the symbols'
+// entries without their lengths.
+int zt_block_tables(const void* lens8, long long tile_stride,
+                    long long row_stride, int nblk, int rows,
+                    const void* ll_ent, const void* d_ent, void* out,
+                    void* stream, int device) {
+  DeviceScope scope;
+  cudaError_t err = scope.enter(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows > 0 && nblk > 0) {
+    block_tables_kernel<<<(rows + kTableRowsPerCta - 1) / kTableRowsPerCta,
+                          64 * kTableRowsPerCta, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)lens8, tile_stride, row_stride, nblk, rows,
+        (const long long*)ll_ent, (const long long*)d_ent, (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
 
 // words: ntiles rows of nwords >= 1 uint32 (the tiles' stream words), row
 // t at words + t * words_stride; seg: per tile three rows of int32 (bit

@@ -17,12 +17,16 @@ reference's vmap, written out as a leading group dimension G):
    canonical codes (`_rev_codes_device`). On a CUDA tensor it is one launch
    of the Hopper kernel K5 (csrc/huffman.cu); `huffman_tables_plain`, the
    torch ops here, is its plain version and the CPU path.
-3. `pack_tokens` — per-token bit lengths, their prefix sum, and a
-   scatter-add of the shifted code words.
+3. `pack_tokens` (ops/pack_kernels.py) — each row's codes at their bit
+   offsets, the end-of-block code appended. On a CUDA tensor it is one
+   launch of the Hopper kernel K8 (csrc/pack.cu), the rows cut into chunks
+   that meet by decoupled look-back; `pack_kernels.pack_tokens_plain`,
+   per-token bit lengths, their prefix sum and a scatter-add of the
+   shifted code words, is its plain version and the CPU path.
 4. The host splice (`_assemble_block`) of headers and payload bits.
 
-Stage 3 is torch ops on the tensor's device; its Hopper kernel is queued
-(ROADMAP.md, B4). The output bytes are
+Every device stage is a hand-written kernel on a CUDA tensor. The output
+bytes are
 those of the reference bit for bit, given the same ideal depths
 (`_ideal_depth`). Torch has no uint32 arithmetic on the CPU, so 32-bit
 words travel as int64 masked to 32 bits, or as int32 bit patterns where
@@ -39,10 +43,10 @@ import torch
 
 from .. import tables
 from ..common import ZippyError, check_level, resolve_devices
-from . import huffman_kernels, match_kernels
+from . import huffman_kernels, match_kernels, pack_kernels
 from .device_tables import const
 # The matcher's constants and word helpers live with K7.
-from .match_kernels import EXTW, NRANK, NWIN, PAD, _M32, _to_i32
+from .match_kernels import EXTW, NRANK, NWIN, PAD, _to_i32
 
 BLOCK = 1 << 16                 # device block size
 HIST = 32768                    # cross-block history window (read-only prefix)
@@ -88,55 +92,11 @@ def pack_tokens(tok: dict, ll_lens: torch.Tensor, ll_codes: torch.Tensor,
     block header). Tables are (G, 286) and (G, 30).
 
     Returns (words (G, N // 2 + 8) int64 holding uint32 values, total_bits
-    (G,)). Bit k of a row's stream is bit (k % 32) of word (k // 32)."""
-    is_tok, m = tok["is_tok"], tok["is_match"]
-    sym, len_idx, dist_idx = tok["sym"], tok["len_idx"], tok["dist_idx"]
-    dev = is_tok.device
-    G, N = is_tok.shape
-    # Four components per token (a literal uses only c0).
-    c_bits = [
-        torch.where(is_tok, ll_lens.gather(1, sym), 0),
-        torch.where(m, const("len_extra", dev)[len_idx], 0),
-        torch.where(m, dist_lens.gather(1, dist_idx), 0),
-        torch.where(m, const("dist_extra", dev)[dist_idx], 0),
-    ]
-    c_vals = [
-        torch.where(is_tok, ll_codes.gather(1, sym), 0),
-        torch.where(m, tok["length"] - const("base_len", dev)[len_idx], 0),
-        torch.where(m, dist_codes.gather(1, dist_idx), 0),
-        torch.where(m, tok["dist"] - const("base_dist", dev)[dist_idx], 0),
-    ]
-    nbits = c_bits[0] + c_bits[1] + c_bits[2] + c_bits[3]
-    off0 = torch.cumsum(nbits, dim=1) - nbits
-    body_bits = off0[:, -1:] + nbits[:, -1:]                   # (G, 1)
-
-    # Append the end-of-block code (symbol 256) at the tail.
-    eob_bits = ll_lens[:, 256:257]
-    eob_val = ll_codes[:, 256:257]
-    total_bits = (body_bits + eob_bits).squeeze(1)
-    offs = [off0]
-    for c in range(1, 4):
-        offs.append(offs[-1] + c_bits[c - 1])
-
-    Wn = N // 2 + 8
-    zero = torch.zeros(G, 1, dtype=torch.int64, device=dev)
-    all_lo, all_hi, all_w = [], [], []
-    for c in range(4):
-        bo = torch.cat([offs[c], body_bits], dim=1)
-        bits_c = torch.cat([c_bits[c], eob_bits if c == 0 else zero], dim=1)
-        val_c = torch.cat([c_vals[c], eob_val if c == 0 else zero], dim=1)
-        val_c = torch.where(bits_c > 0, val_c, 0)
-        sh = bo & 31
-        all_lo.append((val_c << sh) & _M32)
-        all_hi.append(torch.where(sh == 0, 0, val_c >> (32 - sh)))
-        all_w.append(bo >> 5)
-    vals = torch.cat(all_lo + all_hi, dim=1)
-    segs = torch.cat(all_w + [w + 1 for w in all_w], dim=1).clamp(0, Wn - 1)
-    # Codes never overlap, so the integer sum is the bitwise OR (a clipped
-    # tail wraps mod 2^32, as the reference's uint32 sum does).
-    words = torch.zeros(G, Wn, dtype=torch.int64, device=dev).scatter_add_(
-        1, segs, vals) & _M32
-    return words, total_bits
+    (G,)). Bit k of a row's stream is bit (k % 32) of word (k // 32). On a
+    CUDA tensor the kernel K8 (pack_kernels.pack_tokens) packs them; on a
+    CPU tensor its plain version, pack_kernels.pack_tokens_plain."""
+    return pack_kernels.pack_tokens(tok, ll_lens, ll_codes, dist_lens,
+                                    dist_codes)
 
 
 def compress_block_fixed(data_pad: torch.Tensor, n, *, k: int = 4,
@@ -867,6 +827,11 @@ def _finish_fetch(fetch) -> tuple[np.ndarray, np.ndarray]:
         event.synchronize()
     meta = meta.numpy()
     nwords = max(1, -(-int(meta[:, 1].max()) // 32))
+    if nwords > words.shape[1]:
+        # Only tokens that are no cover could cost more bits than a row's
+        # words hold (pack_kernels.words_per_row).
+        raise ZippyError(f"a block's {int(meta[:, 1].max())} bits overflow "
+                         f"its {words.shape[1]} packed words")
     return meta, words.numpy()[:, :nwords].view("<u4")
 
 

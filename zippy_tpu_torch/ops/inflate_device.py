@@ -12,8 +12,9 @@ The index-based tiled decode of the reference, on a CUDA card:
    against its `_decode_tile`.
 3. On the card, per batch of up to _TILES_PER_LAUNCH tiles
    (`_decode_batch`): the packs uploaded as one pinned buffer without a
-   host sync, the per-block comparison tables of every tile in one build
-   (`_cmp_tables`, torch ops), token extraction of every busy lane in one
+   host sync, the per-block comparison tables of every tile in one launch
+   of kernel K9 `block_tables` (ops/inflate_kernels.py, beside its plain
+   version `block_tables_plain`), token extraction of every busy lane in one
    launch of kernel K4 `inflate_extract` (ops/inflate_kernels.py), then per
    tile the LZ resolution (`_resolve`: kernel K6 `lz_resolve`,
    ops/resolve_kernels.py: the tokens and stored spans expanded, then
@@ -42,7 +43,6 @@ spare trailing slot, here.
 from __future__ import annotations
 
 import contextlib
-import functools
 import time
 from typing import NamedTuple
 
@@ -90,51 +90,6 @@ def _mk_cfg(tile_out: int, nseg: int, nblk: int, nsto: int) -> TileConfig:
 CFG_S = _mk_cfg(1 << 18, 4096, 8, 64)
 CFG_L = _mk_cfg(1 << 22, 65536, 64, 256)
 
-# ---------------------------------------------------------------------------
-# RFC 1951 constant tables
-# ---------------------------------------------------------------------------
-
-_LENGTH_BASE = np.array(
-    [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59,
-     67, 83, 99, 115, 131, 163, 195, 227, 258], dtype=np.int64)
-_LENGTH_EXTRA = np.array(
-    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4,
-     5, 5, 5, 5, 0], dtype=np.int64)
-_DIST_BASE = np.array(
-    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385,
-     513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385,
-     24577], dtype=np.int64)
-_DIST_EXTRA = np.array(
-    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10,
-     10, 11, 11, 12, 12, 13, 13], dtype=np.int64)
-
-# Per-symbol packed litlen entries, without the code length (added from the
-# block's lengths): bit5 literal flag, bits8-15 literal byte, bits16-24
-# length base, bits25-27 length extra count.
-_LL_ENT = np.zeros(288, dtype=np.int64)
-_LL_ENT[:256] = (1 << 5) | (np.arange(256, dtype=np.int64) << 8)
-_LL_ENT[257:286] = (_LENGTH_BASE << 16) | (_LENGTH_EXTRA << 25)
-# Dist entries: bits5-8 extra count, bits16-30 base - 1.
-_D_ENT = (_DIST_EXTRA << 5) | ((_DIST_BASE - 1) << 16)
-
-
-def _upload(arr: np.ndarray, device: torch.device, keep: list) -> torch.Tensor:
-    """arr on `device`: a CUDA upload goes from pinned memory without a host
-    sync; the pinned buffer is appended to `keep`, for the caller to hold
-    until it next synchronizes."""
-    t = torch.from_numpy(arr)
-    if device.type != "cuda":
-        return t.to(device)
-    t = t.pin_memory()
-    keep.append(t)
-    return t.to(device, non_blocking=True)
-
-
-@functools.cache
-def _entries(device: torch.device):
-    """(_LL_ENT, _D_ENT) as int64 tensors on `device`, uploaded once."""
-    return tuple(_upload(a, device, []) for a in (_LL_ENT, _D_ENT))
-
 
 @contextlib.contextmanager
 def _stage(stages, name: str, device: torch.device):
@@ -157,46 +112,12 @@ def _stage(stages, name: str, device: torch.device):
 # ---------------------------------------------------------------------------
 
 
-def _cmp_tables(lens: torch.Tensor, ent: torch.Tensor):
-    """Per-block comparison-decode tables from code lengths (nblk, S):
-    fc (nblk, 16) = first_code + count per length (the Moffat range
-    boundaries), off (nblk, 16) = rank_base - first_code, and E (nblk, S) =
-    packed entry (ent | len) of the symbol at each canonical rank. int32."""
-    nblk, S = lens.shape
-    dev = lens.device
-    lens = lens.to(torch.int64).clamp(0, 15)
-    oh = (lens[:, :, None] == torch.arange(16, device=dev)).to(torch.int64)
-    count = oh.sum(dim=1)                                  # (nblk, 16)
-    # first[b] = sum over 1 <= j < b of count[j] << (b - j): the canonical
-    # recurrence first[b] = (first[b-1] + count[b-1]) << 1 from first[1] = 0.
-    b = torch.arange(16, device=dev)
-    shift = b[None, :] - b[:, None]                        # [j, b] = b - j
-    weight = torch.where((shift > 0) & (b[:, None] >= 1),
-                         1 << shift.clamp(min=0), 0)
-    first = (count[:, :, None] * weight[None]).sum(dim=1)
-    fc = first + count
-    cnt_a = torch.cat([torch.zeros_like(count[:, :1]), count[:, 1:]], dim=1)
-    sym_base = torch.cumsum(cnt_a, dim=1) - cnt_a          # shorter codes
-    off = sym_base - first
-    # Canonical rank of each symbol: sym_base[len] + rank within its length.
-    rank_in = torch.cumsum(oh, dim=1) - oh
-    rank_sym = (sym_base.gather(1, lens)
-                + rank_in.gather(2, lens[:, :, None])[:, :, 0])
-    # Absent symbols (and any rank out of the row) go to one spare column.
-    pos = torch.where((lens > 0) & (rank_sym < S), rank_sym, S)
-    E = torch.zeros(nblk, S + 1, dtype=torch.int64, device=dev).scatter_(
-        1, pos, ent[None, :] | lens)[:, :S]
-    return fc.to(torch.int32), off.to(torch.int32), E.to(torch.int32)
-
-
 def _block_tables(lens8: torch.Tensor) -> torch.Tensor:
-    """K4's tables from the scan's code-length records (nblk, 318) uint8:
-    (nblk, 382) int32, the litlen code's fc, off, E, then the distance
-    code's."""
-    ll_ent, d_ent = _entries(lens8.device)
-    fc_l, off_l, e_l = _cmp_tables(lens8[:, :288], ll_ent)
-    fc_d, off_d, e_d = _cmp_tables(lens8[:, 288:318], d_ent)
-    return torch.cat([fc_l, off_l, e_l, fc_d, off_d, e_d], dim=1)
+    """K4's tables from the scan's code-length records, (rows, 318) or
+    (ntiles, nblk, 318) uint8: (rows, 382) int32, the litlen code's fc, off,
+    E, then the distance code's. Kernel K9 on the card, the plain version
+    on the CPU (ops/inflate_kernels.block_tables)."""
+    return inflate_kernels.block_tables(lens8)
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +227,7 @@ def _decode_batch(packs, halo, tiles, *, k: int, cfg: TileConfig,
     lanes = [t.s1 - t.s0 for t in tiles]
     if any(lanes):
         with _stage(stages, "tables", dev):
-            tables = _block_tables(lens8.reshape(-1, 318))
+            tables = _block_tables(lens8)
         with _stage(stages, "extract", dev):
             packed = _extract(words, seg, lanes, tables, k, devices)
     else:

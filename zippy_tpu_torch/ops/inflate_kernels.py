@@ -1,5 +1,5 @@
-"""The decode's token extraction kernel (csrc/inflate.cu) and its plain
-PyTorch version.
+"""The decode's token extraction and block table kernels (csrc/inflate.cu)
+and their plain PyTorch versions.
 
 K4 `inflate_extract` replaces the jnp/XLA `_extract` of
 zippy_tpu/ops/inflate_device.py (with `_cmp_decode` and `_rev15`) for a
@@ -13,14 +13,20 @@ the reference's padding lanes past them hold only zeros.
 
 Tables are one (nblk, 382) int32 row per Huffman block (TABLE_WORDS): the
 litlen code's fc (16), off (16), E (288), then the distance code's fc (16),
-off (16), E (30), as ops/inflate_device._cmp_tables builds them. A lane
-reads its own block's row: the TPU version's one-hot matmul that copied the
-rows to every lane is not needed. The kernel stages the rows its lanes use
+off (16), E (30), as `_cmp_tables` builds them. A lane reads its own
+block's row: the TPU version's one-hot matmul that copied the rows to every
+lane is not needed. The kernel stages the rows its lanes use
 in shared memory with a first-level table of 2^FAST_BITS entries per code
 (`_fast_table_plain` is its plain version, for the tests).
 
-The wrapper launches K4 on CUDA tensors (or raises) and runs the plain
-version on CPU tensors. The kernel builds with nvcc at first CUDA use
+K9 `block_tables` builds those rows, a batch's at once, from the scan's
+code-length records: it replaces the reference's `_cmp_tables` (:176) as
+`_build_lane_tables` (:229) applies it, one warp a code of a row (csrc/
+inflate.cu says how). Its plain version is `block_tables_plain`, about 80
+torch ops a batch.
+
+Each wrapper launches its kernel on CUDA tensors (or raises) and runs the
+plain version on CPU tensors. The kernels build with nvcc at first CUDA use
 (ops/kernel_build.py); importing this module builds nothing.
 """
 
@@ -29,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..common import ZippyError
@@ -58,6 +65,8 @@ def _lib() -> ctypes.CDLL:
     lib.zt_inflate_extract.argtypes = [p, i64, i32, p, i64, i64, p, i32, i32,
                                        p, i32, i32, i32, p, p, p, i32]
     lib.zt_inflate_extract.restype = i32
+    lib.zt_block_tables.argtypes = [p, i64, i64, i32, i32, p, p, p, p, i32]
+    lib.zt_block_tables.restype = i32
     return lib
 
 
@@ -259,3 +268,121 @@ def _launch(words, seg, bases, ncta: int, tables, k: int, out,
         torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
     kernel_build.check_launch(rc, "inflate_extract")
     LAUNCHES["inflate_extract"] += 1
+
+
+# RFC 1951's length and distance bases and extra bits, for the entries.
+_LENGTH_BASE = np.array(
+    [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59,
+     67, 83, 99, 115, 131, 163, 195, 227, 258], dtype=np.int64)
+_LENGTH_EXTRA = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4,
+     5, 5, 5, 5, 0], dtype=np.int64)
+_DIST_BASE = np.array(
+    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385,
+     513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385,
+     24577], dtype=np.int64)
+_DIST_EXTRA = np.array(
+    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10,
+     10, 11, 11, 12, 12, 13, 13], dtype=np.int64)
+
+# Per-symbol packed litlen entries, without the code length (added from the
+# block's lengths): bit5 literal flag, bits8-15 literal byte, bits16-24
+# length base, bits25-27 length extra count.
+_LL_ENT = np.zeros(LL_SYMS, dtype=np.int64)
+_LL_ENT[:256] = (1 << 5) | (np.arange(256, dtype=np.int64) << 8)
+_LL_ENT[257:286] = (_LENGTH_BASE << 16) | (_LENGTH_EXTRA << 25)
+# Dist entries: bits5-8 extra count, bits16-30 base - 1.
+_D_ENT = (_DIST_EXTRA << 5) | ((_DIST_BASE - 1) << 16)
+
+
+@functools.cache
+def _entries(device: torch.device):
+    """(_LL_ENT, _D_ENT) as int64 tensors on `device`, uploaded once; a
+    CUDA upload goes from pinned memory, without a host sync."""
+    out = []
+    for arr in (_LL_ENT, _D_ENT):
+        t = torch.from_numpy(arr)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out.append(t.to(device, non_blocking=True))
+    return tuple(out)
+
+
+# The scan's code-length record of a block: 288 litlen, then 30 distance.
+LENS_PER_ROW = LL_SYMS + D_SYMS
+
+
+def _cmp_tables(lens: torch.Tensor, ent: torch.Tensor):
+    """Per-block comparison-decode tables from code lengths (nblk, S):
+    fc (nblk, 16) = first_code + count per length (the Moffat range
+    boundaries), off (nblk, 16) = rank_base - first_code, and E (nblk, S) =
+    packed entry (ent | len) of the symbol at each canonical rank. int32."""
+    nblk, S = lens.shape
+    dev = lens.device
+    lens = lens.to(torch.int64).clamp(0, 15)
+    oh = (lens[:, :, None] == torch.arange(16, device=dev)).to(torch.int64)
+    count = oh.sum(dim=1)                                  # (nblk, 16)
+    # first[b] = sum over 1 <= j < b of count[j] << (b - j): the canonical
+    # recurrence first[b] = (first[b-1] + count[b-1]) << 1 from first[1] = 0.
+    b = torch.arange(16, device=dev)
+    shift = b[None, :] - b[:, None]                        # [j, b] = b - j
+    weight = torch.where((shift > 0) & (b[:, None] >= 1),
+                         1 << shift.clamp(min=0), 0)
+    first = (count[:, :, None] * weight[None]).sum(dim=1)
+    fc = first + count
+    cnt_a = torch.cat([torch.zeros_like(count[:, :1]), count[:, 1:]], dim=1)
+    sym_base = torch.cumsum(cnt_a, dim=1) - cnt_a          # shorter codes
+    off = sym_base - first
+    # Canonical rank of each symbol: sym_base[len] + rank within its length.
+    rank_in = torch.cumsum(oh, dim=1) - oh
+    rank_sym = (sym_base.gather(1, lens)
+                + rank_in.gather(2, lens[:, :, None])[:, :, 0])
+    # Absent symbols (and any rank out of the row) go to one spare column.
+    pos = torch.where((lens > 0) & (rank_sym < S), rank_sym, S)
+    E = torch.zeros(nblk, S + 1, dtype=torch.int64, device=dev).scatter_(
+        1, pos, ent[None, :] | lens)[:, :S]
+    return fc.to(torch.int32), off.to(torch.int32), E.to(torch.int32)
+
+
+def block_tables_plain(lens8: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: `_cmp_tables` of the litlen half and of the
+    distance half of (nblk, 318) uint8 records, (nblk, 382) int32."""
+    ll_ent, d_ent = _entries(lens8.device)
+    fc_l, off_l, e_l = _cmp_tables(lens8[:, :LL_SYMS], ll_ent)
+    fc_d, off_d, e_d = _cmp_tables(lens8[:, LL_SYMS:LENS_PER_ROW], d_ent)
+    return torch.cat([fc_l, off_l, e_l, fc_d, off_d, e_d], dim=1)
+
+
+def block_tables(lens8: torch.Tensor) -> torch.Tensor:
+    """K4's tables from the scan's code-length records: lens8 uint8, 2-D
+    (rows, 318) or 3-D (ntiles, nblk, 318), records contiguous, rows and
+    tiles at any non-negative strides (views into the tiles' packed
+    buffers). Returns (rows, 382) int32, row r the litlen code's fc, off,
+    E, then the distance code's (TABLE_WORDS); a 3-D input's rows tile
+    after tile. K9 on CUDA tensors (one launch), the plain version
+    (block_tables_plain) on CPU tensors."""
+    if lens8.dtype != torch.uint8 or lens8.dim() not in (2, 3) \
+            or lens8.shape[-1] != LENS_PER_ROW or lens8.stride(-1) != 1 \
+            or min(lens8.stride()) < 0:
+        raise ZippyError(f"lens8 must be a 2-D or 3-D uint8 tensor of "
+                         f"{LENS_PER_ROW}-byte contiguous records, got "
+                         f"{tuple(lens8.shape)} {lens8.dtype} strides "
+                         f"{lens8.stride()}")
+    view = lens8 if lens8.dim() == 3 else lens8[None]
+    ntiles, nblk, _ = view.shape
+    rows = ntiles * nblk
+    dev = lens8.device
+    if dev.type == "cpu":
+        return block_tables_plain(view.reshape(rows, LENS_PER_ROW))
+    if dev.type != "cuda":
+        raise ZippyError(f"unsupported device {dev}")
+    ll_ent, d_ent = _entries(dev)
+    out = torch.empty(rows, TABLE_WORDS, dtype=torch.int32, device=dev)
+    if rows:
+        rc = _lib().zt_block_tables(
+            view.data_ptr(), view.stride(0), view.stride(1), nblk, rows,
+            ll_ent.data_ptr(), d_ent.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+        kernel_build.check_launch(rc, "block_tables")
+        LAUNCHES["block_tables"] += 1
+    return out

@@ -1,8 +1,9 @@
 """Build the port's native libraries and count its kernel launches.
 
-* csrc/checksums.cu (K1-K3), csrc/inflate.cu (K4), csrc/huffman.cu (K5),
-  csrc/resolve.cu (K6) and csrc/match.cu (K7): nvcc for sm_90a, never with --use_fast_math;
-  each includes csrc/device_scope.cuh.
+* csrc/checksums.cu (K1-K3), csrc/inflate.cu (K4 and K9), csrc/huffman.cu
+  (K5), csrc/resolve.cu (K6), csrc/match.cu (K7) and csrc/pack.cu (K8):
+  nvcc for sm_90a, never with --use_fast_math; each includes
+  csrc/device_scope.cuh.
 * csrc/inflate_scan.cpp (the decode's host scan): the host C++ compiler.
 
 Each library is built at first use into build/kernels/ under a name keyed by
@@ -25,14 +26,14 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 CUDA_SOURCES = ("checksums.cu", "inflate.cu", "huffman.cu", "resolve.cu",
-                "match.cu")
+                "match.cu", "pack.cu")
 CUDA_HEADERS = ("device_scope.cuh",)
 HOST_SOURCES = ("inflate_scan.cpp",)
 
 # Kernel launches per wrapper: one per launch, counted nowhere else.
 LAUNCHES = {"adler_chunks": 0, "crc_rows": 0, "crc_combine": 0,
             "inflate_extract": 0, "huffman_tables": 0, "lz_resolve": 0,
-            "match_tokens": 0}
+            "match_tokens": 0, "pack_tokens": 0, "block_tables": 0}
 
 
 def _find(names, what: str) -> str:
