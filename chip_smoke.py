@@ -59,9 +59,10 @@ non-zero exit and no result line):
    version on every group of the host-bytes encodes (inputs kept as its
    wrapper got them, `PackWatch`) and on the edge cases of
    `pack_edge_inputs` (level -2, the fixed tables, stored rows, n < N,
-   n = 1 and n = 0, 15-bit codes, 256-byte blocks), every word and bit
-   count (`pack_tokens_vs_plain`); traces of one K8 launch and one plain
-   pack of the first level-6 group;
+   n = 1 and n = 0, 15-bit codes, 256-byte blocks, 65,521-byte blocks),
+   every int32 word and bit count (`pack_tokens_vs_plain`); traces of one
+   K8 launch and one plain pack of the first level-6 group; the traced
+   64 MiB level-6 compress's device operations a group;
 5. the decode path: uncompress() of phase 4's 64 MiB gzip and 8 MiB zlib
    streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
    (level 0) stream and of a two-member gzip, each equal to its input, with
@@ -541,13 +542,14 @@ def pack_work(rows: int, n_block: int, tok: dict | None = None):
     that hold a token and those of each of the four match fields that hold
     a match (K8 reads no other); without it, the interface's arrays, two
     bools and five int64 a position. Either way the (G, n_block // 2 + 8)
-    int64 words and the bit counts written once and the tables (two of 286
-    and two of 30 int64 a row, the four constant tables) read once.
+    int32 words and the int64 bit counts written once and the tables (two
+    of 286 and two of 30 int64 a row, the four constant tables) read
+    once.
     Operations: two a position (its two tests), four a token component
     (lookup, mask, shift, OR) and one a word stored."""
     wn = n_block // 2 + 8
     tables = rows * 2 * (286 + 30) * 8 + (29 + 29 + 30 + 30) * 8
-    out = rows * (wn + 1) * 8
+    out = rows * (wn * 4 + 8)
     if tok is None:
         reads = rows * n_block * (2 + 5 * 8)
         tokens = matches = 0
@@ -621,7 +623,8 @@ class PackWatch:
             line["differing_words"] += int((words != want_words).sum())
             line["differing_total_bits"] += int((bits != want_bits).sum())
             line["max_abs_err"] = max(
-                line["max_abs_err"], int((words - want_words).abs().max()),
+                line["max_abs_err"],
+                int((words.long() - want_words.long()).abs().max()),
                 int((bits - want_bits).abs().max()))
             line["groups"] += 1
             line["rows"] += bits.shape[0]
@@ -639,6 +642,9 @@ class PackWatch:
                 and line["launches"] == line["groups"])
 
 
+ODD_BLOCK = 65_521     # pack_edge_inputs' block size, not a multiple of 16
+
+
 def pack_edge_inputs(group, dev) -> dict:
     """K8's edge cases, {kind: (token cover, tables)}, from a kept K7 group
     (data_pad, n, hist_len, params) of the level-6 encode: all literals
@@ -647,7 +653,10 @@ def pack_edge_inputs(group, dev) -> dict:
     stored-mode group of random bytes with the tables K5 gives it (the
     fixed ones); rows of n < N, n = 1 and n = 0 (the end-of-block code
     alone); every used symbol at 15 bits with random 15-bit codes, near
-    the 16 N-bit worst case; and a group of 256-byte blocks."""
+    the 16 N-bit worst case; a group of 256-byte blocks; and a group of
+    65,521-byte blocks, a block size that is not a multiple of 16 (every
+    other row's bools off a 16-byte boundary, and a partial thread at each
+    row's end: K8's scalar path)."""
     from zippy_tpu_torch.ops import deflate_device as td
     from zippy_tpu_torch.ops import huffman_kernels as hk
     from zippy_tpu_torch.ops.device_tables import const
@@ -685,6 +694,10 @@ def pack_edge_inputs(group, dev) -> dict:
     small = data_pad[:, :td.HIST + 256 + td.PAD].contiguous()
     tok, tables, _ = cover(small, torch.full_like(n, 256), hist_len)
     out["256-byte blocks"] = (tok, tables)
+    odd = data_pad[:, :td.HIST + ODD_BLOCK + td.PAD].contiguous()
+    tok, tables, _ = cover(odd, torch.full_like(n, ODD_BLOCK), hist_len)
+    check(tok["is_tok"].shape[1] == ODD_BLOCK, "the odd block size")
+    out[f"{ODD_BLOCK}-byte blocks"] = (tok, tables)
     return out
 
 
@@ -3034,9 +3047,15 @@ def main() -> int:
           "seconds": time.perf_counter() - t0,
           **{k + "_s": v for k, v in stages.items()}})
 
-    # The same encode traced, no stage syncs.
+    # The same encode traced, no stage syncs, with its device operations a
+    # group (K7's 10, K5, K8, the fetch's copies and the little around
+    # them).
+    traced = device_trace(lambda: td.deflate_array(x_dev, 6))
+    groups6 = encode_groups(MAIN_BYTES, 6)
     emit({"phase": "trace", "run": "deflate L6 64 MiB cuda tensor",
-          **device_trace(lambda: td.deflate_array(x_dev, 6))})
+          **traced, "groups": groups6,
+          "device_ops_per_group": None if traced["device_ops"] is None
+          else traced["device_ops"] / groups6})
 
     # Kernel numbers at the shapes the main path gave each kernel: K1 the
     # 8 MiB zlib trailer, K2 the 64 MiB gzip trailer's rows (in place, no

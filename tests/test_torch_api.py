@@ -116,6 +116,22 @@ def test_default_device_is_cuda():
         zt.compress(b"abc", 6, zt.dfZlib)
 
 
+# Top-level names of the reference that the port leaves out by design
+# (ROADMAP.md, section A): none of them is in zippy_tpu.__all__ today, and
+# the check below stays true if one is added there.
+LEFT_OUT_BY_DESIGN = {"read_member", "uncompress_gzip", "concat_members",
+                      "device_available", "is_device_array", "default_mesh",
+                      "AXIS"}
+
+
+def test_version_and_public_names_match_the_reference():
+    assert zt.__version__ == zippy_tpu.__version__
+    assert "__version__" in zt.__all__
+    assert set(zt.__all__) == set(zippy_tpu.__all__) - LEFT_OUT_BY_DESIGN
+    for name in zt.__all__:
+        assert hasattr(zt, name), name
+
+
 def test_port_imports_neither_jax_nor_reference():
     """In a fresh interpreter (this one has jax loaded by conftest), the
     port and chip_smoke.py leave jax and zippy_tpu out of sys.modules."""

@@ -163,5 +163,6 @@ def test_header_codes_and_pack_match_reference(shared_depth):
         g_words, g_nbits = td.pack_tokens(t_tok, t_ll, got_c[0], t_dl,
                                           got_c[1])
         assert int(nbits) == int(g_nbits[0])
-        assert np.array_equal(np.asarray(words).astype(np.int64),
-                              g_words[0].numpy())
+        assert g_words.dtype == torch.int32     # uint32 bit patterns
+        assert np.array_equal(np.asarray(words).astype(np.uint32).view(
+            np.int32), g_words[0].numpy())

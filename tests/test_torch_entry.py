@@ -41,6 +41,17 @@ def _fixed_stream(words: torch.Tensor, total_bits) -> bytes:
     return bytes(out.out)
 
 
+def _assert_block_equals(ref, got):
+    """compress_block_fixed's four outputs against the reference's: the
+    words as int32 bit patterns of its uint32 words, every word exactly;
+    the bit count and the histograms as integers."""
+    assert got[0].dtype == torch.int32
+    assert np.array_equal(np.asarray(ref[0]).astype(np.uint32).view(
+        np.int32), got[0].numpy())
+    for r, g in zip(ref[1:], got[1:]):
+        assert np.array_equal(np.asarray(r).astype(np.int64), g.numpy())
+
+
 @pytest.mark.parametrize("k,lazy", [(2, False), (4, True), (12, True)])
 def test_compress_block_fixed_bit_exact(one_thread, k, lazy):
     data = mixed_payload(N, seed=11)
@@ -49,8 +60,7 @@ def test_compress_block_fixed_bit_exact(one_thread, k, lazy):
     ref = jd.compress_block_fixed(jnp.asarray(pad), jnp.int32(n), k=k,
                                   lazy=lazy)
     got = td.compress_block_fixed(torch.from_numpy(pad), n, k=k, lazy=lazy)
-    for r, g in zip(ref, got):
-        assert np.array_equal(np.asarray(r).astype(np.int64), g.numpy())
+    _assert_block_equals(ref, got)
     assert zlib.decompress(_fixed_stream(got[0], got[1]), -15) == data[:n]
 
 
@@ -72,8 +82,12 @@ def test_encode_block_is_a_group_row_and_the_reference(one_thread,
     assert set(got) == set(ref)
     for key in ref:
         assert torch.equal(got[key], group[key][0]), key
-        assert np.array_equal(np.asarray(ref[key]).astype(np.int64),
-                              got[key].numpy()), key
+        want = np.asarray(ref[key])
+        if key == "words":
+            # int32 bit patterns of the reference's uint32 words.
+            assert got[key].dtype == torch.int32
+            want = want.astype(np.uint32).view(np.int32)
+        assert np.array_equal(want.astype(np.int64), got[key].numpy()), key
 
 
 def _histograms(size: int) -> list:
@@ -131,7 +145,6 @@ def test_entry_step_equals_reference(one_thread):
     got = step(*args)
     ref_step, ref_args = graft.entry()
     ref = ref_step(*ref_args)
-    for r, g in zip(ref, got):
-        assert np.array_equal(np.asarray(r).astype(np.int64), g.numpy())
+    _assert_block_equals(ref, got)
     block = args[0][: td.BLOCK].numpy().tobytes()
     assert zlib.decompress(_fixed_stream(got[0], got[1]), -15) == block

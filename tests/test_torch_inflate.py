@@ -407,41 +407,50 @@ def test_block_tables_on_corrupt_records(kind):
 
 
 def _k9_code_model(lens: np.ndarray, ent: np.ndarray) -> np.ndarray:
-    """K9's warp on one code of one record, step for step: rounds of 32
-    lanes; a lane's rank within its length is the running count of that
-    length plus the lanes of its __match_any_sync group below it, and the
-    group's lowest lane adds the group to the running count; lane b then
-    sums first[b] and sym_base[b] over the counts of lengths 1 .. b - 1;
-    each symbol of nonzero length writes its entry at sym_base + rank into
-    a zeroed E, dropped at S or past. Returns fc, off, E side by side."""
+    """K9's CTA on one code of one record, step for step: groups of 32
+    symbols, one a lane; a symbol's rank among its group's symbols of its
+    length is the lanes of its __match_any_sync group below it, and the
+    group's lowest lane writes the group's count of that length; lane b of
+    warp 0 sums length b's counts over the groups, keeping each group's
+    predecessors; a 16-lane inclusive scan of count[b] << (15 - b) and of
+    count[b] (b >= 1) gives first[b] (the exclusive sum shifted back by
+    15 - b) and sym_base[b]; each symbol of nonzero length writes its entry
+    at its group's base plus its rank, and the slots from the code's total
+    on are zeroed by their own lanes. Asserts that every slot of E is
+    written exactly once. Returns fc, off, E side by side."""
     S = lens.shape[0]
-    cnt = np.zeros(16, np.int64)
-    length, rank = [], []
-    for r0 in range(0, S, 32):
-        lane_len = [min(int(lens[s]), 15) if s < S else 16
-                    for s in range(r0, r0 + 32)]
-        groups = {}
+    ngroups = -(-S // 32)
+    cnt = np.zeros((ngroups, 16), np.int64)
+    length = np.full(ngroups * 32, 16)
+    length[:S] = np.minimum(lens.astype(np.int64), 15)
+    rank = np.zeros(ngroups * 32, np.int64)
+    for g in range(ngroups):
+        lane_len = length[g * 32:(g + 1) * 32]
         for lane, ln in enumerate(lane_len):
-            groups.setdefault(ln, []).append(lane)
-        for lane, ln in enumerate(lane_len):
-            if ln < 16:
-                below = sum(1 for other in groups[ln] if other < lane)
-                length.append(ln)
-                rank.append(cnt[ln] + below)
-        for ln, lanes in groups.items():
-            if ln < 16:
-                cnt[ln] += len(lanes)
-    first = np.zeros(16, np.int64)
-    base = np.zeros(16, np.int64)
-    for b in range(16):
-        for j in range(1, b):
-            first[b] += cnt[j] << (b - j)
-            base[b] += cnt[j]
-    E = np.zeros(S, np.int64)
-    for s, (ln, rk) in enumerate(zip(length, rank)):
-        if ln > 0 and base[ln] + rk < S:
-            E[base[ln] + rk] = int(ent[s]) | ln
-    return np.concatenate([first + cnt, base - first, E])
+            same = [o for o in range(32) if lane_len[o] == ln]
+            rank[g * 32 + lane] = sum(1 for o in same if o < lane)
+            if ln < 16 and same[0] == lane:
+                cnt[g, ln] = len(same)
+    count = cnt.sum(axis=0)
+    pre = np.cumsum(cnt, axis=0) - cnt                  # (group, length)
+    own_f = np.array([int(count[b]) << (15 - b) if b else 0
+                      for b in range(16)])
+    own_s = np.where(np.arange(16) > 0, count, 0)
+    first = (np.cumsum(own_f) - own_f) >> (15 - np.arange(16))
+    sym_base = np.cumsum(own_s) - own_s
+    total = int(own_s.sum())
+    E = np.full(S, -1, np.int64)
+    for s in range(S):
+        ln = int(length[s])
+        if 1 <= ln <= 15:
+            pos = sym_base[ln] + pre[s // 32, ln] + rank[s]
+            assert E[pos] == -1, "a slot written twice"
+            E[pos] = int(ent[s]) | ln
+        if s >= total:
+            assert E[s] == -1, "a slot written twice"
+            E[s] = 0
+    assert (E >= 0).all()
+    return np.concatenate([first + count, sym_base - first, E])
 
 
 @pytest.mark.parametrize("kind", ["stream blocks"] + sorted(_corrupt_lens8()))

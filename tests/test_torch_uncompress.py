@@ -4,6 +4,7 @@ ZippyError on corrupt input."""
 
 import gzip
 import random
+import struct
 import zlib
 
 import numpy as np
@@ -135,6 +136,41 @@ def test_malformed_input_raises_as_the_reference_does():
     _both_raise(b"\x79\x9c" + b"\x00" * 10, zt.dfZlib)  # method 9
     _both_raise(b"\x78\xbb" + b"\x00" * 10, zt.dfZlib)  # preset dictionary
     _both_raise(b"not compressed at all, not at all")
+
+
+def _early_member() -> bytes:
+    """One gzip member whose DEFLATE body ends after 20,000 of the 45,000
+    bytes its trailer counts; the bytes after that trailer parse as a next
+    member's header, whose body holds a reserved block type."""
+    hdr = bytes([0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 0, 0xFF])
+    return (hdr + raw_deflate(MORE[:20_000], 6)
+            + struct.pack("<II", zlib.crc32(MORE), len(MORE))
+            + hdr + b"\x07" + bytes(24))
+
+
+def _bad_crc_then_bad_magic() -> bytes:
+    """Two members: the first's CRC flipped, the second's magic broken."""
+    a = gzip.compress(TEXT)
+    blob = bytearray(a + gzip.compress(MORE))
+    blob[len(a) - 8] ^= 0xFF
+    blob[len(a) + 1] ^= 0xFF
+    return bytes(blob)
+
+
+@pytest.mark.parametrize("make", [_bad_crc_then_bad_magic, _early_member])
+def test_an_earlier_members_error_wins(make):
+    """As the reference decodes and verifies a member before it parses the
+    next, an earlier member's checksum failure is reported before a later
+    member's header or scan error."""
+    blob = make()
+    with pytest.raises(zippy_tpu.ZippyError) as ref_err:
+        zippy_tpu.uncompress(blob, engine_name="device")
+    with pytest.raises(zt.ZippyError) as err:
+        zt.uncompress(blob, device="cpu")
+    assert str(ref_err.value) == "Checksum verification failed"
+    assert str(err.value) == str(ref_err.value)
+    with pytest.raises(gzip.BadGzipFile, match="CRC check failed"):
+        gzip.decompress(blob)
 
 
 def test_tampered_index_adler_trips_the_gate():

@@ -96,6 +96,8 @@ def warmup(max_bytes: int = 16 << 20, levels=(1, -1), decode: bool = True,
     return n
 
 
+__version__ = "0.1.0"
+
 __all__ = [
     "compress", "uncompress", "compress_indexed", "uncompress_parallel",
     "compress_device_indexed", "uncompress_device", "warmup", "profiling",
@@ -105,5 +107,5 @@ __all__ = [
     "CompressedDataFormat", "ZippyError",
     "dfDetect", "dfZlib", "dfGzip", "dfDeflate",
     "NoCompression", "BestSpeed", "BestCompression", "DefaultCompression",
-    "HuffmanOnly",
+    "HuffmanOnly", "__version__",
 ]

@@ -20,27 +20,38 @@
 //    clamped to 0..15 first, as the plain version clamps them: a corrupt
 //    stream's record may hold any byte. Ranks of symbols with a nonzero
 //    length are unique (each length's symbols take the ranks sym_base[len]
-//    .. sym_base[len] + count[len] - 1), so no two write one slot; a rank
-//    at or past S is dropped, as the plain version's spare column drops it.
+//    .. sym_base[len] + count[len] - 1), so no two write one slot, and all
+//    lie below S (at most S symbols have a length), so the plain version's
+//    spare column for a rank at or past S is never reached.
 //
 //    Bound: the launch. A row is 318 bytes in and 1,528 out, about 30
 //    operations a symbol; a batch of 32 CFG_L tiles is 2,048 rows, a few
-//    MB. The plain version issued about 80 torch ops a batch, which led
-//    the decode's device operations (84-86 in a one-tile decode).
-//    Design: one warp a code of a row, kTableRowsPerCta = 4 rows (8 warps)
-//    a CTA, everything in registers and the warp's shared memory:
-//    - lane i takes symbols i, i + 32, ...; per round of 32 symbols,
-//      __match_any_sync groups the lanes of equal length, a lane's rank
-//      within its length is the running count of that length (a per-warp
-//      table of 16) plus the lanes of its group below it, and the group's
-//      lowest lane adds the group to the running count;
-//    - lane b (0..15) then sums first[b] = sum_{1 <= j < b} count[j] <<
-//      (b - j) and sym_base[b] = sum_{1 <= j < b} count[j] directly, and
-//      writes fc and off;
-//    - each symbol of nonzero length writes its entry at sym_base[len] +
-//      rank into the warp's zeroed E in shared memory, which the warp then
-//      copies out coalesced.
-//
+//    MB. Past the launch, K9's time is a CTA's path (two round trips and
+//    three barriers) and the rate at which the SMs run all CTAs'
+//    instructions.
+//    Design: one CTA of kTableWarps = 4 warps a row, one symbol a lane in
+//    groups of 32 (the 288 litlen symbols are groups 0..8, the 30 distance
+//    symbols group 9; warp w takes groups w, w + 4, w + 8), so that a
+//    1,472-row batch is 5,888 warps, all resident at once on 132 SMs (a
+//    warp a group for both codes at once would be 14,720 warps, two
+//    waves):
+//    - every lane loads its lengths and its symbols' entries (ll_ent,
+//      d_ent) at the start, none waiting on another;
+//    - a symbol's rank among its group's symbols of its length is the
+//      lanes of its __match_any_sync group below it, and the group's
+//      lowest lane writes the group's count of that length to shared
+//      memory (up to three independent rounds a lane);
+//    - warp 0's lanes b = 0..15 (litlen) and 16 + b (distance) sum length
+//      b's counts over the code's groups, keeping each group's
+//      predecessors; one 16-lane scan gives first[b] = sum_{1 <= j < b}
+//      count[j] << (b - j) (the scan of count[j] << (15 - j), shifted
+//      back) and sym_base[b] = sum_{1 <= j < b} count[j]; they write fc
+//      and off and each group's rank base per length;
+//    - each symbol of nonzero length writes its entry at its group's base
+//      for its length plus its rank, straight to device memory: the
+//      ranks fill 0 .. total - 1, and the slots from the code's total on
+//      are zeroed by their own lanes, so each slot is written once.
+
 // K4 zt_inflate_extract replaces the jnp/XLA `_extract`
 //    (zippy_tpu/ops/inflate_device.py:268) with `_cmp_decode` (:246) and
 //    `_rev15` (:152). One launch serves a batch of tiles. Every busy segment
@@ -361,78 +372,127 @@ inflate_extract_kernel(const uint32_t* __restrict__ words,
   }
 }
 
-// K9: one warp builds one code's fc, off and E of a row from its S
-// lengths `lens`, into `out` (fc at +0, off at +16, E at +32); `s_e` is
-// the warp's S words of shared memory, `s_cnt` and `s_base` its 16.
-template <int S>
-__device__ __forceinline__ void block_code(const uint8_t* __restrict__ lens,
-                                           const long long* __restrict__ ent,
-                                           int32_t* __restrict__ out,
-                                           int32_t* s_e, int32_t* s_cnt,
-                                           int32_t* s_base, int lane) {
-  constexpr int kRounds = (S + 31) / 32;
-  for (int j = lane; j < S; j += 32) s_e[j] = 0;
-  if (lane < 16) s_cnt[lane] = 0;
-  __syncwarp();
-  int len[kRounds], rank[kRounds];
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    const int s = r * 32 + lane;
-    len[r] = s < S ? min((int)lens[s], 15) : 16;   // 16: no symbol
-    const unsigned group = __match_any_sync(0xffffffffu, len[r]);
-    rank[r] = len[r] < 16 ? s_cnt[len[r]] + __popc(group & below) : 0;
-    __syncwarp();
-    if (len[r] < 16 && (group & below) == 0) s_cnt[len[r]] += __popc(group);
-    __syncwarp();
-  }
-  if (lane < 16) {
-    int32_t first = 0, base = 0;
-    for (int j = 1; j < lane; ++j) {
-      first += s_cnt[j] << (lane - j);
-      base += s_cnt[j];
-    }
-    s_base[lane] = base;
-    out[lane] = first + s_cnt[lane];
-    out[kOff + lane] = base - first;
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    if (len[r] > 0 && len[r] < 16) {
-      const int pos = s_base[len[r]] + rank[r];
-      if (pos < S) s_e[pos] = (int32_t)(ent[r * 32 + lane] | len[r]);
-    }
-  }
-  __syncwarp();
-  for (int j = lane; j < S; j += 32) out[kE + j] = s_e[j];
-}
-
-constexpr int kTableRowsPerCta = 4;
+// K9: a CTA of kTableWarps warps builds one row's two codes. Symbols come
+// in kGroups groups of 32, one symbol a lane: groups 0..8 are the 288
+// litlen symbols, group 9 the 30 distance symbols (lanes 0..29); warp w
+// takes groups w, w + kTableWarps, ...
+constexpr int kTableWarps = 4;
+constexpr int kTableThreads = 32 * kTableWarps;
+constexpr int kGroups = kNL / 32 + 1;   // 10
+constexpr int kDistGroup = kGroups - 1;
+constexpr int kRounds = (kGroups + kTableWarps - 1) / kTableWarps;
 constexpr int kLensPerRow = kNL + kND;  // 318
 
-__global__ void __launch_bounds__(64 * kTableRowsPerCta)
+__global__ void __launch_bounds__(kTableThreads)
 block_tables_kernel(const uint8_t* __restrict__ lens8, long long tile_stride,
-                    long long row_stride, int nblk, int rows,
+                    long long row_stride, int nblk,
                     const long long* __restrict__ ll_ent,
                     const long long* __restrict__ d_ent,
                     int32_t* __restrict__ out) {
-  __shared__ int32_t s_e[kTableRowsPerCta][kLensPerRow];
-  __shared__ int32_t s_cnt[2 * kTableRowsPerCta][16];
-  __shared__ int32_t s_base[2 * kTableRowsPerCta][16];
-  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
-  const int slot = warp >> 1;
-  const int row = (int)blockIdx.x * kTableRowsPerCta + slot;
-  if (row >= rows) return;
+  // Per group, the symbols of each length; then each length's rank base
+  // in the group (the code's rank base plus the group's predecessors of
+  // that length).
+  __shared__ int32_t cnt_of[kGroups][16];
+  __shared__ int32_t s_total[2];   // symbols of nonzero length, per code
+  const int tid = (int)threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row = (int)blockIdx.x;
   const uint8_t* lens = lens8 + (long long)(row / nblk) * tile_stride +
                         (long long)(row % nblk) * row_stride;
   int32_t* o = out + (long long)row * kTableWords;
-  if (warp & 1) {
-    block_code<kND>(lens + kNL, d_ent, o + kFcD, s_e[slot] + kNL,
-                    s_cnt[warp], s_base[warp], lane);
-  } else {
-    block_code<kNL>(lens, ll_ent, o + kFcL, s_e[slot], s_cnt[warp],
-                    s_base[warp], lane);
+
+  // The lengths (clamped to 15; 16: no symbol) and the entries of the
+  // warp's groups, loaded first, none waiting on another.
+  int len[kRounds], ent[kRounds], rank[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int g = warp + kTableWarps * r;
+    len[r] = 16;
+    ent[r] = 0;
+    rank[r] = 0;
+    if (g < kDistGroup) {
+      len[r] = min((int)lens[g * 32 + lane], 15);
+      ent[r] = (int32_t)ll_ent[g * 32 + lane];
+    } else if (g == kDistGroup && lane < kND) {
+      len[r] = min((int)lens[kNL + lane], 15);
+      ent[r] = (int32_t)d_ent[lane];
+    }
+  }
+  for (int i = tid; i < kGroups * 16; i += kTableThreads)
+    (&cnt_of[0][0])[i] = 0;
+  __syncthreads();
+
+  // A symbol's rank among the group's symbols of its length: the lanes of
+  // its __match_any_sync group below it; the group's lowest lane counts it.
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int g = warp + kTableWarps * r;
+    if (g < kGroups) {
+      const unsigned same = __match_any_sync(0xffffffffu, len[r]);
+      rank[r] = __popc(same & below);
+      if (len[r] < 16 && (same & below) == 0)
+        cnt_of[g][len[r]] = __popc(same);
+    }
+  }
+  __syncthreads();
+
+  // Warp 0: lane b of the low half for the litlen code, of the high half
+  // for the distance code, sums length b's counts over the code's groups
+  // (each group's predecessors kept), then one 16-lane scan gives first[b]
+  // = sum_{1 <= j < b} count[j] << (b - j) (the sum of count[j] << (15 -
+  // j), shifted back) and sym_base[b] = sum_{1 <= j < b} count[j].
+  if (warp == 0) {
+    const int b = lane & 15;
+    const int c = lane >> 4;
+    const int g0 = c ? kDistGroup : 0, ng = c ? 1 : kDistGroup;
+    int cnt[kDistGroup], pre[kDistGroup];
+#pragma unroll
+    for (int k = 0; k < kDistGroup; ++k)
+      cnt[k] = k < ng ? cnt_of[g0 + k][b] : 0;
+    int count = 0;
+#pragma unroll
+    for (int k = 0; k < kDistGroup; ++k) {
+      pre[k] = count;
+      count += cnt[k];
+    }
+    const int own_f = b ? count << (15 - b) : 0, own_s = b ? count : 0;
+    int f = own_f, sb = own_s;
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1) {
+      const int uf = __shfl_up_sync(0xffffffffu, f, d, 16);
+      const int us = __shfl_up_sync(0xffffffffu, sb, d, 16);
+      if (b >= d) {
+        f += uf;
+        sb += us;
+      }
+    }
+    const int first = (f - own_f) >> (15 - b);
+    const int sym_base = sb - own_s;
+    int32_t* oc = o + (c ? kFcD : kFcL);
+    oc[b] = first + count;
+    oc[kOff + b] = sym_base - first;
+#pragma unroll
+    for (int k = 0; k < kDistGroup; ++k)
+      if (k < ng) cnt_of[g0 + k][b] = sym_base + pre[k];
+    if (b == 15) s_total[c] = sb;
+  }
+  __syncthreads();
+
+  // E, each slot written once: a symbol of nonzero length at its rank
+  // (ranks fill 0 .. total - 1), zeros from the code's total on.
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int g = warp + kTableWarps * r;
+    if (g < kGroups) {
+      const bool dist = g == kDistGroup;
+      const int s = dist ? lane : g * 32 + lane;
+      int32_t* e_out = o + (dist ? kFcD : kFcL) + kE;
+      if (len[r] >= 1 && len[r] <= 15)
+        e_out[cnt_of[g][len[r]] + rank[r]] = ent[r] | len[r];
+      if (s < (dist ? kND : kNL) && s >= s_total[dist])
+        e_out[s] = 0;
+    }
   }
 }
 
@@ -443,7 +503,7 @@ extern "C" {
 // K9: rows = ntiles * nblk code-length records of 318 uint8, row r at
 // lens8 + (r / nblk) * tile_stride + (r % nblk) * row_stride (bytes), into
 // out, rows * 382 int32; ll_ent (288) and d_ent (30) int64, the symbols'
-// entries without their lengths.
+// entries without their lengths. One CTA a row.
 int zt_block_tables(const void* lens8, long long tile_stride,
                     long long row_stride, int nblk, int rows,
                     const void* ll_ent, const void* d_ent, void* out,
@@ -452,9 +512,8 @@ int zt_block_tables(const void* lens8, long long tile_stride,
   cudaError_t err = scope.enter(device);
   if (err != cudaSuccess) return (int)err;
   if (rows > 0 && nblk > 0) {
-    block_tables_kernel<<<(rows + kTableRowsPerCta - 1) / kTableRowsPerCta,
-                          64 * kTableRowsPerCta, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)lens8, tile_stride, row_stride, nblk, rows,
+    block_tables_kernel<<<rows, kTableThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)lens8, tile_stride, row_stride, nblk,
         (const long long*)ll_ent, (const long long*)d_ent, (int32_t*)out);
   }
   return (int)cudaGetLastError();

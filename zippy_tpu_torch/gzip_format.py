@@ -155,23 +155,36 @@ def _is_zero_padding(src, pos: int) -> bool:
     return True
 
 
-def member_indexes(src: bytes) -> list:
-    """[(byte offset, decode index)] of every member of a gzip stream, up to
-    its end or to trailing zero padding. Each member is scanned in place, at
-    its bit offset in `src`, so no member's tail is copied."""
+def _walk_members(src: bytes) -> tuple[list, ZippyError | None]:
+    """member_indexes' walk: the [(byte offset, decode index)] of the
+    members before the first one whose header or scan raised, and that
+    error (None when the walk reached the stream's end)."""
     from .ops import inflate_device as idev
 
     out = []
     pos = 0
-    while pos < len(src):
-        if _is_zero_padding(src, pos):
-            break
-        hdr = parse_header(src, pos)
-        index = idev.build_decode_index(src, hdr["data_offset"] * 8)
-        out.append((pos, index))
-        pos = (int(index["end_bit"]) + 7) // 8 + 8
+    try:
+        while pos < len(src):
+            if _is_zero_padding(src, pos):
+                break
+            hdr = parse_header(src, pos)
+            index = idev.build_decode_index(src, hdr["data_offset"] * 8)
+            out.append((pos, index))
+            pos = (int(index["end_bit"]) + 7) // 8 + 8
+    except ZippyError as e:
+        return out, e
     if not out:
-        raise ZippyError("Invalid gzip data")
+        return out, ZippyError("Invalid gzip data")
+    return out, None
+
+
+def member_indexes(src: bytes) -> list:
+    """[(byte offset, decode index)] of every member of a gzip stream, up to
+    its end or to trailing zero padding. Each member is scanned in place, at
+    its bit offset in `src`, so no member's tail is copied."""
+    out, err = _walk_members(src)
+    if err is not None:
+        raise err
     return out
 
 
@@ -189,7 +202,14 @@ def uncompress_gzip_device_all(src: bytes, device=None,
         if spans and any(_member_zx(src, pos) is not None
                          for pos, _ in spans):
             return uncompress_device(src, device=device)
-        indexes = member_indexes(src)
+        indexes, err = _walk_members(src)
+        if err is not None:
+            # The reference decodes and verifies a member before it parses
+            # the next: the members before the one the walk failed on are
+            # decoded first, so that their own error wins.
+            for pos, index in indexes:
+                idev.uncompress_gzip_device(src, index, device, pos)
+            raise err
     return b"".join(idev.uncompress_gzip_device(src, index, device, pos)
                     for pos, index in indexes)
 

@@ -46,7 +46,7 @@ from ..common import ZippyError, check_level, resolve_devices
 from . import huffman_kernels, match_kernels, pack_kernels
 from .device_tables import const
 # The matcher's constants and word helpers live with K7.
-from .match_kernels import EXTW, NRANK, NWIN, PAD, _to_i32
+from .match_kernels import EXTW, NRANK, NWIN, PAD
 
 BLOCK = 1 << 16                 # device block size
 HIST = 32768                    # cross-block history window (read-only prefix)
@@ -91,8 +91,8 @@ def pack_tokens(tok: dict, ll_lens: torch.Tensor, ll_codes: torch.Tensor,
     """Serialize each row's token cover to a DEFLATE bit stream (no 3-bit
     block header). Tables are (G, 286) and (G, 30).
 
-    Returns (words (G, N // 2 + 8) int64 holding uint32 values, total_bits
-    (G,)). Bit k of a row's stream is bit (k % 32) of word (k // 32). On a
+    Returns (words (G, N // 2 + 8) int32 holding the uint32 words' bit
+    patterns, total_bits (G,)). Bit k of a row's stream is bit (k % 32) of word (k // 32). On a
     CUDA tensor the kernel K8 (pack_kernels.pack_tokens) packs them; on a
     CPU tensor its plain version, pack_kernels.pack_tokens_plain."""
     return pack_kernels.pack_tokens(tok, ll_lens, ll_codes, dist_lens,
@@ -103,9 +103,9 @@ def compress_block_fixed(data_pad: torch.Tensor, n, *, k: int = 4,
                          lazy: bool = True):
     """One block with the fixed Huffman codes: find_tokens, then pack_tokens
     with the fixed tables. `data_pad` is one 1-D uint8 block, zero padded
-    past `n` to N + PAD bytes. Returns (words (N // 2 + 8,) int64 holding
-    uint32 values, total_bits, ll_hist (286,), dist_hist (30,)) on its
-    device: the payload bits with no 3-bit block header."""
+    past `n` to N + PAD bytes. Returns (words (N // 2 + 8,) int32 holding
+    the uint32 words' bit patterns, total_bits, ll_hist (286,), dist_hist
+    (30,)) on its device: the payload bits with no 3-bit block header."""
     dev = data_pad.device
     tok = find_tokens(data_pad[None], n, k=k, lazy=lazy)
     words, total_bits = pack_tokens(
@@ -809,7 +809,7 @@ def _start_fetch(res: dict):
     _finish_fetch takes."""
     meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
                       res["ll_lens"], res["d_lens"], res["cl_lens"]], dim=1)
-    words = _to_i32(res["words"])
+    words = res["words"]        # int32 bit patterns, as pack_tokens wrote
     if meta.device.type != "cuda":
         return meta, words, None
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

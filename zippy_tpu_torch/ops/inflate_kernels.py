@@ -21,9 +21,9 @@ in shared memory with a first-level table of 2^FAST_BITS entries per code
 
 K9 `block_tables` builds those rows, a batch's at once, from the scan's
 code-length records: it replaces the reference's `_cmp_tables` (:176) as
-`_build_lane_tables` (:229) applies it, one warp a code of a row (csrc/
-inflate.cu says how). Its plain version is `block_tables_plain`, about 80
-torch ops a batch.
+`_build_lane_tables` (:229) applies it, one CTA a row, one symbol a lane
+(csrc/inflate.cu says how). Its plain version is `block_tables_plain`,
+about 80 torch ops a batch.
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and runs the
 plain version on CPU tensors. The kernels build with nvcc at first CUDA use

@@ -3,13 +3,16 @@
 K8 `pack_tokens` replaces the jnp/XLA `pack_tokens` of
 zippy_tpu/ops/deflate_device.py (:361): each row's token cover serialized
 to a DEFLATE bit stream with the row's code tables, the end-of-block code
-appended. One launch packs a group, one CTA a chunk of CHUNK positions of a
-row; the chunks of a row meet by decoupled look-back on a scan of (bit
-count, last 32 bits) pairs, and each thread stores the words whose last bit
-is its own (csrc/pack.cu says how). Its plain version, `pack_tokens_plain`,
+appended. One launch packs a group: as many CTAs as the card holds at
+once work through the rows' chunks of CHUNK positions, taken by ticket,
+each loading its next chunk while it writes this one; the chunks of a row
+meet by decoupled look-back on a scan of (bit count, last 32 bits) pairs,
+and each thread stores the words whose last bit is its own (csrc/pack.cu
+says how). Its plain version, `pack_tokens_plain`,
 is the torch ops the port ran before it: per-token bit lengths, their
 prefix sum, and a scatter-add of the shifted code words. The two are equal
-element for element on every token cover.
+element for element on every token cover: int32 words holding the uint32
+words' bit patterns, the form the encoder's fetch hands the host splice.
 
 The wrapper launches K8 on CUDA tensors (or raises) and runs the plain
 version on CPU tensors. The kernel builds with nvcc at first CUDA use
@@ -27,7 +30,7 @@ from ..common import ZippyError
 from . import kernel_build
 from .device_tables import const
 from .kernel_build import LAUNCHES
-from .match_kernels import _M32
+from .match_kernels import _M32, _to_i32
 
 LL_SYMS, D_SYMS = 286, 30
 # csrc/pack.cu's kChunk (positions a CTA) and kMaxChunks (chunks a row).
@@ -55,7 +58,8 @@ def pack_tokens_plain(tok: dict, ll_lens: torch.Tensor,
     bit lengths and values of every position, their prefix sum, and a
     scatter-add of the shifted code words (codes never overlap, so the sum
     is the bitwise OR; a word index past the row clamps to its last word,
-    as the reference's does)."""
+    as the reference's does). The words are returned as int32 bit
+    patterns, as K8 writes them."""
     is_tok, m = tok["is_tok"], tok["is_match"]
     sym, len_idx, dist_idx = tok["sym"], tok["len_idx"], tok["dist_idx"]
     dev = is_tok.device
@@ -103,7 +107,7 @@ def pack_tokens_plain(tok: dict, ll_lens: torch.Tensor,
     # tail wraps mod 2^32, as the reference's uint32 sum does).
     words = torch.zeros(G, Wn, dtype=torch.int64, device=dev).scatter_add_(
         1, segs, vals) & _M32
-    return words, total_bits
+    return _to_i32(words), total_bits
 
 
 class _Args(ctypes.Structure):
@@ -130,12 +134,12 @@ def _lib() -> ctypes.CDLL:
 # K8's look-back flags and counters, one buffer per (device, stream handle),
 # the only state the kernel wrappers keep across calls. The invariant: the
 # buffer is all zero when a launch starts. It is zeroed once, when made,
-# and each launch's last CTA to finish zeroes it again; launches on one
-# stream run one after another, so each finds it zero, and launches on two
-# streams never share one. What would break it: a launch that aborts before
-# its last CTA finishes (its CUDA context is then lost as well), or a
-# stream handle that is freed and handed out again while a launch on the
-# old stream is still in flight. A buffer made during CUDA-graph capture
+# and each launch's last CTA to leave (after every CTA has taken its last
+# ticket) zeroes it again; launches on one stream run one after another, so
+# each finds it zero, and launches on two streams never share one. What
+# would break it: a launch that aborts before its last CTA leaves (its
+# CUDA context is then lost as well), or a stream handle that is freed and
+# handed out again while a launch on the old stream is still in flight. A buffer made during CUDA-graph capture
 # is zeroed only when the graph first replays (each replay then leaves it
 # zero), so such a graph must replay before K8 runs eagerly on its capture
 # stream.
@@ -190,8 +194,8 @@ def pack_tokens(tok: dict, ll_lens: torch.Tensor, ll_codes: torch.Tensor,
     block header): tok holds find_tokens' (G, N) tensors (TOKEN_INPUTS,
     contiguous, 1 <= N <= MAX_N), the tables are (G, 286) and (G, 30) int64
     code lengths (0..15) and bit-reversed codes, rows contiguous. Returns
-    (words (G, N // 2 + 8) int64 holding uint32 values, zero past each
-    row's last bit, total_bits (G,) int64). Bit k of a row's stream is bit
+    (words (G, N // 2 + 8) int32 holding the uint32 words' bit patterns,
+    zero past each row's last bit, total_bits (G,) int64). Bit k of a row's stream is bit
     (k % 32) of word (k // 32). K8 on CUDA tensors (one launch; none for
     G = 0), pack_tokens_plain on CPU tensors."""
     tables = (ll_lens, ll_codes, dist_lens, dist_codes)
@@ -202,7 +206,7 @@ def pack_tokens(tok: dict, ll_lens: torch.Tensor, ll_codes: torch.Tensor,
     if dev.type != "cuda":
         raise ZippyError(f"unsupported device {dev}")
     wn = words_per_row(N)
-    words = torch.empty(G, wn, dtype=torch.int64, device=dev)
+    words = torch.empty(G, wn, dtype=torch.int32, device=dev)
     total_bits = torch.empty(G, dtype=torch.int64, device=dev)
     if G:
         stream = torch.cuda.current_stream(dev).cuda_stream
