@@ -48,7 +48,9 @@ encode:
 compress (the encoder's stages and the calls around them):
 - stream_digests (s): deflate_device.deflate of the payload's first 8 MiB
   at levels -2, -1, 1, 6 and 9 and of 64 MiB at level 6, with the SHA-256
-  of each stream (two trees' digests equal: the same bytes);
+  of each stream (two trees' digests equal: the same bytes); and
+  `api_digests`, the SHA-256 of the raw bodies of chip_smoke.py phase 4's
+  four compress() streams (chip_smoke.phase4_digests);
 - find_group_L{6,1} (ms): find_tokens on the first group of the level's
   encode of the 64 MiB payload (55 rows at level 6, 64 at level 1), 10
   calls a sample; from a profile of 10 calls the card's busy ms,
@@ -97,7 +99,7 @@ import torch
 
 from chip_smoke import (HBM_BYTES_PER_S, MAIN_BYTES, SEED, ZLIB_BYTES,
                         archive_tree, bound, card_line, check, device_trace,
-                        find_work, mixed_text)
+                        find_work, mixed_text, phase4_digests)
 
 OUT = pathlib.Path("chiprun_out") / "bench_torch_device.json"
 HBM_GBPS = HBM_BYTES_PER_S / 1e9
@@ -530,8 +532,19 @@ class Bench:
                          (6, ZLIB_BYTES), (9, ZLIB_BYTES), (6, MAIN_BYTES)):
             digests[f"L{level} {n >> 20} MiB"] = hashlib.sha256(
                 dd.deflate(data[:n], level)).hexdigest()
+        # And the raw bodies of chip_smoke.py phase 4's streams, written
+        # through compress() as phase 4 writes them.
+        small = data[:ZLIB_BYTES]
+        x_dev = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(
+            self.dev)
+        api_digests = phase4_digests({
+            "gzip L6 host bytes": api.compress(data, 6, common.dfGzip),
+            "gzip L6 cuda tensor": api.compress(x_dev, 6, common.dfGzip),
+            "zlib L1 host bytes": api.compress(small, 1, common.dfZlib),
+            "zlib L9 host bytes": api.compress(small, 9, common.dfZlib)})
+        del x_dev
         self.rec(row("stream_digests", "s", [time.perf_counter() - t0],
-                     digests=digests))
+                     digests=digests, api_digests=api_digests))
 
         x = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
         for level in (6, 1):

@@ -9,8 +9,8 @@ non-zero exit and no result line):
 1. the card (nvidia-smi's name and power limit, torch's device name);
 2. the build of every native library, with its seconds: csrc/checksums.cu,
    csrc/inflate.cu, csrc/huffman.cu, csrc/resolve.cu, csrc/match.cu and
-   csrc/pack.cu with nvcc (started together) and the decode's host scan
-   csrc/inflate_scan.cpp with c++;
+   csrc/pack.cu with nvcc (started together), and the host engine with
+   the decode's host scan, csrc/zippy_native.cpp, with c++;
    and what `nvcc -Xptxas -v` said of each kernel (registers, shared
    memory, spills);
 3. kernels K1 (adler_chunks), K2 (crc_rows, on padded rows and in place
@@ -170,7 +170,21 @@ non-zero exit and no result line):
    or more, dryrun_multichip over default_devices(), with seconds; their
    launches counted from zero (K1 for the decode's gate, K4 a share, K9
    a batch, K5, K7 and K8 a group of each encode, K6 for the decode); then
-   K4 on their streams and K1-K3 on their data against the plain versions.
+   K4 on their streams and K1-K3 on their data against the plain versions;
+11. the host engine (`host_engine` lines, zippy_tpu_torch.native, the
+   port's copy of zippy_tpu's C++ host codec): a cold build of
+   csrc/zippy_native.cpp with its flags, timed, beside the CPU's model
+   name and core count; compress(engine_name="native") of phase 4's
+   payload cut to 8 MiB at levels -2, -1, 0, 1, 6 and 9 (seconds, MB/s,
+   ratio), each stream decoded by CPython; of the 64 MiB payload at
+   levels 1 and 6; uncompress(engine_name="native") and uncompress_gzip
+   of phase 4's 64 MiB gzip L6 stream and of the host engine's own, each
+   equal to the payload, their seconds and MB/s beside phase 4's and
+   phase 5's card seconds on the same payload; no kernel launched by any
+   of that; then uncompress(engine_name="device") of every host-engine
+   stream on the card, counted from zero (K1-K4, K6 and K9 launched), and
+   a flipped crc raising ZippyError on both engines; last, the SHA-256 of
+   the raw DEFLATE body of each of phase 4's streams.
 
 A kernel's time ("ms") is device time per launch, from a CUDA graph of
 launches between CUDA events; a plain version's ("plain_ms") and a
@@ -190,11 +204,12 @@ tile, the archive tree's text entry nearest its 16 KiB median, deflated
 at level 1). A
 kernel's "launches" in the kernel line are those of the compress run,
 the decode run, the indexed compress and decode runs and the runs of
-phases 8, 9 and 10 together, each counted from zero just before its run.
+phases 8, 9, 10 and 11 together, each counted from zero just before its
+run.
 The launch floor ("launch_floor_ms", on the `kernel_calls` line and in K3's,
 K5's and K9's rows) is the same timing of a one-element zero_() on the card.
 
-After phase 10, the counts of K6's, K7's, K8's and K9's plain versions'
+After phase 11, the counts of K6's, K7's, K8's and K9's plain versions'
 calls on CUDA tensors over the whole run, which must be 0. Then the kernel table (one JSON
 line), the card's name and power limit, and last {"ok": true, "device":
 {...}}.
@@ -205,7 +220,9 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import gzip
+import hashlib
 import json
+import os
 import pathlib
 import shutil
 import socket
@@ -1514,7 +1531,8 @@ def k6_bounds(idev, watch, dev) -> dict:
 def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
                  watch: ResolveWatch, tables_watch: TablesWatch):
     """Phase 5, the decode path. Returns (the run's kernel launches, K4's,
-    K6's and K9's rows for the kernel line)."""
+    K6's and K9's rows for the kernel line, the 64 MiB gzip stream's decode
+    seconds)."""
     from zippy_tpu_torch import api, common, gzip_format
     from zippy_tpu_torch.ops import checksums as tc
     from zippy_tpu_torch.ops import inflate_device as idev
@@ -1708,7 +1726,7 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
     k9 = block_tables_phase(idev, tables_watch, gz6, index, k9_lines, dev)
     k9["launches"] = launches["block_tables"]
     torch.cuda.empty_cache()
-    return launches, row, k6, k9
+    return launches, row, k6, k9, runs[0]["seconds"]
 
 
 def block_tables_phase(idev, tables_watch, blob: bytes, index, lines: list,
@@ -2740,6 +2758,143 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
     return launches, k13_err, k4_err
 
 
+def _cpu_model() -> str:
+    """The host CPU's model name, family and model, from /proc/cpuinfo (a
+    virtual machine may report its name as "unknown")."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if not key.strip():
+                    break
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return (f"{info.get('model name', 'unknown')} (family "
+            f"{info.get('cpu family', '?')}, model {info.get('model', '?')})")
+
+
+def phase4_digests(blobs: dict) -> dict:
+    """The SHA-256 of the raw DEFLATE body of each of phase 4's streams, by
+    label (a gzip member's FNAME padding is random; its body is not)."""
+    out = {}
+    for label, blob in blobs.items():
+        if label.startswith("gzip"):
+            start = 10 + (blob.index(b"\0", 10) + 1 - 10 if blob[3] & 8
+                          else 0)
+            body = blob[start:-8]
+        else:
+            body = blob[2:-4]
+        out[label] = hashlib.sha256(body).hexdigest()
+    return out
+
+
+def host_engine_phase(data: bytes, phase4: dict, card_compress_s: float,
+                      card_decode_s: float) -> dict:
+    """Phase 11, the host engine (zippy_tpu_torch.native), on phase 4's
+    payload and streams (`phase4`, by label). Returns the kernel launches
+    of its counted run, the card's decodes of the host engine's streams;
+    the host engine's own calls must launch none."""
+    from zippy_tpu_torch import api, common, gzip_format
+    from zippy_tpu_torch.common import ZippyError
+    from zippy_tpu_torch.ops import kernel_build as kb
+
+    # A cold build of the host engine, timed apart from phase 2's.
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    out = SCRATCH / "zippy_native.so"
+    t0 = time.perf_counter()
+    proc = subprocess.run(kb._command(kb.CSRC / "zippy_native.cpp", out),
+                          capture_output=True, text=True, timeout=600)
+    build_s = time.perf_counter() - t0
+    out.unlink(missing_ok=True)
+    emit({"phase": "host_engine", "run": "build", "seconds": build_s,
+          "rc": proc.returncode, "flags": list(kb.HOST_FLAGS),
+          "cpu": _cpu_model(), "nproc": os.cpu_count()})
+    check(proc.returncode == 0, proc.stdout + proc.stderr)
+
+    def timed(fn, reps: int = 2):
+        secs, result = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            result = fn()
+            secs.append(time.perf_counter() - t0)
+        return result, secs
+
+    small = data[:ZLIB_BYTES]
+    torch.cuda.synchronize()
+    for key in kb.LAUNCHES:
+        kb.LAUNCHES[key] = 0
+    streams = {}
+    for level in (-2, -1, 0, 1, 6, 9):
+        blob, secs = timed(lambda: api.compress(small, level,
+                                                engine_name="native"))
+        streams[level] = blob
+        ok = gzip.decompress(blob) == small
+        emit({"phase": "host_engine", "run": f"compress gzip L{level} "
+              f"{len(small) >> 20} MiB", "seconds": secs, "MB_per_s": len(small) / min(secs)
+              / 1e6, "ratio": len(blob) / len(small),
+              "cpython_decodes": ok})
+        check(ok, f"host engine L{level}")
+    rows = {}
+    for level in (1, 6):
+        blob, secs = timed(lambda: api.compress(data, level,
+                                                engine_name="native"))
+        check(gzip.decompress(blob) == data, f"host engine L{level}")
+        rows[f"compress L{level}"] = (secs, len(blob))
+        streams[f"L{level} whole payload"] = blob
+    gz6 = phase4["gzip L6 host bytes"]
+    for label, blob in (("card's gzip L6", gz6),
+                        ("own gzip L6", streams["L6 whole payload"])):
+        out, secs = timed(lambda: api.uncompress(blob, engine_name="native"))
+        check(out == data, f"host engine decode of the {label}")
+        out, gsecs = timed(lambda: gzip_format.uncompress_gzip(blob))
+        check(out == data, f"uncompress_gzip of the {label}")
+        rows[f"decode {label}"] = (secs, len(blob))
+        rows[f"uncompress_gzip {label}"] = (gsecs, len(blob))
+    host_launches = dict(kb.LAUNCHES)
+    for name, (secs, nbytes) in rows.items():
+        emit({"phase": "host_engine",
+              "run": f"{len(data) >> 20} MiB {name}", "seconds": secs, "MB_per_s": len(data) / min(secs) / 1e6,
+              "stream_bytes": nbytes})
+    emit({"phase": "host_engine", "run": "beside the card",
+          "card_compress_gzip_L6_s": card_compress_s,
+          "host_compress_gzip_L6_s": min(rows["compress L6"][0]),
+          "card_decode_gzip_L6_s": card_decode_s,
+          "host_decode_gzip_L6_s": min(rows["decode card's gzip L6"][0]),
+          "card": card_line(), "cpu": _cpu_model(),
+          "nproc": os.cpu_count(), "host_engine_launches": host_launches})
+    check(not any(host_launches.values()), host_launches)
+
+    # The card decodes the host engine's streams; a flipped crc raises on
+    # both engines.
+    torch.cuda.synchronize()
+    for key in kb.LAUNCHES:
+        kb.LAUNCHES[key] = 0
+    for level, blob in streams.items():
+        want = small if isinstance(level, int) else data
+        check(api.uncompress(blob, engine_name="device") == want,
+              f"the card's decode of the host engine's {level}")
+    bad = bytearray(streams[6])
+    bad[-8] ^= 0xFF
+    raised = {}
+    for name in ("native", "device"):
+        try:
+            api.uncompress(bytes(bad), engine_name=name)
+            raised[name] = False
+        except ZippyError:
+            raised[name] = True
+    launches = dict(kb.LAUNCHES)
+    emit({"phase": "host_engine", "run": "card decodes", "launches":
+          launches, "flipped_crc_raises": raised})
+    check(all(raised.values()) and all(launches[k] > 0
+                                       for k in DECODE_KERNELS), raised)
+    emit({"phase": "host_engine", "run": "phase 4 stream digests",
+          "raw_body_sha256": phase4_digests(phase4)})
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3164,7 +3319,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Phase 5: the decode path.
-    decode_launches, k4, k6, k9 = decode_phase(
+    decode_launches, k4, k6, k9, decode_s = decode_phase(
         dev, data, blobs["gzip L6 host bytes"], blobs["zlib L1 host bytes"],
         blobs["zlib L9 host bytes"], watch, k9_watch)
     for row in kernels + [k8]:
@@ -3240,6 +3395,10 @@ def main() -> int:
     # Phase 10: the driver hooks.
     hook_launches, k13_err, k4_err = driver_hooks_phase(dev)
     add_phase(hook_launches, kernel_errs(k13_err, k4_err))
+
+    # Phase 11: the host engine.
+    add_phase(host_engine_phase(data, blobs, runs[0]["seconds"], decode_s),
+              {})
 
     # No decode path ran K6's or K9's plain version on the card, and no
     # encode path K7's or K8's.

@@ -5,8 +5,9 @@ tests/test_distributed.py runs the reference's under jax.distributed.
 
 compress_gzip_all_hosts must return the same stream on both ranks; CPython,
 the port's uncompress and zippy_tpu's must decode it to the concatenation of
-the shards; engine="native" (the reference's default, a host codec the port
-lacks) must raise ZippyError.
+the shards; engine="native" (the reference's default) writes each rank's
+member with the host engine and refuses a level outside -2..9 with
+ZippyError; an unknown engine raises too.
 """
 
 import gzip
@@ -38,14 +39,19 @@ assert dist.get_backend() == "gloo" and dist.get_world_size() == 2
 shards = {shards!r}
 stream = distributed.compress_gzip_all_hosts(shards[rank], level=6,
                                              devices=["cpu"] * 2)
-try:
-    distributed.compress_gzip_all_hosts(shards[rank], engine="native",
-                                        devices=["cpu"])
-    native = b"no error"
-except ZippyError:
-    native = b"ZippyError"
+native = distributed.compress_gzip_all_hosts(shards[rank], engine="native",
+                                             devices=["cpu"])
+raised = []
+for level, name in ((10, "native"), (6, "nativ")):
+    try:
+        distributed.compress_gzip_all_hosts(shards[rank], level, name,
+                                            devices=["cpu"])
+        raised.append("no error")
+    except ZippyError:
+        raised.append("ZippyError")
 open({outdir!r} + f"/rank{{rank}}", "wb").write(stream)
 open({outdir!r} + f"/rank{{rank}}.native", "wb").write(native)
+open({outdir!r} + f"/rank{{rank}}.raised", "w").write(" ".join(raised))
 dist.destroy_process_group()
 """
 
@@ -60,7 +66,8 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def streams():
-    """Each rank's returned stream and what engine="native" did there."""
+    """Each rank's returned stream, its engine="native" stream and what
+    raised there."""
     with tempfile.TemporaryDirectory() as outdir:
         env = {k: v for k, v in os.environ.items()
                if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
@@ -90,7 +97,8 @@ def streams():
         for p, (_, se) in zip(procs, outs):
             assert p.returncode == 0, se.decode()[-2000:]
         yield [((Path(outdir) / f"rank{r}").read_bytes(),
-                (Path(outdir) / f"rank{r}.native").read_bytes())
+                (Path(outdir) / f"rank{r}.native").read_bytes(),
+                (Path(outdir) / f"rank{r}.raised").read_text())
                for r in range(2)]
 
 
@@ -115,7 +123,19 @@ def test_port_and_reference_decode_it(streams):
 
 
 def test_native_engine_raises(streams):
-    assert [native for _, native in streams] == [b"ZippyError"] * 2
+    """engine="native" raises ZippyError on level 10, which the host
+    engine refuses, and an unknown engine raises too."""
+    assert [r for _, _, r in streams] == ["ZippyError ZippyError"] * 2
+
+
+def test_native_engine_writes_the_references_members(streams):
+    """Under engine="native" each rank gets the host engine's members of
+    both shards (zippy_tpu.native's bytes), in rank order."""
+    from zippy_tpu import native
+
+    want = native.gzip_compress(SHARDS[0], 1) + native.gzip_compress(
+        SHARDS[1], 1)
+    assert [n for _, n, _ in streams] == [want] * 2
 
 
 def test_one_process_returns_its_member():

@@ -1,4 +1,4 @@
-"""The port's decode index (its own host scan, csrc/inflate_scan.cpp) and
+"""The port's decode index (its host scan, in csrc/zippy_native.cpp) and
 tile planner held against zippy_tpu's, field for field, on the CPU."""
 
 import gzip

@@ -13,7 +13,10 @@ device groups and decoded in one dispatch pass. `parallel` spreads the
 encode and the checksums over a list of devices and gathers members across
 processes (torch.distributed); `profiling` traces a block; `warmup` takes
 the first-call costs up front. Entry points run on the CUDA card unless
-the caller passes device="cpu".
+the caller passes device="cpu". engine_name="native" runs host bytes on the
+host engine instead (native.py, the port's copy of zippy_tpu's C++ host
+codec, built with the host compiler at first use); gzip_format's
+read_member, uncompress_gzip and concat_members decode on it.
 """
 
 from . import profiling
@@ -54,11 +57,12 @@ def warmup(max_bytes: int = 16 << 20, levels=(1, -1), decode: bool = True,
     on each of `devices` (None: every CUDA card; ["cpu"] the plain
     versions). PyTorch compiles no executables, so this stands for the
     reference's compiles: it builds the native libraries (nvcc and c++;
-    for CPU devices only the host scan), uploads the crc tables and the
-    encoder's and decoder's constant tables to each device, then runs on
-    each device one gzip compress per level (of up to two blocks) and one
-    gzip decode of up to `max_bytes` (a stream over 2 MiB takes the large
-    tile size). Returns the number of warm-up calls it ran."""
+    for CPU devices only the host engine's, which holds the host scan),
+    uploads the crc tables and the encoder's and decoder's constant tables
+    to each device, then runs on each device one gzip compress per level
+    (of up to two blocks) and one gzip decode of up to `max_bytes` (a
+    stream over 2 MiB takes the large tile size). Returns the number of
+    warm-up calls it ran."""
     import gzip
 
     import numpy as np

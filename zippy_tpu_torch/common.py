@@ -80,6 +80,17 @@ def resolve_devices(devices) -> list[torch.device]:
     return out
 
 
+def host_bytes(data) -> bytes:
+    """bytes, bytearray, memoryview or str (UTF-8) as bytes."""
+    if isinstance(data, bytes):
+        return data
+    if isinstance(data, (bytearray, memoryview)):
+        return bytes(data)
+    if isinstance(data, str):
+        return data.encode("utf-8")
+    raise TypeError(f"Unsupported input type {type(data)!r}")
+
+
 def as_u8_tensor(data, device=None) -> torch.Tensor:
     """The payload as a 1-D uint8 tensor: a tensor stays where it is; bytes,
     bytearray, memoryview or str (UTF-8) go to `device` in one upload."""

@@ -1,5 +1,6 @@
 """RFC 1952 gzip framing: the port of zippy_tpu.gzip_format's member writer,
-header parser, device decode of every member, and the indexed formats.
+header parser, member reader, host and device decode of every member, and
+the indexed formats.
 
 Parity reference: zippy's src/zippy/gzip.nim and zippy.nim:22-58 (member
 write with random-length FNAME anti-oracle padding,
@@ -16,25 +17,26 @@ Two indexed formats ride in FEXTRA subfields and stay standard gzip:
   `uncompress_device` decodes with no host scan. Any RFC 1952 reader sees
   the sidecars as members that decode to nothing.
 
-The port has no host codec of its own: members are written by the device
-encoder, and the index blob is deflated by CPython's zlib (raw DEFLATE).
-So the port's indexed streams are not byte-identical to the reference's;
-each side decodes the other's. A sidecar is untrusted input: its index is
-checked (`_check_index`) before it plans a decode, and every ZT length is
-checked against the member it frames.
+read_member, uncompress_gzip and concat_members decode on the host engine
+(native.py), as the reference's do. The indexed formats' members are
+written by the device encoder, and the index blob is deflated by the host
+engine at level 6, as the reference's is: the sidecars of one index are the
+reference's bytes, but the data members are not, so each side decodes the
+other's indexed streams. A sidecar is untrusted input: its index is checked
+(`_check_index`) before it plans a decode, and every ZT length is checked
+against the member it frames.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-import zlib
 
 import numpy as np
 import torch
 
-from . import engine
-from .common import ZippyError, as_u8_tensor, resolve_device
+from . import engine, native
+from .common import ZippyError, as_u8_tensor, host_bytes, resolve_device
 
 GZIP_MAGIC = b"\x1f\x8b"
 
@@ -63,9 +65,20 @@ def write_member(
     bytes assemble on the host. Level -1 runs level 6's matcher on host
     bytes and level 1's on a tensor (engine.matcher_level); `matcher`, if
     given, is the level whose matcher runs, for a caller that uploaded
-    host bytes itself."""
+    host bytes itself.
+
+    engine_name="native" writes host bytes with the host engine (native.py):
+    with no `extra`, the whole member in one call, as the reference's
+    write_member does; `device` is then unused. A tensor runs on its own
+    device whatever the engine."""
     engine.check_engine(engine_name)
-    x = as_u8_tensor(src, device)
+    if engine.on_host(src, engine_name):
+        x = host_bytes(src)
+        if extra is None:
+            name_pad = os.urandom(1)[0] % 26 if random_name_padding else -1
+            return native.gzip_compress(x, level, name_pad)
+    else:
+        x = as_u8_tensor(src, device)
     flg = 0
     fields = b""
     if extra is not None:
@@ -83,7 +96,7 @@ def write_member(
         matcher = engine.matcher_level(src, level)
     body = engine.deflate(x, level, engine_name, matcher)
     trailer = struct.pack("<II", engine.crc32(x, engine_name),
-                          int(x.shape[0]) & 0xFFFFFFFF)
+                          len(x) & 0xFFFFFFFF)
     return header + fields + body + trailer
 
 
@@ -139,6 +152,56 @@ def parse_header(src: bytes, pos: int = 0) -> dict:
         "name": name,
         "comment": comment,
     }
+
+
+def read_member(src: bytes, pos: int = 0,
+                trust_size: bool = False) -> tuple[bytes, int]:
+    """Decode the member at byte `pos` on the host engine. Returns
+    (payload, byte offset of the next member). `trust_size` sizes the
+    output from the stream's last ISIZE (mod 2^32, so a hint: a wrong one
+    falls back to growth)."""
+    hdr = parse_header(src, pos)
+    p = hdr["data_offset"]
+    size_hint = None
+    if trust_size:
+        size_hint = struct.unpack_from("<I", src, len(src) - 4)[0] + 16
+    payload, end_bit = native.inflate(src, p * 8, size_hint=size_hint)
+    tpos = (end_bit + 7) // 8
+    if tpos + 8 > len(src):
+        raise ZippyError("Invalid gzip data")
+    checksum, isize = struct.unpack_from("<II", src, tpos)
+    if checksum != native.crc32(payload):
+        raise ZippyError("Checksum verification failed")
+    if isize != len(payload) & 0xFFFFFFFF:
+        raise ZippyError("Size verification failed")
+    return payload, tpos + 8
+
+
+def uncompress_gzip(src: bytes, trust_size: bool = False) -> bytes:
+    """Decode every member of a gzip stream on the host engine and
+    concatenate them (CPython's semantics); trailing zero padding is
+    allowed, other trailing bytes raise ZippyError. Each member is one
+    host-engine call (header, inflate, crc32 and ISIZE checks), which always
+    sizes its output from the ISIZE trailer within DEFLATE's expansion
+    bound, so `trust_size` changes nothing."""
+    del trust_size
+    payload, consumed = native.gzip_uncompress(src, 0)
+    if consumed == len(src):
+        return payload
+    return concat_members(src, [payload], consumed)
+
+
+def concat_members(src: bytes, parts: list, pos: int) -> bytes:
+    """Go on decoding members on the host engine from byte `pos`, the
+    members before it already decoded into `parts`, and return all the
+    payloads concatenated."""
+    while not _is_zero_padding(src, pos):
+        if len(src) - pos < 18 or bytes(src[pos:pos + 2]) != GZIP_MAGIC:
+            raise ZippyError("Invalid gzip data (trailing garbage)")
+        payload, consumed = native.gzip_uncompress(src, pos)
+        parts.append(payload)
+        pos += consumed
+    return parts[0] if len(parts) == 1 else b"".join(parts)
 
 
 def _is_zero_padding(src, pos: int) -> bool:
@@ -343,9 +406,10 @@ def _narrow(values: np.ndarray, dtype: str, what: str) -> bytes:
 
 def serialize_index(index) -> bytes:
     """Columnar little-endian serialization of a decode index (offsets
-    relative to the start of the member's deflate body), raw-deflated. The
-    columns are the reference's; each is range-checked before it is
-    narrowed, and a value out of range raises ZippyError."""
+    relative to the start of the member's deflate body), raw-deflated by the
+    host engine at level 6, as the reference's is. The columns are the
+    reference's; each is range-checked before it is narrowed, and a value
+    out of range raises ZippyError."""
     seg = np.asarray(index["segments"], dtype=np.int64).reshape(-1, 6)
     sto = np.asarray(index["stored"], dtype=np.int64).reshape(-1, 3)
     lens = np.asarray(index["block_lens"], dtype=np.uint8)
@@ -372,20 +436,18 @@ def serialize_index(index) -> bytes:
         cols.append(_narrow(np.diff(sto[:, 1], prepend=0), "<u4", "out"))
         cols.append(_narrow(sto[:, 2], "<u4", "len"))
     cols.append(lens.tobytes())
-    c = zlib.compressobj(6, zlib.DEFLATED, -15)
-    return c.compress(head + b"".join(cols)) + c.flush()
+    return native.deflate(head + b"".join(cols), 6)
 
 
 def deserialize_index(blob: bytes) -> dict:
     """Inverse of serialize_index; returns the dict build_decode_index
     produces (body-relative offsets). Every count is checked against the
     blob before it is read: a malformed blob raises ZippyError."""
-    d = zlib.decompressobj(-15)
     try:
-        raw = d.decompress(blob)
-    except zlib.error as e:
+        raw, stop = native.inflate(blob)
+    except ZippyError as e:
         raise ZippyError(f"Invalid device index ({e})") from None
-    if not d.eof or d.unused_data or len(raw) < _ZTI_HEAD_BYTES \
+    if (stop + 7) // 8 != len(blob) or len(raw) < _ZTI_HEAD_BYTES \
             or raw[:4] != _ZTI_MAGIC:
         raise ZippyError("Invalid device index")
     (every, nseg, nsto, nblk, total_out, end_bit, max_depth,

@@ -2,7 +2,7 @@
 
 The index-based tiled decode of the reference, on a CUDA card:
 
-1. The host scan (`build_decode_index`, csrc/inflate_scan.cpp) records a
+1. The host scan (`build_decode_index`, csrc/zippy_native.cpp) records a
    checkpoint every 32 tokens, each Huffman block's code lengths, the
    stored spans, and the adler32 of the serial decode.
 2. The host planner (`_plan_tiles`) cuts the checkpoints into tiles of

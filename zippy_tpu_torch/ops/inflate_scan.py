@@ -1,4 +1,5 @@
-"""The device decode's host scan (csrc/inflate_scan.cpp) through ctypes.
+"""The device decode's host scan (zt_inflate_scan of csrc/zippy_native.cpp,
+the host engine's library) through ctypes.
 
 The port's own copy of zippy_tpu.native.inflate_scan: the library is built
 with the host C++ compiler at first use (ops/kernel_build.py), on a CPU-only
@@ -7,28 +8,12 @@ host as on the card's, and the scan runs on the host.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 
+from .. import native
 from ..common import ZippyError
-from . import kernel_build
 
 _ERR_DST_FULL = -2
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    try:
-        lib = ctypes.CDLL(str(kernel_build.build("inflate_scan.cpp")))
-    except OSError as e:
-        raise ZippyError(f"cannot load the host scan: {e}") from e
-    p, sz = ctypes.c_void_p, ctypes.c_size_t
-    lib.zt_inflate_scan.argtypes = [ctypes.c_char_p, sz, sz, ctypes.c_uint32,
-                                    p, sz, p, sz, p, sz, p]
-    lib.zt_inflate_scan.restype = ctypes.c_int64
-    return lib
 
 
 def inflate_scan(data: bytes, start_bit: int, every: int) -> dict:
@@ -43,7 +28,7 @@ def inflate_scan(data: bytes, start_bit: int, every: int) -> dict:
     data = bytes(data)
     if every < 1 or start_bit < 0:
         raise ZippyError("Invalid compressed data")
-    lib = _lib()
+    lib = native._lib()
     # Sized from the bytes from start_bit on (a member of a long stream
     # needs no more) and left unfilled: the scan writes every row it
     # counts, and only those are read. A stream that needs more takes the

@@ -4,12 +4,16 @@
   (K5), csrc/resolve.cu (K6), csrc/match.cu (K7) and csrc/pack.cu (K8):
   nvcc for sm_90a, never with --use_fast_math; each includes
   csrc/device_scope.cuh.
-* csrc/inflate_scan.cpp (the decode's host scan): the host C++ compiler.
+* csrc/zippy_native.cpp (the host engine, native.py, and the decode's host
+  scan, ops/inflate_scan.py): the host C++ compiler with zippy_tpu's own
+  flags (HOST_FLAGS), -march=native among them.
 
 Each library is built at first use into build/kernels/ under a name keyed by
-its source's hash, through a temporary file renamed into place, so that
-processes building at once do not race. `build_all` starts every missing
-build at once and waits for them. Importing this module builds nothing.
+its source's hash and, for the host source, by its flags and by the CPU that
+builds it (its instruction set, which -march=native targets); it is built
+through a temporary file renamed into place, so that processes building at
+once do not race. `build_all` starts every missing build at once and waits
+for them. Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import hashlib
 import os
 import pathlib
+import platform
 import shutil
 import subprocess
 
@@ -28,7 +33,11 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 CUDA_SOURCES = ("checksums.cu", "inflate.cu", "huffman.cu", "resolve.cu",
                 "match.cu", "pack.cu")
 CUDA_HEADERS = ("device_scope.cuh",)
-HOST_SOURCES = ("inflate_scan.cpp",)
+HOST_SOURCES = ("zippy_native.cpp",)
+# The host compiler's flags: zippy_tpu's (zippy_tpu/native/build.py), since
+# the host engine's streams are held byte-identical to the reference's.
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fno-exceptions",
+              "-march=native", "-pthread", "-Wall")
 
 # Kernel launches per wrapper: one per launch, counted nowhere else.
 LAUNCHES = {"adler_chunks": 0, "crc_rows": 0, "crc_combine": 0,
@@ -53,18 +62,35 @@ def _command(src: pathlib.Path, out: pathlib.Path) -> list[str]:
                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v", "-o", str(out), str(src)]
     cxx = _find((shutil.which("c++"), shutil.which("g++")), "c++")
-    return [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out),
-            str(src)]
+    return [cxx, *HOST_FLAGS, "-o", str(out), str(src)]
+
+
+def cpu_identity() -> str:
+    """The instruction set of this host's CPU: the "flags" line of
+    /proc/cpuinfo (the machine's name and processor where there is none).
+    A library built with -march=native runs only on a CPU that has them."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return f"{platform.machine()} {platform.processor()}"
 
 
 def library_path(name: str) -> pathlib.Path:
     """Where the library of csrc/`name` lives, keyed by the hash of its
-    source and, for a .cu source, of the headers it may include."""
+    source and, for a .cu source, of the headers it may include; for a
+    host source, of HOST_FLAGS and cpu_identity()."""
     src = CSRC / name
     digest = hashlib.sha1(src.read_bytes())
     if src.suffix == ".cu":
         for header in CUDA_HEADERS:
             digest.update((CSRC / header).read_bytes())
+    else:
+        digest.update(" ".join(HOST_FLAGS).encode())
+        digest.update(cpu_identity().encode())
     tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"libzt_{src.stem}-{tag}.so"
 

@@ -18,7 +18,8 @@ import torch
 import torch.distributed as dist
 
 from .. import engine as engine_mod
-from .. import gzip_format
+from .. import gzip_format, native
+from ..common import host_bytes
 from . import blocks
 
 
@@ -62,14 +63,18 @@ def compress_gzip_all_hosts(local_data, level: int = 1,
     card of this process) and return the members of every rank
     concatenated in rank order: the same stream on every process, after
     one gather of the lengths and one of the members padded to the
-    longest. engine="native" (the reference's host codec, its default)
-    raises ZippyError: the port has none."""
+    longest. engine="native" (the reference's default) writes a shard of
+    host bytes with the host engine instead, in one call (native.py); a
+    tensor runs on its own device whatever the engine."""
     engine_mod.check_engine(engine)
     grouped = dist.is_initialized() and dist.get_world_size() > 1
     dev = _gather_device() if grouped else None
     if devices is None and grouped and dev.type == "cuda":
         devices = [dev]
-    member = blocks.compress_gzip_sharded(local_data, level, devices)
+    if engine_mod.on_host(local_data, engine):
+        member = native.gzip_compress(host_bytes(local_data), level)
+    else:
+        member = blocks.compress_gzip_sharded(local_data, level, devices)
     if not grouped:
         return member
     world = dist.get_world_size()
