@@ -500,8 +500,7 @@ class Bench:
         splits = []
         for _ in range(REPS):
             stages: dict = {}
-            dd._encode_group(blocks, lens, hls, **params,
-                             clock=dd._StageClock(stages, self.dev))
+            dd._encode_group(blocks, lens, hls, **params, stages=stages)
             splits.append(stages)
         group_ms = statistics.median(secs) * 1e3
         self.rec(row(f"device_encode_group_L{level}", "GB/s",

@@ -12,7 +12,7 @@ import struct
 
 import torch
 
-from . import engine, gzip_format, native
+from . import engine, gzip_format, native, profiling
 from .common import (
     CompressedDataFormat,
     DefaultCompression,
@@ -48,7 +48,13 @@ def compress(
     engine_name="native" runs host bytes on the host engine (native.py),
     as zippy_tpu's host route does: raw DEFLATE and zlib in one call each,
     gzip through write_member; `device` is then unused. A tensor runs on
-    its own device whatever the engine."""
+    its own device whatever the engine. With tracing on, the call keeps a
+    record of its spans and counters (profiling.recent)."""
+    with profiling.call("compress"):
+        return _compress(src, level, data_format, engine_name, device)
+
+
+def _compress(src, level, data_format, engine_name, device) -> bytes:
     check_level(level)
     engine.check_engine(engine_name)
     if data_format not in (dfGzip, dfZlib, dfDeflate):
@@ -66,10 +72,11 @@ def compress(
                           engine.matcher_level(src, level))
     if data_format == dfDeflate:
         return body
-    cmf = (7 << 4) | 8                       # CINFO 7 (32 KiB window), CM 8
-    header = bytes([cmf, (31 - (cmf * 256) % 31) % 31])
-    return (header + body
-            + struct.pack(">I", engine.adler32(x, engine_name)))
+    adler = engine.adler32(x, engine_name)
+    with profiling.span("framing"):
+        cmf = (7 << 4) | 8                   # CINFO 7 (32 KiB window), CM 8
+        header = bytes([cmf, (31 - (cmf * 256) % 31) % 31])
+        return header + body + struct.pack(">I", adler)
 
 
 def _looks_gzip(data: bytes) -> bool:
@@ -115,14 +122,22 @@ def uncompress(
     the CUDA card, "cpu" runs the plain PyTorch versions). "native" runs
     the host engine (native.py) on the stream's bytes, as zippy_tpu's host
     route does, whatever `src` is; `device` is then unused. Malformed or
-    corrupt input raises ZippyError."""
+    corrupt input raises ZippyError. With tracing on, the call keeps a
+    record of its spans and counters (profiling.recent)."""
+    with profiling.call("uncompress"):
+        return _uncompress(src, data_format, engine_name, device)
+
+
+def _uncompress(src, data_format, engine_name, device) -> bytes:
     engine.check_engine(engine_name)
-    data = _to_bytes(src)
+    with profiling.span("framing"):
+        data = _to_bytes(src)
     if engine_name == "native":
         return _uncompress_native(data, data_format)
     dev = resolve_device(device)
     if data_format == dfDetect:
-        data_format = _detect(data)
+        with profiling.span("framing"):
+            data_format = _detect(data)
     if data_format == dfGzip:
         return gzip_format.uncompress_gzip_device_all(data, dev)
     if data_format == dfZlib:

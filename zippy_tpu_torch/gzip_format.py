@@ -35,7 +35,7 @@ import struct
 import numpy as np
 import torch
 
-from . import engine, native
+from . import engine, native, profiling
 from .common import ZippyError, as_u8_tensor, host_bytes, resolve_device
 
 GZIP_MAGIC = b"\x1f\x8b"
@@ -79,25 +79,28 @@ def write_member(
             return native.gzip_compress(x, level, name_pad)
     else:
         x = as_u8_tensor(src, device)
-    flg = 0
-    fields = b""
-    if extra is not None:
-        if len(extra) > 0xFFFF:
-            raise ZippyError("gzip FEXTRA field too long")
-        flg |= FEXTRA
-        fields += struct.pack("<H", len(extra)) + extra
-    if random_name_padding:
-        # Random-length (0-25 chars) FNAME defeats compressed-length oracles.
-        flg |= FNAME
-        npad = os.urandom(1)[0] % 26
-        fields += bytes(97 + i for i in range(npad)) + b"\x00"
-    header = struct.pack("<2sBBIBB", GZIP_MAGIC, 8, flg, 0, 0, 0)
+    with profiling.span("framing"):
+        flg = 0
+        fields = b""
+        if extra is not None:
+            if len(extra) > 0xFFFF:
+                raise ZippyError("gzip FEXTRA field too long")
+            flg |= FEXTRA
+            fields += struct.pack("<H", len(extra)) + extra
+        if random_name_padding:
+            # Random-length (0-25 chars) FNAME defeats compressed-length
+            # oracles.
+            flg |= FNAME
+            npad = os.urandom(1)[0] % 26
+            fields += bytes(97 + i for i in range(npad)) + b"\x00"
+        header = struct.pack("<2sBBIBB", GZIP_MAGIC, 8, flg, 0, 0, 0)
     if matcher is None:
         matcher = engine.matcher_level(src, level)
     body = engine.deflate(x, level, engine_name, matcher)
-    trailer = struct.pack("<II", engine.crc32(x, engine_name),
-                          len(x) & 0xFFFFFFFF)
-    return header + fields + body + trailer
+    crc = engine.crc32(x, engine_name)
+    with profiling.span("framing"):
+        trailer = struct.pack("<II", crc, len(x) & 0xFFFFFFFF)
+        return header + fields + body + trailer
 
 
 def parse_header(src: bytes, pos: int = 0) -> dict:
@@ -227,13 +230,14 @@ def _walk_members(src: bytes) -> tuple[list, ZippyError | None]:
     out = []
     pos = 0
     try:
-        while pos < len(src):
-            if _is_zero_padding(src, pos):
-                break
-            hdr = parse_header(src, pos)
-            index = idev.build_decode_index(src, hdr["data_offset"] * 8)
-            out.append((pos, index))
-            pos = (int(index["end_bit"]) + 7) // 8 + 8
+        with profiling.span("framing"):         # the scans are their own
+            while pos < len(src):
+                if _is_zero_padding(src, pos):
+                    break
+                hdr = parse_header(src, pos)
+                index = idev.build_decode_index(src, hdr["data_offset"] * 8)
+                out.append((pos, index))
+                pos = (int(index["end_bit"]) + 7) // 8 + 8
     except ZippyError as e:
         return out, e
     if not out:
@@ -261,9 +265,11 @@ def uncompress_gzip_device_all(src: bytes, device=None,
     from .ops import inflate_device as idev
 
     if indexes is None:
-        spans = _zt_spans(src)
-        if spans and any(_member_zx(src, pos) is not None
-                         for pos, _ in spans):
+        with profiling.span("framing"):
+            spans = _zt_spans(src)
+            sidecars = spans and any(_member_zx(src, pos) is not None
+                                     for pos, _ in spans)
+        if sidecars:
             return uncompress_device(src, device=device)
         indexes, err = _walk_members(src)
         if err is not None:
@@ -273,8 +279,10 @@ def uncompress_gzip_device_all(src: bytes, device=None,
             for pos, index in indexes:
                 idev.uncompress_gzip_device(src, index, device, pos)
             raise err
-    return b"".join(idev.uncompress_gzip_device(src, index, device, pos)
-                    for pos, index in indexes)
+    parts = [idev.uncompress_gzip_device(src, index, device, pos)
+             for pos, index in indexes]
+    with profiling.span("framing"):
+        return b"".join(parts)
 
 
 # ---------------------------------------------------------------------------

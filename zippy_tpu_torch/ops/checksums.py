@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import profiling
 from ..common import as_u8_tensor, resolve_device
 
 ADLER_MOD = 65521
@@ -279,11 +280,18 @@ def crc32_tensor(data, device=None) -> torch.Tensor:
 
 def adler32_device(data, device=None) -> int:
     """Adler-32 on the card (bytes or a 1-D uint8 tensor), fetched."""
-    return int(adler32_tensor(data, device))
+    with profiling.span("checksums"):
+        adler = adler32_tensor(data, device)
+    with profiling.span("checksum.wait"):
+        return int(adler)
 
 
 def crc32_device(data, device=None) -> int:
     """CRC-32 on the card (bytes or a 1-D uint8 tensor): K3's raw CRC
     fetched (4 bytes) and finished on the host."""
     x = as_u8_tensor(data, device)
-    return crc32_finish(int(crc32_raw_tensor(x)), x.shape[0])
+    with profiling.span("checksums"):
+        raw = crc32_raw_tensor(x)
+    with profiling.span("checksum.wait"):
+        raw = int(raw)
+    return crc32_finish(raw, x.shape[0])

@@ -36,12 +36,11 @@ only XOR and bit tests touch them.
 from __future__ import annotations
 
 import itertools
-import time
 
 import numpy as np
 import torch
 
-from .. import tables
+from .. import profiling, tables
 from ..common import ZippyError, check_level, resolve_devices
 from . import huffman_kernels, match_kernels, pack_kernels
 from .device_tables import const
@@ -320,26 +319,6 @@ def _header_stats_device(ll_lens: torch.Tensor, d_lens: torch.Tensor):
     return header_bits, cl_lens, hlit.squeeze(1), hdist.squeeze(1)
 
 
-class _StageClock:
-    """Adds each stage's wall seconds to `stages` (a dict), synchronizing
-    the card at every mark so that a stage's kernels count in its own
-    time. With `stages=None` it does nothing."""
-
-    def __init__(self, stages: dict | None, device: torch.device):
-        self.stages = stages
-        self.device = device
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.stages is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.stages[name] = self.stages.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def huffman_tables_plain(ll_hist: torch.Tensor, dist_hist: torch.Tensor,
                          n: torch.Tensor) -> dict:
     """Plain version of K5 (huffman_kernels.huffman_tables), the torch ops
@@ -382,23 +361,25 @@ def huffman_tables_plain(ll_hist: torch.Tensor, dist_hist: torch.Tensor,
 def _encode_group(blocks: torch.Tensor, lens: torch.Tensor,
                   hist_lens: torch.Tensor, *, k: int, lazy: bool, hist: int,
                   min3: bool = False, lits_only: bool = False,
-                  clock: _StageClock | None = None) -> dict:
+                  stages: dict | None = None) -> dict:
     """The full encode of a group of blocks: match finding, token
     selection, the Huffman tables and the exact stored/fixed/dynamic
     choice (`huffman_kernels.huffman_tables`: K5 on a CUDA tensor), and bit
     packing with the chosen table. Returns a dict of (G, ...) tensors:
     words, nbits, mode (0 stored / 1 fixed / 2 dynamic), ll_lens[286],
-    d_lens[30], cl_lens[19]."""
-    clock = clock or _StageClock(None, blocks.device)
+    d_lens[30], cl_lens[19]. `stages`, a dict, gets the synchronized
+    seconds of find_tokens, kraft and pack (profiling.span)."""
+    dev = blocks.device
     n = lens.long()
-    tok = find_tokens(blocks, n, hist_lens, k=k, lazy=lazy, hist=hist,
-                      min3=min3, lits_only=lits_only)
-    clock.mark("find_tokens")
-    tab = huffman_kernels.huffman_tables(tok["ll_hist"], tok["dist_hist"], n)
-    clock.mark("kraft")
-    words, nbits = pack_tokens(tok, tab["use_ll"], tab["ll_codes"],
-                               tab["use_d"], tab["d_codes"])
-    clock.mark("pack")
+    with profiling.span("find_tokens", stages, dev):
+        tok = find_tokens(blocks, n, hist_lens, k=k, lazy=lazy, hist=hist,
+                          min3=min3, lits_only=lits_only)
+    with profiling.span("kraft", stages, dev):
+        tab = huffman_kernels.huffman_tables(tok["ll_hist"],
+                                             tok["dist_hist"], n)
+    with profiling.span("pack", stages, dev):
+        words, nbits = pack_tokens(tok, tab["use_ll"], tab["ll_codes"],
+                                   tab["use_d"], tab["d_codes"])
     return {
         "words": words,
         "nbits": nbits,
@@ -599,14 +580,19 @@ _MODES = ("stored", "fixed", "dynamic")
 
 def _assemble_block(out: _ByteBitAppender, mode_i: int, ll_lens, d_lens,
                     cl_lens, words_row: np.ndarray, nbits: int,
-                    raw, blen: int, final: bool) -> None:
+                    raw, blen: int, final: bool, lap=None) -> None:
     """Splice one device-encoded block: headers from the (tiny) length
-    arrays, payload from the packed words."""
+    arrays, payload from the packed words. `lap` (profiling.laps) times
+    the header apart from the append."""
     mode = _MODES[int(mode_i)]
     header_info = None
     if mode == "dynamic":
         header_info = make_dynamic_header(ll_lens, d_lens, cl_lens)
+        if lap:
+            lap("splice.header")
     _append_block(out, mode, header_info, words_row, nbits, raw, blen, final)
+    if lap:
+        lap("splice.append")
 
 
 def _append_block(out: _ByteBitAppender, mode: str, header_info,
@@ -697,8 +683,9 @@ def deflate_array(x: torch.Tensor, level: int, block_size: int = BLOCK, *,
     matcher here, as zippy_tpu's deflate_array does (`deflate` of host
     bytes runs level 6's); `matcher`, if given, is the level whose matcher
     runs instead (a caller that uploaded host bytes passes `level`).
-    `stages`, a dict, gets each stage's wall seconds (the card synchronized
-    between stages)."""
+    `stages`, a dict, gets each stage's wall seconds, the card synchronized
+    before and after each (profiling.span): find_tokens, kraft and pack a
+    group, fetch, splice."""
     if (not isinstance(x, torch.Tensor) or x.dtype != torch.uint8
             or x.dim() != 1):
         raise ZippyError("deflate_array expects a 1-D uint8 tensor")
@@ -709,7 +696,7 @@ def deflate_array(x: torch.Tensor, level: int, block_size: int = BLOCK, *,
 
 def _encode_run(buf: torch.Tensor, b0: int, nrows: int, n: int,
                 block_size: int, hist: int, params: dict,
-                clock: _StageClock):
+                stages: dict | None = None):
     """Encode blocks b0 .. b0 + nrows - 1 of an n-byte payload on buf's
     device, a group of _group_size blocks at a time. `buf` holds their
     rows: from `hist` bytes before block b0 (zeros before the payload) to
@@ -718,9 +705,12 @@ def _encode_run(buf: torch.Tensor, b0: int, nrows: int, n: int,
     block, its result tensors) unfetched."""
     gmax = _group_size(params["k"], block_size)
     for i in range(0, nrows, gmax):
-        yield b0 + i, _encode_group(
-            *_group_inputs(buf, b0, i, min(gmax, nrows - i), n, block_size,
-                           hist), hist=hist, clock=clock, **params)
+        with profiling.span("encode.issue"):
+            res = _encode_group(
+                *_group_inputs(buf, b0, i, min(gmax, nrows - i), n,
+                               block_size, hist),
+                hist=hist, stages=stages, **params)
+        yield b0 + i, res
 
 
 def _group_inputs(buf: torch.Tensor, b0: int, i: int, g: int, n: int,
@@ -746,6 +736,8 @@ def _run_buffer(x: torch.Tensor, b0: int, b1: int, block_size: int,
     buf = torch.zeros(hist + (b1 - b0) * block_size + PAD,
                       dtype=torch.uint8, device=device)
     buf[max(lo, 0) - lo:max(lo, 0) - lo + len(src)] = src
+    if src.device != buf.device:
+        profiling.count("upload.bytes", src.nbytes)
     return buf
 
 
@@ -774,7 +766,6 @@ def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
     lits_only = level == -2
     k, lazy, min3 = _level_params(1 if lits_only else matcher_level)
     params = {"k": k, "lazy": lazy, "min3": min3, "lits_only": lits_only}
-    clock = _StageClock(stages, devices[0])
     nblocks = -(-n // block_size)
     hist = HIST if nblocks > 1 else 0
     bounds = [nblocks * i // len(devices) for i in range(len(devices) + 1)]
@@ -782,23 +773,25 @@ def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
     for dev, b0, b1 in zip(devices, bounds, bounds[1:]):
         if b0 == b1:
             continue
-        buf = _run_buffer(x, b0, b1, block_size, hist, dev)
+        with profiling.span("encode.issue"):
+            buf = _run_buffer(x, b0, b1, block_size, hist, dev)
         runs.append(_encode_run(buf, b0, b1 - b0, n, block_size, hist,
-                                params, clock))
+                                params, stages))
     fetched = []
     for issued in itertools.zip_longest(*runs):
         for b0, res in filter(None, issued):
-            fetched.append((b0, *_finish_fetch(_start_fetch(res))))
-        clock.mark("fetch")
+            with profiling.span("fetch", stages, devices[0]):
+                fetched.append((b0, *_finish_fetch(_start_fetch(res))))
     for b0, meta, words in sorted(fetched, key=lambda f: f[0]):
         bs = range(b0, b0 + meta.shape[0])
         # A stored block fetches only its own bytes.
-        _splice_group(meta, words, [
-            (out, min(block_size, n - b * block_size), b == nblocks - 1)
-            for b in bs], lambda j: x[bs[j] * block_size:][:block_size]
-            .cpu().numpy())
-    clock.mark("splice")
-    return bytes(out.out)
+        with profiling.span("splice", stages, devices[0]):
+            _splice_group(meta, words, [
+                (out, min(block_size, n - b * block_size), b == nblocks - 1)
+                for b in bs], lambda j: x[bs[j] * block_size:][:block_size]
+                .cpu().numpy())
+    with profiling.span("framing"):
+        return bytes(out.out)
 
 
 def _start_fetch(res: dict):
@@ -810,6 +803,7 @@ def _start_fetch(res: dict):
     meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
                       res["ll_lens"], res["d_lens"], res["cl_lens"]], dim=1)
     words = res["words"]        # int32 bit patterns, as pack_tokens wrote
+    profiling.count("fetch.bytes", meta.nbytes + words.nbytes)
     if meta.device.type != "cuda":
         return meta, words, None
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -824,8 +818,11 @@ def _finish_fetch(fetch) -> tuple[np.ndarray, np.ndarray]:
     to the longest row's) as numpy arrays."""
     meta, words, event = fetch
     if event is not None:
-        event.synchronize()
+        with profiling.span("encode.wait"):
+            event.synchronize()
     meta = meta.numpy()
+    if profiling.enabled():
+        profiling.count("fetch.used_bytes", int(((meta[:, 1] + 7) // 8).sum()))
     nwords = max(1, -(-int(meta[:, 1].max()) // 32))
     if nwords > words.shape[1]:
         # Only tokens that are no cover could cost more bits than a row's
@@ -841,11 +838,14 @@ def _splice_group(meta: np.ndarray, words: np.ndarray, blocks: list,
     stream's _ByteBitAppender, the block's length, whether it is the
     stream's last block) for row j; raw(j) gives row j's input bytes, read
     only for a stored block."""
+    lap = profiling.laps()
     for j, (out, blen, final) in enumerate(blocks):
         mode = int(meta[j, 0])
         _assemble_block(out, mode, meta[j, 2:288], meta[j, 288:318],
                         meta[j, 318:337], words[j], int(meta[j, 1]),
-                        raw(j) if mode == 0 else None, blen, final)
+                        raw(j) if mode == 0 else None, blen, final, lap)
+    if lap:
+        lap.close()
 
 
 def _entry_rows(payloads: list, block_size: int, hist: int):
@@ -883,6 +883,7 @@ def _issue_entry_group(payloads: list, rows: list, block_size: int,
         ln[0, i], ln[1, i] = blen, min(s, hist)
     if cuda:
         keep += [host, lens]
+    profiling.count("upload.bytes", host.nbytes + lens.nbytes)
     host = host.to(dev, non_blocking=True)
     lens = lens.to(dev, non_blocking=True)
     return _encode_group(host, lens[0], lens[1], hist=hist, **params)
@@ -935,16 +936,21 @@ def deflate_entries(payloads, level: int, block_size: int = BLOCK,
             issued = None
             if group is not None:
                 hist, rows = group
-                issued = (rows, _start_fetch(_issue_entry_group(
-                    payloads, rows, block_size, hist, params, dev, keep)))
+                with profiling.span("encode.issue"):
+                    issued = (rows, _start_fetch(_issue_entry_group(
+                        payloads, rows, block_size, hist, params, dev,
+                        keep)))
             if pending is not None:
                 # The next group runs on the card while this one splices.
                 rows, fetch = pending
-                meta, words = _finish_fetch(fetch)
+                with profiling.span("fetch"):
+                    meta, words = _finish_fetch(fetch)
                 del keep[:-2]       # all but the next group's uploads
-                _splice_group(meta, words, [
-                    (outs[p], blen, last) for p, _, blen, last in rows],
-                    lambda j: payloads[rows[j][0]][rows[j][1]:][:rows[j][2]])
+                with profiling.span("splice"):
+                    _splice_group(meta, words, [
+                        (outs[p], blen, last) for p, _, blen, last in rows],
+                        lambda j: payloads[rows[j][0]][rows[j][1]:]
+                        [:rows[j][2]])
             pending = issued
     return [bytes(out.out) if len(data) else _empty_stream()
             for out, data in zip(outs, payloads)]

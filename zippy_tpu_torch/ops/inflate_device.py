@@ -42,14 +42,12 @@ spare trailing slot, here.
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import gzip_format
+from .. import gzip_format, profiling
 from ..common import ZippyError, resolve_device, resolve_devices
 from . import checksums, inflate_kernels, resolve_kernels
 from .inflate_scan import inflate_scan
@@ -89,22 +87,6 @@ def _mk_cfg(tile_out: int, nseg: int, nblk: int, nsto: int) -> TileConfig:
 # whichever capacity fills first, so any stream fits.
 CFG_S = _mk_cfg(1 << 18, 4096, 8, 64)
 CFG_L = _mk_cfg(1 << 22, 65536, 64, 256)
-
-
-@contextlib.contextmanager
-def _stage(stages, name: str, device: torch.device):
-    """With a `stages` dict, add this block's seconds under `name`, the card
-    synchronized before and after it; without one, do nothing."""
-    if stages is None:
-        yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -226,15 +208,15 @@ def _decode_batch(packs, halo, tiles, *, k: int, cfg: TileConfig,
     words, seg, seg_out, sto, lens8 = _unpack(packs, cfg)
     lanes = [t.s1 - t.s0 for t in tiles]
     if any(lanes):
-        with _stage(stages, "tables", dev):
+        with profiling.span("tables", stages, dev):
             tables = _block_tables(lens8)
-        with _stage(stages, "extract", dev):
+        with profiling.span("extract", stages, dev):
             packed = _extract(words, seg, lanes, tables, k, devices)
     else:
         packed = torch.zeros(k, 0, dtype=torch.int32, device=dev)
     col = 0
     for i, tile in enumerate(tiles):
-        with _stage(stages, "resolve", dev):
+        with profiling.span("resolve", stages, dev):
             out = _resolve(packed[:, col:col + lanes[i]],
                            seg_out[i, :lanes[i]], words[i], sto[i], halo,
                            tile.used, _nrounds_for_depth(tile.depth, cfg),
@@ -446,6 +428,7 @@ def _upload_packs(packs: list, device: torch.device,
                        pin_memory=cuda)
     for row, pack in zip(host.numpy(), packs):
         row[:] = pack.view(np.int32)
+    profiling.count("upload.bytes", host.nbytes)
     if not cuda:
         return host.to(device)
     keep.append(host)
@@ -461,23 +444,23 @@ def _run_tiles(data, index, device: torch.device, stages=None, devices=None):
     total = int(index["total_out"])
     cfg = _pick_cfg(total)
     k = int(index["every"])
-    with _stage(stages, "plan_pack", device):
+    with profiling.span("plan_pack", stages, device):
         tiles = _plan_tiles(index, cfg)
     buf = torch.empty(total, dtype=torch.uint8, device=device)
     halo = torch.zeros(HALO, dtype=torch.uint8, device=device)
     keep: list = []
     for b in range(0, len(tiles), _TILES_PER_LAUNCH):
         batch = tiles[b:b + _TILES_PER_LAUNCH]
-        with _stage(stages, "plan_pack", device):
+        with profiling.span("plan_pack", stages, device):
             packs = [_tile_pack(data, index, tile, cfg,
                                 _nrounds_for_depth(tile.depth, cfg))
                      for tile in batch]
-        with _stage(stages, "upload", device):
+        with profiling.span("upload", stages, device):
             packs = _upload_packs(packs, device, keep)
         for tile, out in zip(batch, _decode_batch(
                 packs, halo, batch, k=k, cfg=cfg, stages=stages,
                 devices=devices)):
-            with _stage(stages, "resolve", device):
+            with profiling.span("resolve", stages, device):
                 buf[tile.base:tile.base + tile.used] = \
                     out[HALO:HALO + tile.used]
         halo = out[tile.used:tile.used + HALO]
@@ -538,7 +521,7 @@ def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
         buf, keep = _run_tiles(data, index, dev, stages, devices)
     else:
         buf, keep = torch.empty(0, dtype=torch.uint8, device=dev), []
-    with _stage(stages, "checksums", dev):
+    with profiling.span("checksums", stages, dev):
         adler_t = checksums.adler32_tensor(buf) if adler else None
         crc_t = checksums.crc32_raw_tensor(buf) if crc else None
     return buf, total, adler_t, crc_t, keep
@@ -557,13 +540,15 @@ def inflate_device_array(data: bytes, index=None, start_bit: int = 0,
     has no checksum of its own. Neither sum is computed otherwise."""
     dev, devices = _placement(device, devices)
     if index is None:
-        with _stage(stages, "scan", dev):
+        with profiling.span("scan", stages, dev):
             index = build_decode_index(data, start_bit)
     buf, total, adler_t, _, keep = inflate_device_array_acc(
         data, index, dev, stages, adler=verify, crc=False, devices=devices)
     if verify:
-        with _stage(stages, "checksums", dev):
-            check_sums(total, int(adler_t), None, int(index["adler"]))
+        with profiling.span("checksums", stages, dev):
+            with profiling.span("checksum.wait"):
+                got_adler = int(adler_t)
+            check_sums(total, got_adler, None, int(index["adler"]))
     # Held to here; without the gate's sync, torch's pinned-memory cache
     # keeps a freed upload buffer until its copy has run.
     del keep
@@ -571,7 +556,10 @@ def inflate_device_array(data: bytes, index=None, start_bit: int = 0,
 
 
 def _fetch(buf: torch.Tensor, stages=None) -> bytes:
-    with _stage(stages, "fetch", buf.device):
+    """The output's bytes on the host (pageable memory)."""
+    profiling.count("fetch.bytes", buf.nbytes)
+    profiling.count("fetch.used_bytes", buf.nbytes)
+    with profiling.span("fetch", stages, buf.device):
         return buf.cpu().numpy().tobytes()
 
 
@@ -617,17 +605,20 @@ def uncompress_gzip_device(blob: bytes, index=None, device=None,
     output's adler32 and crc32 come back in one fetch: the adler32 gate,
     then the crc32 against the trailer and the length against ISIZE mod
     2^32; the bytes are fetched once the gates pass."""
-    hdr = gzip_format.parse_header(blob, pos)
+    with profiling.span("framing"):
+        hdr = gzip_format.parse_header(blob, pos)
     if index is None:
         index = build_decode_index(blob, hdr["data_offset"] * 8)
-    tpos = (int(index["end_bit"]) + 7) // 8
-    if tpos + 8 > len(blob):
-        raise ZippyError("Invalid gzip data")
-    want_crc = int.from_bytes(blob[tpos:tpos + 4], "little")
-    want_isize = int.from_bytes(blob[tpos + 4:tpos + 8], "little")
+    with profiling.span("framing"):
+        tpos = (int(index["end_bit"]) + 7) // 8
+        if tpos + 8 > len(blob):
+            raise ZippyError("Invalid gzip data")
+        want_crc = int.from_bytes(blob[tpos:tpos + 4], "little")
+        want_isize = int.from_bytes(blob[tpos + 4:tpos + 8], "little")
     buf, total, adler_t, crc_t, keep = inflate_device_array_acc(
         blob, index, device)
-    got_adler, raw_crc = torch.cat([adler_t, crc_t]).tolist()
+    with profiling.span("checksum.wait"):
+        got_adler, raw_crc = torch.cat([adler_t, crc_t]).tolist()
     del keep
     check_sums(total, got_adler, checksums.crc32_finish(raw_crc, total),
                int(index["adler"]), want_crc, want_isize)

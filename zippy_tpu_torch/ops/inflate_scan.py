@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import native
+from .. import native, profiling
 from ..common import ZippyError
 
 _ERR_DST_FULL = -2
@@ -24,8 +24,12 @@ def inflate_scan(data: bytes, start_bit: int, every: int) -> dict:
     [nblk, 318] (litlen 288 + dist 30 code lengths); and total_out, end_bit,
     max_depth (saturating at 0xFFFF), adler (of the whole output) and
     every. Offsets are absolute in `data`. Raises ZippyError on a malformed
-    stream."""
-    data = bytes(data)
+    stream. Each call of zt_inflate_scan counts in `scan.passes`."""
+    with profiling.span("scan"):
+        return _scan(bytes(data), start_bit, every)
+
+
+def _scan(data: bytes, start_bit: int, every: int) -> dict:
     if every < 1 or start_bit < 0:
         raise ZippyError("Invalid compressed data")
     lib = native._lib()
@@ -40,6 +44,7 @@ def inflate_scan(data: bytes, start_bit: int, every: int) -> dict:
         sto = np.empty((sto_cap, 3), np.int64)
         lens = np.empty((blk_cap, 318), np.uint8)
         counts = np.zeros(7, np.int64)
+        profiling.count("scan.passes")
         rc = lib.zt_inflate_scan(
             data, len(data), start_bit, every, seg.ctypes.data, seg_cap,
             sto.ctypes.data, sto_cap, lens.ctypes.data, blk_cap,
