@@ -470,3 +470,40 @@ def test_serialize_index_rejects_values_out_of_range(column):
     if column == "block_step":
         back = rgf.deserialize_index(rgf.serialize_index(index))
         assert not np.array_equal(back["segments"][:, 2], seg[:, 2])
+
+
+# ---------------------------------------------------------------------------
+# Every member's output is allocated before the first member is dispatched
+# ---------------------------------------------------------------------------
+
+
+def test_every_output_is_allocated_before_the_first_dispatch(monkeypatch):
+    events = []
+
+    class Torch:
+        """torch, with each allocation of gzip_format recorded."""
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        def empty(self, *args, **kwargs):
+            out = torch.empty(*args, **kwargs)
+            events.append(("alloc", out.data_ptr(), out.numel()))
+            return out
+
+    real = idev.inflate_device_array_acc
+
+    def dispatch(src, index, device=None, *args, out=None, **kwargs):
+        events.append(("dispatch", out.data_ptr(), out.numel()))
+        return real(src, index, device, *args, out=out, **kwargs)
+
+    monkeypatch.setattr(gf, "torch", Torch())
+    monkeypatch.setattr(idev, "inflate_device_array_acc", dispatch)
+    parts = gf.uncompress_device(port_stream(), array=True, device="cpu")
+    assert _joined(parts) == DATA
+    n = len(parts)
+    assert n == 3
+    assert [e[0] for e in events] == ["alloc"] * n + ["dispatch"] * n
+    assert events[:n] == [("alloc",) + e[1:] for e in events[n:]]
+    assert [(buf.data_ptr(), total) for buf, total in parts] == [
+        e[1:] for e in events[n:]]

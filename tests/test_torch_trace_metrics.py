@@ -4,6 +4,7 @@ each file loaded as the harness loads it, a warm-up call and a window of
 calls, and its reading against the same sums worked out from
 profiling.recent(); and the cases where a reader has nothing to read."""
 
+import functools
 import gzip
 import importlib.util
 import itertools
@@ -56,7 +57,18 @@ EXPECTED = {
         rs, lambda n: n.endswith(".wait")) / run.window_s,
     "framing_share.decode": lambda rs, run: 100 * _self_s(
         rs, lambda n: n == "framing") / run.window_s,
+    "index_share.indexed": lambda rs, run: 100 * _self_s(
+        rs, lambda n: n == "index") / run.window_s,
+    "plan_pack_share.indexed": lambda rs, run: 100 * _self_s(
+        rs, lambda n: n == "plan_pack") / run.window_s,
+    "scan_passes_per_call.indexed": lambda rs, run: _sum(
+        rs, "scan.passes") / len(rs),
+    "upload_MB_per_MB.indexed": lambda rs, run: _sum(
+        rs, "upload.bytes") / run.bytes_out,
 }
+# Readers whose reading is 0 in their own cell: the indexed decode scans no
+# member.
+ZERO = {"scan_passes_per_call.indexed"}
 
 
 @pytest.fixture(autouse=True)
@@ -78,12 +90,23 @@ def _load(name: str):
     return module
 
 
+@functools.cache
+def _indexed_stream() -> bytes:
+    return zt.compress_device_indexed(TEXT, 6, member_size=1 << 14,
+                                      device="cpu")
+
+
 def _call(name: str):
     """One call of the reader's cell, on the CPU: (bytes in, bytes out)."""
     if name.endswith(".compress"):
         blob = zt.compress(TEXT, 6, device="cpu")
         assert gzip.decompress(blob) == TEXT
         return len(TEXT), len(blob)
+    if name.endswith(".indexed"):
+        blob = _indexed_stream()
+        parts = zt.uncompress_device(blob, array=True, device="cpu")
+        assert b"".join(buf.numpy().tobytes() for buf, _ in parts) == TEXT
+        return len(blob), len(TEXT)
     blob = gzip.compress(TEXT, 6)
     assert zt.uncompress(blob, device="cpu") == TEXT
     return len(blob), len(TEXT)
@@ -120,7 +143,10 @@ def test_a_reader_sums_the_window_of_calls(name):
     kind = "compress" if name.endswith(".compress") else "uncompress"
     assert [r.name for r in records] == [kind] * CALLS
     want = EXPECTED[name](records, run)
-    assert want > 0
+    if name in ZERO:
+        assert want == 0
+    else:
+        assert want > 0
     assert metric.read(run) == pytest.approx(want, rel=1e-12)
 
 

@@ -320,12 +320,14 @@ def compress_indexed(
     "cpu" runs the plain versions); the device encoder writes the members
     one after another, with the matcher of `src` (engine.matcher_level:
     level -1 runs level 6's on host bytes)."""
-    _check_member_size(member_size)
-    x = as_u8_tensor(src, device)
-    n = int(x.shape[0])
-    matcher = engine.matcher_level(src, level)
-    return b"".join(_zt_member(x[i:i + member_size], level, matcher=matcher)
-                    for i in range(0, max(n, 1), member_size))
+    with profiling.call("compress"):
+        _check_member_size(member_size)
+        x = as_u8_tensor(src, device)
+        n = int(x.shape[0])
+        matcher = engine.matcher_level(src, level)
+        return b"".join(_zt_member(x[i:i + member_size], level,
+                                   matcher=matcher)
+                        for i in range(0, max(n, 1), member_size))
 
 
 def _check_member_size(member_size: int) -> None:
@@ -374,17 +376,19 @@ def uncompress_parallel(src: bytes, device=None) -> bytes:
     whole stream decodes through uncompress_gzip_device_all."""
     from .ops import inflate_device as idev
 
-    spans = _zt_spans(src)
-    if not spans or len(spans) == 1:
-        return uncompress_gzip_device_all(src, device)
-    parts = []
-    for pos, mlen in spans:
-        hdr = parse_header(src, pos)
-        index = idev.build_decode_index(src, hdr["data_offset"] * 8)
-        if (int(index["end_bit"]) + 7) // 8 + 8 != pos + mlen:
-            raise ZippyError("Invalid gzip data (ZT index length mismatch)")
-        parts.append(idev.uncompress_gzip_device(src, index, device, pos))
-    return b"".join(parts)
+    with profiling.call("uncompress"):
+        spans = _zt_spans(src)
+        if not spans or len(spans) == 1:
+            return uncompress_gzip_device_all(src, device)
+        parts = []
+        for pos, mlen in spans:
+            hdr = parse_header(src, pos)
+            index = idev.build_decode_index(src, hdr["data_offset"] * 8)
+            if (int(index["end_bit"]) + 7) // 8 + 8 != pos + mlen:
+                raise ZippyError(
+                    "Invalid gzip data (ZT index length mismatch)")
+            parts.append(idev.uncompress_gzip_device(src, index, device, pos))
+        return b"".join(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -560,17 +564,18 @@ def compress_device_indexed(
     a tenth on chip_smoke.py's mixed payload)."""
     from .ops import inflate_device as idev
 
-    _check_member_size(member_size)
-    x = as_u8_tensor(src, device)
-    matcher = engine.matcher_level(src, level)
-    out = []
-    for i in range(0, max(int(x.shape[0]), 1), member_size):
-        blob = _zt_member(x[i:i + member_size], level, matcher=matcher)
-        body = blob[parse_header(blob)["data_offset"]:]
-        out.append(blob)
-        out.append(_sidecar_members(
-            serialize_index(idev.build_decode_index(body)), x.device))
-    return b"".join(out)
+    with profiling.call("compress"):
+        _check_member_size(member_size)
+        x = as_u8_tensor(src, device)
+        matcher = engine.matcher_level(src, level)
+        out = []
+        for i in range(0, max(int(x.shape[0]), 1), member_size):
+            blob = _zt_member(x[i:i + member_size], level, matcher=matcher)
+            body = blob[parse_header(blob)["data_offset"]:]
+            out.append(blob)
+            out.append(_sidecar_members(
+                serialize_index(idev.build_decode_index(body)), x.device))
+        return b"".join(out)
 
 
 def _member_zx(src: bytes, pos: int) -> bytes | None:
@@ -612,49 +617,79 @@ def _sidecar_length(src: bytes, pos: int) -> int:
     return mlen
 
 
-def _dispatch_members(src: bytes, device) -> list:
-    """Dispatch the decode of every data member of an indexed stream, back
-    to back with no host sync. Each member decodes in place in `src`, from
-    its sidecar index shifted to absolute offsets (checked first), or from
-    a scan where it has no sidecar. Stray sidecars and trailing zero
-    padding are skipped. Returns one pending decode per member, for
-    _verify_members."""
+def _read_members(src: bytes) -> list:
+    """The host's pass over an indexed stream: [(decode index, trailer
+    crc32, trailer ISIZE)] of every data member, the index from the
+    member's sidecars shifted to absolute offsets in `src` (checked first),
+    or from a scan where it has no sidecar. Stray sidecars and trailing
+    zero padding are skipped.
+
+    Spans: the walk over members' headers and stray sidecars is `framing`;
+    gathering a member's sidecars and reading its index from them (inflate,
+    check, shift) is `index`, counted in `index.members` and, by its ZX
+    payload bytes, `index.bytes` where it has sidecars."""
     from .ops import inflate_device as idev
 
-    pending = []
+    members = []
     pos = 0
-    while pos < len(src) and not _is_zero_padding(src, pos):
-        if _member_zx(src, pos) is not None:
-            pos += _sidecar_length(src, pos)  # a stray sidecar
-            continue
-        mlen, start = _zt_length(src, pos)
-        end = pos + mlen
-        chunks = []
-        while end < len(src) and not _is_zero_padding(src, end):
-            if _indexed_member_length(src, end) is None:
+    while True:
+        with profiling.span("framing"):
+            if pos >= len(src) or _is_zero_padding(src, pos):
                 break
-            zx = _member_zx(src, end)
-            if zx is None:
-                break
-            chunks.append(zx)
-            end += _sidecar_length(src, end)
-        want_crc, want_isize = struct.unpack_from("<II", src, pos + mlen - 8)
-        if chunks:
-            index = deserialize_index(b"".join(chunks))
-            _check_index(index, pos + mlen - start, want_isize)
-            index["segments"][:, 0] += start * 8
-            index["stored"][:, 0] += start
-            index["end_bit"] += start * 8
-        else:
+            if _member_zx(src, pos) is not None:
+                pos += _sidecar_length(src, pos)  # a stray sidecar
+                continue
+            mlen, start = _zt_length(src, pos)
+            want_crc, want_isize = struct.unpack_from("<II", src,
+                                                      pos + mlen - 8)
+        with profiling.span("index"):
+            end = pos + mlen
+            chunks = []
+            while end < len(src) and not _is_zero_padding(src, end):
+                if _indexed_member_length(src, end) is None:
+                    break
+                zx = _member_zx(src, end)
+                if zx is None:
+                    break
+                chunks.append(zx)
+                end += _sidecar_length(src, end)
+            if chunks:
+                blob = b"".join(chunks)
+                profiling.count("index.members")
+                profiling.count("index.bytes", len(blob))
+                index = deserialize_index(blob)
+                _check_index(index, pos + mlen - start, want_isize)
+                index["segments"][:, 0] += start * 8
+                index["stored"][:, 0] += start
+                index["end_bit"] += start * 8
+        if not chunks:
             index = idev.build_decode_index(src, start * 8)
             if (int(index["end_bit"]) + 7) // 8 + 8 != pos + mlen:
                 raise ZippyError(
                     "Invalid gzip data (ZT index length mismatch)")
+        members.append((index, want_crc, want_isize))
+        pos = end
+    return members
+
+
+def _dispatch_members(src: bytes, device) -> list:
+    """Dispatch the decode of every data member of an indexed stream
+    (`_read_members`), back to back with no host sync, each in place in
+    `src`. Every member's output is allocated before the first dispatch, so
+    that the call's device memory is the stream's output and one member's
+    working set, whatever the members' sizes and order. Returns one
+    pending decode per member, for _verify_members."""
+    from .ops import inflate_device as idev
+
+    members = _read_members(src)
+    outs = [torch.empty(int(index["total_out"]), dtype=torch.uint8,
+                        device=device) for index, _, _ in members]
+    pending = []
+    for (index, want_crc, want_isize), out in zip(members, outs):
         buf, total, adler_t, crc_t, keep = idev.inflate_device_array_acc(
-            src, index, device)
+            src, index, device, out=out)
         pending.append((buf, total, adler_t, crc_t, keep,
                         int(index["adler"]), want_crc, want_isize))
-        pos = end
     return pending
 
 
@@ -667,8 +702,10 @@ def _verify_members(pending: list) -> list:
 
     if not pending:
         return []
-    got = torch.cat([torch.cat([p[2] for p in pending]),
-                     torch.cat([p[3] for p in pending])]).tolist()
+    sums = torch.cat([torch.cat([p[2] for p in pending]),
+                      torch.cat([p[3] for p in pending])])
+    with profiling.span("checksum.wait"):
+        got = sums.tolist()
     out = []
     for (buf, total, _, _, _, want_adler, want_crc, want_isize), adler, raw \
             in zip(pending, got, got[len(pending):]):
@@ -690,10 +727,17 @@ def uncompress_device(src: bytes, array: bool = False, device=None):
     array=False returns the bytes (each member's buffer fetched after the
     gates passed); array=True returns [(uint8 tensor of exactly total
     bytes, total)] per data member, on the device (zero-length for an empty
-    member). Every member must carry a ZT length: ZippyError otherwise."""
-    if not isinstance(src, bytes):
-        src = bytes(src)
-    parts = _verify_members(_dispatch_members(src, resolve_device(device)))
-    if array:
-        return parts
-    return b"".join(buf.cpu().numpy().tobytes() for buf, _ in parts)
+    member). Every member must carry a ZT length: ZippyError otherwise.
+    With tracing on, the call keeps a record of its spans and counters
+    (profiling.recent), or adds to the record of the call it is in."""
+    from .ops import inflate_device as idev
+
+    with profiling.call("uncompress"):
+        if not isinstance(src, bytes):
+            src = bytes(src)
+        parts = _verify_members(_dispatch_members(src,
+                                                  resolve_device(device)))
+        if array:
+            return parts
+        with profiling.span("framing"):
+            return b"".join([idev._fetch(buf) for buf, _ in parts])

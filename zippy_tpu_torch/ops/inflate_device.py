@@ -435,18 +435,20 @@ def _upload_packs(packs: list, device: torch.device,
     return host.to(device, non_blocking=True)
 
 
-def _run_tiles(data, index, device: torch.device, stages=None, devices=None):
+def _run_tiles(data, index, device: torch.device, stages=None, devices=None,
+               out=None):
     """Dispatch every tile, in batches of up to _TILES_PER_LAUNCH, back to
-    back with no host sync, into one output buffer on `device` (with
-    `devices`, each batch's extraction split over them). Returns (buffer
-    of total_out bytes, the pinned upload buffers to hold until the next
-    sync)."""
+    back with no host sync, into one output buffer on `device` (`out`, or
+    one allocated here; with `devices`, each batch's extraction split over
+    them). Returns (buffer of total_out bytes, the pinned upload buffers to
+    hold until the next sync)."""
     total = int(index["total_out"])
     cfg = _pick_cfg(total)
     k = int(index["every"])
     with profiling.span("plan_pack", stages, device):
         tiles = _plan_tiles(index, cfg)
-    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    buf = (torch.empty(total, dtype=torch.uint8, device=device)
+           if out is None else out)
     halo = torch.zeros(HALO, dtype=torch.uint8, device=device)
     keep: list = []
     for b in range(0, len(tiles), _TILES_PER_LAUNCH):
@@ -498,7 +500,7 @@ def _placement(device, devices):
 
 def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
                              adler: bool = True, crc: bool = True,
-                             devices=None):
+                             devices=None, out=None):
     """Decode a raw DEFLATE stream into a uint8 tensor on `device` (None:
     the CUDA card; "cpu" runs the plain versions) and leave the checksums
     asked for there: nothing is fetched and the host does not wait for the
@@ -514,11 +516,15 @@ def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
     finished on the host by checksums.crc32_finish), each None unless asked
     for; keep holds the pinned upload buffers, for the caller to hold until
     it next synchronizes. With a `stages` dict, each stage's synchronized
-    seconds are added to it."""
+    seconds are added to it. `out`, if given, is the uint8 tensor of
+    exactly total_out bytes on the output's device that buf is: the
+    decode writes into it and allocates no output of its own."""
     dev, devices = _placement(device, devices)
     total = int(index["total_out"])
     if total:
-        buf, keep = _run_tiles(data, index, dev, stages, devices)
+        buf, keep = _run_tiles(data, index, dev, stages, devices, out)
+    elif out is not None:
+        buf, keep = out, []
     else:
         buf, keep = torch.empty(0, dtype=torch.uint8, device=dev), []
     with profiling.span("checksums", stages, dev):
