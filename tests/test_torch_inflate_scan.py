@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from zippy_tpu import native  # noqa: E402
 from zippy_tpu.ops import inflate_device as ref  # noqa: E402
 import zippy_tpu_torch as zt  # noqa: E402
+from zippy_tpu_torch import profiling  # noqa: E402
 from zippy_tpu_torch.common import ZippyError  # noqa: E402
 from zippy_tpu_torch.ops import inflate_device as port  # noqa: E402
 from zippy_tpu_torch.ops import inflate_scan  # noqa: E402
@@ -81,16 +82,70 @@ def test_scan_at_a_bit_offset():
                       ref.build_decode_index(blob, (second + 10) * 8))
 
 
+def _scan_passes(blob: bytes) -> tuple:
+    """The port's scan of `blob` from bit 0, a checkpoint every 32 tokens,
+    and the `scan.passes` its call record counts."""
+    was = profiling.enabled()
+    profiling.enable()
+    try:
+        with profiling.call("uncompress"):
+            got = inflate_scan.inflate_scan(blob, 0, 32)
+    finally:
+        (profiling.enable if was else profiling.disable)()
+    (rec,) = profiling.recent(1)
+    return got, rec.counters["scan.passes"]
+
+
 def test_scan_retries_when_its_capacities_are_short():
     """One-bit codes in 128-symbol blocks: more segments and blocks than the
-    first try's capacities hold."""
+    first try's capacities hold, so the scan runs again with exact sizes."""
     data = bytes(np.random.default_rng(16).choice([97, 98], 50_000)
                  .astype(np.uint8))
     blob = raw_deflate(data, 6, mem_level=1, strategy=zlib.Z_HUFFMAN_ONLY)
-    got = inflate_scan.inflate_scan(blob, 0, 32)
+    got, passes = _scan_passes(blob)
+    assert passes == 2
     assert got["segments"].shape[0] > max(1024, 2 * len(blob) // 32)
-    assert got["block_lens"].shape[0] > 256
+    assert got["block_lens"].shape[0] > max(256, len(blob) // 1024)
     assert_same_index(got, native.inflate_scan(blob, 0, 32))
+
+
+def _two_symbol_text(n: int, seed: int) -> bytes:
+    """The text "ab" repeated, one byte in 256 turned to the other symbol:
+    Huffman blocks of 20-30 KB. (On independent symbols zlib's level 9
+    walks its whole hash chain, of eight hash values for two symbols, and
+    takes tens of seconds for 8 MiB.)"""
+    rng = np.random.default_rng(seed)
+    text = np.tile(np.array([97, 98], np.uint8), n // 2)
+    flips = rng.integers(0, n, n // 256)
+    text[flips] = 97 + 98 - text[flips]
+    return text.tobytes()
+
+
+ONE_PASS = {
+    # Runs of one byte: zlib's densest Huffman blocks, about 4 KB each.
+    "zeros_8m": lambda: bytes(8 << 20),
+    "two_symbol_8m": lambda: _two_symbol_text(8 << 20, 41),
+    # A stored block every 16 KiB at levels 1-9: over 256.
+    "random_5m": lambda: random_bytes(5 << 20, 42),
+    # Literals of 7 bits, a Huffman block every 16 KiB: over 256.
+    "seven_bit_5m": lambda: np.random.default_rng(43).integers(
+        0, 128, 5 << 20, dtype=np.uint8).tobytes(),
+}
+
+
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+@pytest.mark.parametrize("payload", sorted(ONE_PASS))
+def test_one_pass_for_zlib_streams(payload, level):
+    """A stream CPython's zlib writes, however many blocks it has, is
+    scanned once: the first call's tables are sized from its bytes."""
+    blob = raw_deflate(ONE_PASS[payload](), level)
+    got, passes = _scan_passes(blob)
+    assert passes == 1
+    assert_same_index(got, native.inflate_scan(blob, 0, 32))
+    if level > 0 and payload == "random_5m":
+        assert got["stored"].shape[0] > 256
+    if level > 0 and payload == "seven_bit_5m":
+        assert got["block_lens"].shape[0] > 256
 
 
 def test_scan_rejects_what_the_reference_rejects():

@@ -137,10 +137,19 @@ def test_outputs_identical_with_tracing_on_and_off(case):
 
 
 @pytest.mark.parametrize("stream,passes", [("small", 1),
-                                           ("full_flush_300", 2)])
+                                           ("full_flush_300", 2),
+                                           ("random_5m", 1)])
 def test_scan_passes(stream, passes):
+    """One pass where the first call's tables, sized from the stream's
+    bytes, hold it: a stored block every 16 KiB of random bytes is 320 of
+    them. Two where a flush every KiB outgrows them."""
     if stream == "small":
         blob = gzip.compress(TEXT, 6)
+    elif stream == "random_5m":
+        blob = gzip.compress(np.random.default_rng(63).integers(
+            0, 256, 5 << 20, dtype=np.uint8).tobytes(), 6)
+        index = idev.build_decode_index(blob, 80)
+        assert index["stored"].shape[0] > 256
     else:
         blob = _full_flush_stream(300)
         index = idev.build_decode_index(blob, 80)

@@ -33,12 +33,20 @@ def _scan(data: bytes, start_bit: int, every: int) -> dict:
     if every < 1 or start_bit < 0:
         raise ZippyError("Invalid compressed data")
     lib = native._lib()
-    # Sized from the bytes from start_bit on (a member of a long stream
+    # Sized from the n bytes from start_bit on (a member of a long stream
     # needs no more) and left unfilled: the scan writes every row it
-    # counts, and only those are read. A stream that needs more takes the
-    # exact sizes from a second call.
-    seg_cap = max(1024, 2 * max(len(data) - start_bit // 8, 0) // every)
-    sto_cap, blk_cap = 256, 256
+    # counts, and only those are read, so rows it does not reach cost no
+    # memory. A block table row every 1 KiB is 4x denser than zlib's
+    # densest Huffman blocks (about 4 KB each, of runs of one byte) and 16x
+    # denser than its stored blocks (16 KiB), so both tables of a stream
+    # zlib writes at its default memLevel and without flushes fit the
+    # first call. A denser stream takes the exact sizes from a second
+    # call: Z_HUFFMAN_ONLY with a small memLevel (128-symbol blocks), a
+    # flush every KiB or so, or tokens of under 4 bits on average (a run
+    # of one byte past 8 MiB, for the segments).
+    n = max(len(data) - start_bit // 8, 0)
+    seg_cap = max(1024, 2 * n // every)
+    sto_cap = blk_cap = max(256, n // 1024)
     while True:
         seg = np.empty((seg_cap, 6), np.int64)
         sto = np.empty((sto_cap, 3), np.int64)
