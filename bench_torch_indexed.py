@@ -6,10 +6,10 @@ The payload is chip_smoke.py's seeded 64 MiB mixed payload at level 6. For
 each member size it writes the stream with compress_device_indexed, then
 prints one JSON line: the members and their tiles (the decode's own plan
 of each member's index); `reps` timed uncompress_device(array=True) calls,
-each split into the host's dispatch of every member
-(gzip_format._dispatch_members, which returns once the host has issued
-the work) and the one verification fetch after it (_verify_members,
-which waits for the card); one decode with the stages of every member
+each split, by the call's profiling record, into the host's walk and
+dispatch of every member and the one verification fetch after it (the
+`checksum.wait` span of inflate_device.inflate_streams, which waits for
+the card); one decode with the stages of every member
 synchronized and summed; the functions with the most host seconds of one
 decode under cProfile; and a torch.profiler trace of one decode (device
 busy seconds, idle share, top kernels). First, as a yardstick in the same
@@ -53,11 +53,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_torch_indexed: no CUDA device", file=sys.stderr)
         return 2
-    from zippy_tpu_torch import api
+    from zippy_tpu_torch import api, profiling
     from zippy_tpu_torch import gzip_format as gf
     from zippy_tpu_torch.ops import inflate_device as idev
 
-    dev = torch.device("cuda")
     card = chip_smoke.card_line()
     data = chip_smoke.mixed_text(chip_smoke.MAIN_BYTES, chip_smoke.SEED)
 
@@ -75,7 +74,7 @@ def main() -> int:
                           for _, i in indexes),
                       "seconds": given}), flush=True)
 
-    acc = idev.inflate_device_array_acc
+    dispatch = idev._dispatch
     for mib in (int(m) for m in args.members.split(",")):
         blob = gf.compress_device_indexed(data, 6, member_size=mib << 20)
         line = {"run": f"uncompress_device array=True, {mib} MiB members",
@@ -84,13 +83,13 @@ def main() -> int:
 
         def kept(data, index, *rest, **kw):
             seen.append(index)
-            return acc(data, index, *rest, **kw)
+            return dispatch(data, index, *rest, **kw)
 
-        idev.inflate_device_array_acc = kept
+        idev._dispatch = kept
         try:
             parts = gf.uncompress_device(blob, array=True)   # warm-up
         finally:
-            idev.inflate_device_array_acc = acc
+            idev._dispatch = dispatch
         chip_smoke.check(_joined(parts) == data, "warm-up decode")
         del parts
         line["members"] = len(seen)
@@ -101,26 +100,29 @@ def main() -> int:
         line["dispatch_s"], line["verify_s"] = [], []
         for _ in range(args.reps):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pending = gf._dispatch_members(blob, dev)
-            t1 = time.perf_counter()
-            parts = gf._verify_members(pending)
-            t2 = time.perf_counter()
-            del pending
+            was = profiling.enabled()
+            profiling.enable()
+            try:
+                parts = gf.uncompress_device(blob, array=True)
+            finally:
+                (profiling.enable if was else profiling.disable)()
+            rec = profiling.recent(1)[0]
+            wait = rec.spans["checksum.wait"][2] / 1e9
             chip_smoke.check(_joined(parts) == data, "timed decode")
             del parts
-            line["dispatch_s"].append(t1 - t0)
-            line["verify_s"].append(t2 - t1)
+            line["dispatch_s"].append((rec.end_ns - rec.start_ns) / 1e9
+                                      - wait)
+            line["verify_s"].append(wait)
 
         stages: dict = {}
-        idev.inflate_device_array_acc = (
+        idev._dispatch = (
             lambda data, index, *rest, **kw:
-            acc(data, index, *rest, **{**kw, "stages": stages}))
+            dispatch(data, index, *rest, **{**kw, "stages": stages}))
         try:
             parts, sec = _timed(lambda: gf.uncompress_device(blob,
                                                               array=True))
         finally:
-            idev.inflate_device_array_acc = acc
+            idev._dispatch = dispatch
         chip_smoke.check(_joined(parts) == data, "staged decode")
         del parts
         line["staged_seconds"] = sec

@@ -112,8 +112,8 @@ non-zero exit and no result line):
    tile and K9 on every batch of the same decode, with the first member's
    first tile timed; the
    same stream
-   decoded the other way, every member scanned (member_indexes) and then
-   decoded given its index; a flipped member crc and a flipped byte in a
+   decoded the other way, every data member scanned and then decoded
+   given its index; a flipped member crc and a flipped byte in a
    member's body raising ZippyError, and the intact stream decoding after
    them;
 7. CPU and CUDA give the same raw DEFLATE bytes on 256 KiB at levels 1/6/9,
@@ -1200,8 +1200,10 @@ def _member_indexes(idev, gzip_format, blob: bytes, fmt: str) -> list:
 
 def _decode_given(idev, gzip_format, blob: bytes, fmt: str,
                   indexes: list) -> bytes:
+    from zippy_tpu_torch import api
+
     if fmt == "zlib":
-        return idev.uncompress_zlib_device(blob, indexes[0][1])
+        return api.uncompress_zlib_device(blob, indexes[0][1])
     return gzip_format.uncompress_gzip_device_all(blob, indexes=indexes)
 
 
@@ -1804,16 +1806,23 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
 
     # Every scan and every member decode of the runs below is counted; the
     # member decodes keep the index each was given.
-    scan, acc = idev.build_decode_index, idev.inflate_device_array_acc
+    scan, dispatch = idev.build_decode_index, idev._dispatch
     scans, given = [0], []
 
     def counted_scan(*args, **kwargs):
         scans[0] += 1
         return scan(*args, **kwargs)
 
-    def kept_acc(data, index, *args, **kwargs):
+    def kept_dispatch(data, index, *args, **kwargs):
         given.append(index)
-        return acc(data, index, *args, **kwargs)
+        return dispatch(data, index, *args, **kwargs)
+
+    def no_sync_dispatch(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
 
     total, k4_err, k6_err, k6_tiles = dict.fromkeys(kb.LAUNCHES, 0), 0, 0, []
     k9_err = 0
@@ -1860,7 +1869,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
                 "scanned_uncompress_s": scanned_s,
                 "scanned_cpython_decompress_s": cpython_s}
         idev.build_decode_index = counted_scan
-        idev.inflate_device_array_acc = kept_acc
+        idev._dispatch = kept_dispatch
         try:
             for name, fn in (
                     ("uncompress_device_bytes",
@@ -1891,7 +1900,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
             launches = dict(kb.LAUNCHES)
         finally:
             idev.build_decode_index = scan
-            idev.inflate_device_array_acc = acc
+            idev._dispatch = dispatch
         busy = sum(int(index["total_out"]) > 0 for index in given)
         want = {"adler_chunks": busy, "crc_rows": busy, "crc_combine": busy,
                 "inflate_extract": sum(_k4_launches(idev, index)
@@ -1933,11 +1942,12 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         k6_tiles.append(k6_tile(idev, ik, watch, label, blob, given[0], dev))
         del given[:]
 
-        # The same stream decoded the other way: every member scanned, then
-        # each decoded given its index, one sync a member.
+        # The same stream decoded the other way: every data member scanned,
+        # then the members decoded given their indexes.
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        indexes = gf.member_indexes(blob)
+        indexes = [(pos, scan(blob, gf.parse_header(blob, pos)[
+            "data_offset"] * 8)) for pos, _ in gf.member_indexes(blob)]
         line["scanned_members_scan_s"] = time.perf_counter() - t0
         out = gf.uncompress_gzip_device_all(blob, indexes=indexes)
         line["scanned_members_s"] = time.perf_counter() - t0
@@ -1946,13 +1956,11 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
 
         # Every member dispatched with no host sync, then the one fetch.
         torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
+        idev._dispatch = no_sync_dispatch
         try:
-            pending = gf._dispatch_members(blob, dev)
+            parts = gf.uncompress_device(blob, array=True)
         finally:
-            torch.cuda.set_sync_debug_mode(0)
-        parts = gf._verify_members(pending)
-        del pending
+            idev._dispatch = dispatch
         line["no_sync_dispatch_members"] = len(parts)
         line["no_sync_equal_input"] = b"".join(
             buf.cpu().numpy().tobytes() for buf, _ in parts) == data

@@ -171,6 +171,30 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.stdout.strip() == "clean"
 
 
+def test_inflate_device_loads_no_container_module():
+    """ops/inflate_device knows DEFLATE only: loaded in a fresh interpreter
+    without the package's __init__ (which loads the whole API), it loads
+    none of the modules that frame gzip, zlib, zip or tar."""
+    code = (
+        "import sys, types\n"
+        "pkg = types.ModuleType('zippy_tpu_torch')\n"
+        f"pkg.__path__ = [{str(REPO / 'zippy_tpu_torch')!r}]\n"
+        "sys.modules['zippy_tpu_torch'] = pkg\n"
+        "import zippy_tpu_torch.ops.inflate_device\n"
+        "print(' '.join(m for m in sys.modules\n"
+        "               if m.startswith('zippy_tpu_torch.')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = set(proc.stdout.split())
+    assert "zippy_tpu_torch.ops.inflate_device" in loaded
+    framing = {f"zippy_tpu_torch.{m}" for m in (
+        "api", "gzip_format", "ziparchives", "ziparchives_v1", "tarballs",
+        "tarballs_v1")}
+    assert not loaded & framing, loaded & framing
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a card, and alone in a directory, chip_smoke.py exits
     non-zero and prints no result line."""

@@ -35,6 +35,7 @@ from zippy_tpu_torch import ziparchives, ziparchives_v1  # noqa: E402
 from zippy_tpu_torch.common import ZippyError  # noqa: E402
 from zippy_tpu_torch.ops import checksums  # noqa: E402
 from zippy_tpu_torch.ops import deflate_device as td  # noqa: E402
+from zippy_tpu_torch.ops import inflate_device as idev  # noqa: E402
 from _torch_parity import mixed_payload, one_thread, random_bytes  # noqa: E402,F401
 
 CPU = "cpu"
@@ -239,7 +240,7 @@ def test_extract_all_reads_other_writers(tmp_path, maker):
 
 def test_extract_all_in_several_passes(tmp_path, monkeypatch):
     """With passes of at most 5,000 decoded bytes the tree is the same."""
-    monkeypatch.setattr(ziparchives, "_PASS_BYTES", 5000)
+    monkeypatch.setattr(idev, "_PASS_BYTES", 5000)
     runs = []
     decode = ziparchives.decode_entries
     monkeypatch.setattr(ziparchives, "decode_entries", lambda e, d: (

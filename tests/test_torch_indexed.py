@@ -251,27 +251,34 @@ def test_write_member_extra():
 
 
 def test_inflate_device_array_acc():
-    """The sums asked for stay tensors: adler32 as int64, the crc as K3's
-    raw int32, finished on the host; those not asked for are None."""
+    """The one dispatch and verify (inflate_streams, which took over from
+    inflate_device_array_acc): each output with its length and, where asked
+    for, its finished crc32; the values of `sums` from the same fetch; an
+    output whose adler32 differs from its scan's ends the outputs, and its
+    error comes back for the caller to raise after those before it."""
     blob = raw_deflate(DATA[:90_000], 6)
     index = idev.build_decode_index(blob)
-    buf, total, adler_t, crc_t, keep = idev.inflate_device_array_acc(
-        blob, index, "cpu")
-    assert total == 90_000 and buf.shape == (total,)
-    assert buf.numpy().tobytes() == DATA[:90_000]
-    assert adler_t.shape == crc_t.shape == (1,)
-    assert (adler_t.dtype, crc_t.dtype) == (torch.int64, torch.int32)
-    assert int(adler_t) == zlib.adler32(DATA[:90_000])
-    assert tc.crc32_finish(int(crc_t), total) == zlib.crc32(DATA[:90_000])
-    assert isinstance(keep, list)
-    _, _, adler_t, crc_t, _ = idev.inflate_device_array_acc(
-        blob, index, "cpu", adler=False, crc=False)
-    assert adler_t is None and crc_t is None
     empty = raw_deflate(b"")
-    buf, total, adler_t, crc_t, _ = idev.inflate_device_array_acc(
-        empty, idev.build_decode_index(empty), "cpu")
-    assert total == 0 and buf.shape == (0,) and buf.dtype == torch.uint8
-    assert (int(adler_t), tc.crc32_finish(int(crc_t), 0)) == (1, 0)
+    extra = torch.tensor([7], dtype=torch.int64)
+    outs, err, got = idev.inflate_streams(
+        [(blob, index), (empty, idev.build_decode_index(empty))], "cpu",
+        crc=True, sums=[extra])
+    assert err is None and got == [7]
+    (buf, total, crc), (ebuf, etotal, ecrc) = outs
+    assert total == 90_000 and buf.shape == (total,)
+    assert buf.dtype == torch.uint8 and ebuf.dtype == torch.uint8
+    assert buf.numpy().tobytes() == DATA[:90_000]
+    assert crc == zlib.crc32(DATA[:90_000])
+    assert etotal == 0 and ebuf.shape == (0,) and ecrc == 0
+    outs, err, got = idev.inflate_streams([(blob, index)], "cpu", crc=False)
+    assert err is None and got == [] and outs[0].crc is None
+    assert outs[0].buf.numpy().tobytes() == DATA[:90_000]
+    lying = dict(index, adler=index["adler"] ^ 1)
+    outs, err, _ = idev.inflate_streams([(blob, index), (blob, lying),
+                                         (blob, index)], "cpu", crc=True)
+    assert len(outs) == 1 and isinstance(err, zt.ZippyError)
+    assert "verification" in str(err)
+    assert idev.inflate_streams([], "cpu", crc=True) == ([], None, [])
 
 
 def _data_member(blob: bytes, i: int):
@@ -287,6 +294,30 @@ def test_flipped_member_crc_raises():
     for array in (False, True):
         with pytest.raises(zt.ZippyError, match="Checksum"):
             gf.uncompress_device(bytes(bad), array=array, device="cpu")
+
+
+def test_uncompress_device_raises_the_earlier_members_error():
+    """A stream with ZT lengths and no sidecars: member 1 at level 0 with
+    one payload byte changed (it scans, and its crc32 fails), member 2 with
+    a body the scan rejects (block type 3). uncompress_device raises member
+    1's error, as the reference's array=False does, which decodes one
+    member after another; the port's array=True does too."""
+    payload = DATA[:40_000]
+    blob = gf.compress_indexed(payload, 0, member_size=20_000, device="cpu")
+    (p0, n0, side0), (p1, _, side1) = _walk(blob)
+    assert not side0 and not side1
+    bad = bytearray(blob)
+    bad[p0 + n0 - 8 - 100] ^= 0x01          # in member 1's stored bytes
+    bad[gf.parse_header(blob, p1)["data_offset"]] |= 0x06
+    bad = bytes(bad)
+    with pytest.raises(zt.ZippyError, match="invalid|Invalid"):
+        idev.build_decode_index(bad, gf.parse_header(bad, p1)[
+            "data_offset"] * 8)
+    with pytest.raises(zippy_tpu.ZippyError, match="Checksum"):
+        rgf.uncompress_device(bad)
+    for array in (False, True):
+        with pytest.raises(zt.ZippyError, match="Checksum"):
+            gf.uncompress_device(bad, array=array, device="cpu")
 
 
 def _with_index(blob: bytes, i: int, edit) -> bytes:
@@ -481,24 +512,26 @@ def test_every_output_is_allocated_before_the_first_dispatch(monkeypatch):
     events = []
 
     class Torch:
-        """torch, with each allocation of gzip_format recorded."""
+        """torch, with each output allocation of inflate_device recorded
+        (the pinned packs are int32)."""
 
         def __getattr__(self, name):
             return getattr(torch, name)
 
         def empty(self, *args, **kwargs):
             out = torch.empty(*args, **kwargs)
-            events.append(("alloc", out.data_ptr(), out.numel()))
+            if out.dtype == torch.uint8:
+                events.append(("alloc", out.data_ptr(), out.numel()))
             return out
 
-    real = idev.inflate_device_array_acc
+    real = idev._dispatch
 
-    def dispatch(src, index, device=None, *args, out=None, **kwargs):
+    def dispatch(src, index, out, *args, **kwargs):
         events.append(("dispatch", out.data_ptr(), out.numel()))
-        return real(src, index, device, *args, out=out, **kwargs)
+        return real(src, index, out, *args, **kwargs)
 
-    monkeypatch.setattr(gf, "torch", Torch())
-    monkeypatch.setattr(idev, "inflate_device_array_acc", dispatch)
+    monkeypatch.setattr(idev, "torch", Torch())
+    monkeypatch.setattr(idev, "_dispatch", dispatch)
     parts = gf.uncompress_device(port_stream(), array=True, device="cpu")
     assert _joined(parts) == DATA
     n = len(parts)

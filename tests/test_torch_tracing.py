@@ -204,6 +204,65 @@ def test_copy_counters_are_the_bytes_copied(monkeypatch, direction):
     assert rec.counters["fetch.used_bytes"] == seen["used"] > 0
 
 
+def _decode_call(entry: str, whole: bytes, tmp_path):
+    """(the decode of `whole` through one entry point, what it must
+    return), its input made beforehand, untraced."""
+    cut = [0, 15_000, 40_000, len(whole)]
+    if entry == "uncompress_one_member":
+        blob = gzip.compress(whole, 6)
+        return lambda: zt.uncompress(blob, device="cpu"), whole
+    if entry == "uncompress_three_members":
+        blob = b"".join(gzip.compress(whole[a:b], 6)
+                        for a, b in zip(cut, cut[1:]))
+        assert len(gzip_format.member_indexes(blob)) == 3
+        return lambda: zt.uncompress(blob, device="cpu"), whole
+    if entry == "uncompress_parallel":
+        blob = zt.compress_indexed(whole, 6, member_size=20_000,
+                                   device="cpu")
+        return lambda: zt.uncompress_parallel(blob, device="cpu"), whole
+    if entry.startswith("uncompress_device"):
+        blob = zt.compress_device_indexed(whole, 6, member_size=20_000,
+                                          device="cpu")
+        if entry.endswith("array"):
+            return lambda: b"".join(
+                buf.numpy().tobytes() for buf, _ in zt.uncompress_device(
+                    blob, array=True, device="cpu")), whole
+        return lambda: zt.uncompress_device(blob, device="cpu"), whole
+    names = [f"f{i}.txt" for i in range(3)]
+    archive = tmp_path / "a.zip"
+    archive.write_bytes(zt.create_zip_archive(
+        {n: whole[a:b] for n, a, b in zip(names, cut, cut[1:])},
+        device="cpu"))
+
+    def extract():
+        zt.extract_all_zip(archive, tmp_path / "out", device="cpu")
+        return b"".join((tmp_path / "out" / n).read_bytes() for n in names)
+    return extract, whole
+
+
+@pytest.mark.parametrize("entry", [
+    "uncompress_one_member", "uncompress_three_members",
+    "uncompress_parallel", "uncompress_device_bytes",
+    "uncompress_device_array", "extract_all_zip"])
+def test_each_decode_fetches_its_sums_once_a_pass(tmp_path, entry):
+    """Every decode entry point dispatches its streams through
+    inflate_streams, which waits on the card for the sums once a pass of
+    up to 1 GiB of output: once here, whatever the number of members or
+    entries."""
+    whole = TEXT + MORE
+    call, want = _decode_call(entry, whole, tmp_path)
+    profiling.enable()
+    try:
+        seq = _last_seq()
+        with profiling.call("decode"):
+            out = call()
+    finally:
+        profiling.disable()
+    (rec,) = profiling.recent(1)
+    assert rec.seq != seq and out == want
+    assert rec.spans["checksum.wait"][0] == 1
+
+
 @pytest.mark.parametrize("bad", ["flipped_crc", "not_a_stream"])
 def test_a_call_that_raises_leaves_a_failed_record(bad):
     if bad == "flipped_crc":

@@ -13,6 +13,7 @@ import struct
 import torch
 
 from . import engine, gzip_format, native, profiling
+from .ops import inflate_device
 from .common import (
     CompressedDataFormat,
     DefaultCompression,
@@ -141,9 +142,7 @@ def _uncompress(src, data_format, engine_name, device) -> bytes:
     if data_format == dfGzip:
         return gzip_format.uncompress_gzip_device_all(data, dev)
     if data_format == dfZlib:
-        from .ops import inflate_device
-
-        return inflate_device.uncompress_zlib_device(data, device=dev)
+        return uncompress_zlib_device(data, device=dev)
     if data_format == dfDeflate:
         return engine.inflate(data, 0, None, engine_name, dev)[0]
     raise ZippyError(f"Invalid data format {data_format}")
@@ -165,18 +164,40 @@ def _uncompress_native(data: bytes, data_format) -> bytes:
     if data_format == dfGzip:
         return gzip_format.uncompress_gzip(data)
     if data_format == dfZlib:
-        if len(data) < 6:
-            raise ZippyError("Invalid compressed data")
-        cmf, flg = data[0], data[1]
-        if (cmf & 0x0F) != 8:
-            raise ZippyError("Unsupported compression method")
-        if (cmf >> 4) > 7:
-            raise ZippyError("Invalid compression info")
-        if (cmf * 256 + flg) % 31 != 0:
-            raise ZippyError("Invalid header")
-        if flg & 0b0010_0000:
-            raise ZippyError("Preset dictionary is not yet supported")
+        _check_zlib_header(data)
         return native.zlib_uncompress(data)
     if data_format == dfDeflate:
         return native.inflate(data)[0]
     raise ZippyError(f"Invalid data format {data_format}")
+
+
+def _check_zlib_header(data: bytes) -> None:
+    """The zlib header checks of both decodes, with the reference's
+    messages (zippy.nim:130-150)."""
+    if len(data) < 6:
+        raise ZippyError("Invalid compressed data")
+    cmf, flg = data[0], data[1]
+    if (cmf & 0x0F) != 8:
+        raise ZippyError("Unsupported compression method")
+    if (cmf >> 4) > 7:
+        raise ZippyError("Invalid compression info")
+    if (cmf * 256 + flg) % 31 != 0:
+        raise ZippyError("Invalid header")
+    if flg & 0b0010_0000:
+        raise ZippyError("Preset dictionary is not yet supported")
+
+
+def uncompress_zlib_device(blob: bytes, index=None, device=None) -> bytes:
+    """Decode one zlib stream on the card. The trailer's adler32 is checked
+    against the scan's (on the host), and the device output against the
+    same value."""
+    _check_zlib_header(blob)
+    if index is None:
+        index = inflate_device.build_decode_index(blob, 16)
+    tpos = (int(index["end_bit"]) + 7) // 8
+    if tpos + 4 > len(blob):
+        raise ZippyError("Invalid compressed data")
+    if int(index["adler"]) != int.from_bytes(blob[tpos:tpos + 4], "big"):
+        raise ZippyError("Checksum verification failed")
+    return inflate_device.inflate_device(blob, index, verify=True,
+                                         device=device)

@@ -31,12 +31,13 @@ from __future__ import annotations
 
 import os
 import struct
+from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from . import engine, native, profiling
-from .common import ZippyError, as_u8_tensor, host_bytes, resolve_device
+from .common import ZippyError, as_u8_tensor, host_bytes
+from .ops import inflate_device as idev
 
 GZIP_MAGIC = b"\x1f\x8b"
 
@@ -221,68 +222,45 @@ def _is_zero_padding(src, pos: int) -> bool:
     return True
 
 
-def _walk_members(src: bytes) -> tuple[list, ZippyError | None]:
-    """member_indexes' walk: the [(byte offset, decode index)] of the
-    members before the first one whose header or scan raised, and that
-    error (None when the walk reached the stream's end)."""
-    from .ops import inflate_device as idev
-
-    out = []
-    pos = 0
-    try:
-        with profiling.span("framing"):         # the scans are their own
-            while pos < len(src):
-                if _is_zero_padding(src, pos):
-                    break
-                hdr = parse_header(src, pos)
-                index = idev.build_decode_index(src, hdr["data_offset"] * 8)
-                out.append((pos, index))
-                pos = (int(index["end_bit"]) + 7) // 8 + 8
-    except ZippyError as e:
-        return out, e
-    if not out:
-        return out, ZippyError("Invalid gzip data")
-    return out, None
-
-
 def member_indexes(src: bytes) -> list:
-    """[(byte offset, decode index)] of every member of a gzip stream, up to
-    its end or to trailing zero padding. Each member is scanned in place, at
-    its bit offset in `src`, so no member's tail is copied."""
-    out, err = _walk_members(src)
+    """[(byte offset, decode index)] of every data member of a gzip stream,
+    up to its end or to trailing zero padding, as `_walk` reads them (each
+    scanned in place unless it has sidecars, so no member's tail is
+    copied)."""
+    if _is_zero_padding(src, 0):
+        raise ZippyError("Invalid gzip data")
+    members, err = _walk(src)
     if err is not None:
         raise err
-    return out
+    return [(m.pos, m.index) for m in members]
+
+
+def uncompress_gzip_device(blob: bytes, index=None, device=None,
+                           pos: int = 0) -> bytes:
+    """Decode the gzip member at byte `pos` of `blob` on the card, scanned
+    first when `index` is omitted, and checked as `_decode` checks it."""
+    if index is None:
+        index = idev.build_decode_index(
+            blob, parse_header(blob, pos)["data_offset"] * 8)
+    return _fetched(blob, [_member(blob, pos, None, index)], None, device)
 
 
 def uncompress_gzip_device_all(src: bytes, device=None,
                                indexes=None) -> bytes:
     """Decode every member of a gzip stream on the card and concatenate
-    them. `indexes` is the result of member_indexes (walked here when
-    omitted). A stream whose ZT lengths chain consistently to its end and
-    that carries ZX sidecars (compress_device_indexed output) decodes
-    through uncompress_device, with no host scan."""
-    from .ops import inflate_device as idev
-
-    if indexes is None:
-        with profiling.span("framing"):
-            spans = _zt_spans(src)
-            sidecars = spans and any(_member_zx(src, pos) is not None
-                                     for pos, _ in spans)
-        if sidecars:
-            return uncompress_device(src, device=device)
-        indexes, err = _walk_members(src)
-        if err is not None:
-            # The reference decodes and verifies a member before it parses
-            # the next: the members before the one the walk failed on are
-            # decoded first, so that their own error wins.
-            for pos, index in indexes:
-                idev.uncompress_gzip_device(src, index, device, pos)
-            raise err
-    parts = [idev.uncompress_gzip_device(src, index, device, pos)
-             for pos, index in indexes]
-    with profiling.span("framing"):
-        return b"".join(parts)
+    them. `indexes` is the result of member_indexes; without it the stream
+    is walked here (`_walk`: compress_device_indexed output decodes with no
+    host scan). ZT lengths are not checked. The members before the first
+    one the walk failed on are decoded first, so that their own error wins,
+    as in the reference's decode of one member after another."""
+    if indexes is not None:
+        members, err = [_member(src, pos, None, index)
+                        for pos, index in indexes], None
+    elif _is_zero_padding(src, 0):
+        raise ZippyError("Invalid gzip data")
+    else:
+        members, err = _walk(src)
+    return _fetched(src, members, err, device)
 
 
 # ---------------------------------------------------------------------------
@@ -369,26 +347,16 @@ def _zt_spans(src: bytes) -> list | None:
 
 
 def uncompress_parallel(src: bytes, device=None) -> bytes:
-    """Decode a gzip stream whose members carry ZT lengths: on the card,
-    the members decode one after another, each given its own scan, and a
-    member whose decode ends anywhere but at its ZT length raises
-    ZippyError. Without a usable ZT index (or with a single member) the
-    whole stream decodes through uncompress_gzip_device_all."""
-    from .ops import inflate_device as idev
-
+    """Decode a gzip stream whose members carry ZT lengths on the card, as
+    uncompress_device does; a member whose decode ends anywhere but at its
+    ZT length raises ZippyError. Without a usable ZT index (or with a
+    single member) the whole stream decodes through
+    uncompress_gzip_device_all."""
     with profiling.call("uncompress"):
         spans = _zt_spans(src)
         if not spans or len(spans) == 1:
             return uncompress_gzip_device_all(src, device)
-        parts = []
-        for pos, mlen in spans:
-            hdr = parse_header(src, pos)
-            index = idev.build_decode_index(src, hdr["data_offset"] * 8)
-            if (int(index["end_bit"]) + 7) // 8 + 8 != pos + mlen:
-                raise ZippyError(
-                    "Invalid gzip data (ZT index length mismatch)")
-            parts.append(idev.uncompress_gzip_device(src, index, device, pos))
-        return b"".join(parts)
+        return _fetched(src, *_zt_checked(*_walk(src)), device)
 
 
 # ---------------------------------------------------------------------------
@@ -562,8 +530,6 @@ def compress_device_indexed(
     each body is then scanned once on the host for its index. The index is the cost of the format: a checkpoint every 32
     tokens, whose deflated share of the stream depends on the data (about
     a tenth on chip_smoke.py's mixed payload)."""
-    from .ops import inflate_device as idev
-
     with profiling.call("compress"):
         _check_member_size(member_size)
         x = as_u8_tensor(src, device)
@@ -578,12 +544,9 @@ def compress_device_indexed(
         return b"".join(out)
 
 
-def _member_zx(src: bytes, pos: int) -> bytes | None:
-    """The 'ZX' subfield payload of the member at `pos`, if any."""
-    extra = parse_header(src, pos)["extra"]
-    if not extra:
-        return None
-    p, end = 0, len(extra)
+def _zx(extra: bytes | None) -> bytes | None:
+    """The 'ZX' subfield payload of a FEXTRA field, if any."""
+    p, end = 0, len(extra or b"")
     while p + 4 <= end:
         sid = extra[p : p + 2]
         slen = struct.unpack_from("<H", extra, p + 2)[0]
@@ -594,150 +557,170 @@ def _member_zx(src: bytes, pos: int) -> bytes | None:
     return None
 
 
-def _zt_length(src: bytes, pos: int) -> tuple[int, int]:
-    """(ZT length, deflate body offset) of the member at `pos`, checked:
-    the length must hold the member's header and 8-byte trailer and end
-    inside the stream."""
-    mlen = _indexed_member_length(src, pos)
-    if mlen is None:
-        raise ZippyError("Invalid gzip data (missing ZT index)")
-    start = parse_header(src, pos)["data_offset"]
-    if mlen < start - pos + 8 or pos + mlen > len(src):
-        raise ZippyError("Invalid gzip data (ZT index length out of range)")
-    return mlen, start
+def _member_zx(src: bytes, pos: int) -> bytes | None:
+    """The 'ZX' subfield payload of the member at `pos`, if any."""
+    return _zx(parse_header(src, pos)["extra"])
 
 
-def _sidecar_length(src: bytes, pos: int) -> int:
-    """The checked ZT length of the sidecar at `pos`, whose trailer must
-    be that of an empty payload (crc32 0, ISIZE 0): the decode skips its
-    body, and CPython's reading of the stream would differ otherwise."""
-    mlen, _ = _zt_length(src, pos)
-    if src[pos + mlen - 8:pos + mlen] != bytes(8):
+# ---------------------------------------------------------------------------
+# The member walk and the decode
+# ---------------------------------------------------------------------------
+
+
+class _Member(NamedTuple):
+    pos: int            # byte offset of its header
+    zt: int | None      # its ZT length, where it has one
+    index: dict         # its decode index, offsets absolute in the stream
+    end: int            # byte offset past its trailer
+    crc: int            # the trailer's crc32
+    isize: int          # the trailer's ISIZE
+
+
+def _member(src: bytes, pos: int, zt, index) -> _Member:
+    """The member at `pos` whose body `index` describes, and its trailer."""
+    end = (int(index["end_bit"]) + 7) // 8 + 8
+    if end > len(src):
+        raise ZippyError("Invalid gzip data")
+    return _Member(pos, zt, index, end,
+                   *struct.unpack_from("<II", src, end - 8))
+
+
+def _framing(src: bytes, pos: int):
+    """(body offset, ZT length or None, whether that length frames the
+    member: holds its header and trailer and ends inside the stream, its
+    ZX payload if it is a sidecar) of the member at `pos`. A sidecar has a
+    ZX subfield and a framing ZT length, and must have an empty payload's
+    trailer: the decode skips its body, which CPython would not."""
+    hdr = parse_header(src, pos)
+    start = hdr["data_offset"]
+    zt = _indexed_member_length(src, pos)
+    framed = zt is not None and start - pos + 8 <= zt and pos + zt <= len(src)
+    zx = _zx(hdr["extra"]) if framed else None
+    if zx is not None and src[pos + zt - 8:pos + zt] != bytes(8):
         raise ZippyError("Invalid gzip data (a ZX sidecar with a payload)")
-    return mlen
+    return start, zt, framed, zx
 
 
-def _read_members(src: bytes) -> list:
-    """The host's pass over an indexed stream: [(decode index, trailer
-    crc32, trailer ISIZE)] of every data member, the index from the
-    member's sidecars shifted to absolute offsets in `src` (checked first),
-    or from a scan where it has no sidecar. Stray sidecars and trailing
-    zero padding are skipped.
+def _sidecar_index(src: bytes, pos: int, zt: int, start: int):
+    """(index, offset past its sidecars) of the data member at `pos` with
+    ZT length `zt` and body at `start`, the index read from the sidecars
+    after it, checked and shifted to the stream's offsets; (None, None)
+    where no sidecar follows it."""
+    with profiling.span("index"):
+        end, chunks = pos + zt, []
+        while (end < len(src) and not _is_zero_padding(src, end)
+               and _indexed_member_length(src, end) is not None):
+            _, n, _, zx = _framing(src, end)
+            if zx is None:
+                break
+            chunks.append(zx)
+            end += n
+        if not chunks:
+            return None, None
+        blob = b"".join(chunks)
+        profiling.count("index.members")
+        profiling.count("index.bytes", len(blob))
+        index = deserialize_index(blob)
+        _check_index(index, pos + zt - start,
+                     struct.unpack_from("<I", src, pos + zt - 4)[0])
+        index["segments"][:, 0] += start * 8
+        index["stored"][:, 0] += start
+        index["end_bit"] += start * 8
+        return index, end
 
-    Spans: the walk over members' headers and stray sidecars is `framing`;
-    gathering a member's sidecars and reading its index from them (inflate,
-    check, shift) is `index`, counted in `index.members` and, by its ZX
-    payload bytes, `index.bytes` where it has sidecars."""
-    from .ops import inflate_device as idev
 
+def _walk(src: bytes) -> tuple[list, ZippyError | None]:
+    """The one walk over a gzip stream's members, up to its end or its
+    trailing zero padding: ([_Member] of its data members, None), or those
+    before the first member that raised and that error. A member's index
+    comes from its sidecars where its ZT length frames it, else from a scan
+    in place; a stray sidecar is skipped. ZT lengths are read, not checked
+    (`_zt_checked` does that). Spans: headers, trailers and stray sidecars
+    are `framing`, the sidecar reads `index`; the scans are their own."""
     members = []
     pos = 0
-    while True:
-        with profiling.span("framing"):
-            if pos >= len(src) or _is_zero_padding(src, pos):
-                break
-            if _member_zx(src, pos) is not None:
-                pos += _sidecar_length(src, pos)  # a stray sidecar
-                continue
-            mlen, start = _zt_length(src, pos)
-            want_crc, want_isize = struct.unpack_from("<II", src,
-                                                      pos + mlen - 8)
-        with profiling.span("index"):
-            end = pos + mlen
-            chunks = []
-            while end < len(src) and not _is_zero_padding(src, end):
-                if _indexed_member_length(src, end) is None:
-                    break
-                zx = _member_zx(src, end)
-                if zx is None:
-                    break
-                chunks.append(zx)
-                end += _sidecar_length(src, end)
-            if chunks:
-                blob = b"".join(chunks)
-                profiling.count("index.members")
-                profiling.count("index.bytes", len(blob))
-                index = deserialize_index(blob)
-                _check_index(index, pos + mlen - start, want_isize)
-                index["segments"][:, 0] += start * 8
-                index["stored"][:, 0] += start
-                index["end_bit"] += start * 8
-        if not chunks:
-            index = idev.build_decode_index(src, start * 8)
-            if (int(index["end_bit"]) + 7) // 8 + 8 != pos + mlen:
-                raise ZippyError(
-                    "Invalid gzip data (ZT index length mismatch)")
-        members.append((index, want_crc, want_isize))
-        pos = end
-    return members
+    try:
+        while True:
+            with profiling.span("framing"):
+                if pos >= len(src) or _is_zero_padding(src, pos):
+                    return members, None
+                start, zt, framed, zx = _framing(src, pos)
+                if zx is not None:
+                    pos += zt                   # a stray sidecar
+                    continue
+            index, after = (_sidecar_index(src, pos, zt, start) if framed
+                            else (None, None))
+            if index is None:
+                index = idev.build_decode_index(src, start * 8)
+            with profiling.span("framing"):
+                members.append(_member(src, pos, zt, index))
+            pos = after or members[-1].end
+    except ZippyError as e:
+        return members, e
 
 
-def _dispatch_members(src: bytes, device) -> list:
-    """Dispatch the decode of every data member of an indexed stream
-    (`_read_members`), back to back with no host sync, each in place in
-    `src`. Every member's output is allocated before the first dispatch, so
-    that the call's device memory is the stream's output and one member's
-    working set, whatever the members' sizes and order. Returns one
-    pending decode per member, for _verify_members."""
-    from .ops import inflate_device as idev
-
-    members = _read_members(src)
-    outs = [torch.empty(int(index["total_out"]), dtype=torch.uint8,
-                        device=device) for index, _, _ in members]
-    pending = []
-    for (index, want_crc, want_isize), out in zip(members, outs):
-        buf, total, adler_t, crc_t, keep = idev.inflate_device_array_acc(
-            src, index, device, out=out)
-        pending.append((buf, total, adler_t, crc_t, keep,
-                        int(index["adler"]), want_crc, want_isize))
-    return pending
+def _zt_checked(members: list, err):
+    """The walk's (members, err) cut at the first member that has no ZT
+    length or whose ZT length does not end at its trailer, whose error
+    then stands in for the walk's."""
+    for i, m in enumerate(members):
+        if m.zt is None or m.pos + m.zt != m.end:
+            return members[:i], ZippyError("Invalid gzip data (%s)" % (
+                "missing ZT index" if m.zt is None
+                else "ZT index length mismatch"))
+    return members, err
 
 
-def _verify_members(pending: list) -> list:
-    """Fetch every pending member's adler32 and raw CRC in one copy, check
-    them against the index's adler32, the trailer's crc32 and ISIZE, and
-    return [(uint8 tensor of exactly total bytes, total)]."""
-    from .ops import checksums
-    from .ops import inflate_device as idev
+def _decode(src: bytes, members: list, err, device):
+    """Yield (uint8 tensor of exactly total bytes, total) of each of the
+    walk's members in order, decoded on `device` in passes of
+    inflate_streams (one fetch of every sum a pass) and checked: crc32
+    against the trailer, length against ISIZE mod 2^32. A member's error
+    is raised when the decode reaches it; `err`, the walk's, at the end."""
+    for run in idev.passes(members, lambda m: int(m.index["total_out"])):
+        outs, bad, _ = idev.inflate_streams([(src, m.index) for m in run],
+                                            device, crc=True)
+        for m, out in zip(run, outs):
+            if out.crc != m.crc:
+                raise ZippyError("Checksum verification failed")
+            if m.isize != out.total & 0xFFFFFFFF:
+                raise ZippyError("Size verification failed")
+            yield out.buf, out.total
+        if bad is not None:
+            raise bad
+    if err is not None:
+        raise err
 
-    if not pending:
-        return []
-    sums = torch.cat([torch.cat([p[2] for p in pending]),
-                      torch.cat([p[3] for p in pending])])
-    with profiling.span("checksum.wait"):
-        got = sums.tolist()
-    out = []
-    for (buf, total, _, _, _, want_adler, want_crc, want_isize), adler, raw \
-            in zip(pending, got, got[len(pending):]):
-        idev.check_sums(total, adler, checksums.crc32_finish(raw, total),
-                        want_adler, want_crc, want_isize)
-        out.append((buf, total))
-    return out
+
+def _fetched(src: bytes, members: list, err, device) -> bytes:
+    """The members' bytes, each fetched once its pass passed its checks."""
+    parts = [idev._fetch(buf) for buf, _ in _decode(src, members, err,
+                                                      device)]
+    with profiling.span("framing"):
+        return b"".join(parts)
 
 
 def uncompress_device(src: bytes, array: bool = False, device=None):
     """Decode an indexed gzip stream (compress_device_indexed output) on
     the card (`device` None) or with the plain versions ("cpu"), with no
     host scan: each member's sidecar index feeds the tiled decode directly.
-    A member without a sidecar is scanned. Every member is dispatched back
-    to back; then all members' checksums come back in one fetch and each
-    is checked: the output's adler32 against the index's, its crc32
-    against the trailer, its length against ISIZE.
+    A member without a sidecar is scanned. Every member must carry a ZT
+    length that ends at its trailer: ZippyError otherwise. The members of a
+    pass (up to 1 GiB of output) dispatch back to back, then one fetch
+    brings all their checksums: each output's adler32 against its index,
+    its crc32 against the trailer, its length against ISIZE. An earlier
+    member's error wins over a later one's.
 
-    array=False returns the bytes (each member's buffer fetched after the
-    gates passed); array=True returns [(uint8 tensor of exactly total
-    bytes, total)] per data member, on the device (zero-length for an empty
-    member). Every member must carry a ZT length: ZippyError otherwise.
-    With tracing on, the call keeps a record of its spans and counters
-    (profiling.recent), or adds to the record of the call it is in."""
-    from .ops import inflate_device as idev
-
+    array=False returns the bytes (each member's buffer fetched after its
+    pass passed its checks); array=True returns [(uint8 tensor of exactly
+    total bytes, total)] per data member, on the device (zero-length for
+    an empty member). With tracing on, the call keeps a record of its
+    spans and counters (profiling.recent), or adds to the record of the
+    call it is in."""
     with profiling.call("uncompress"):
         if not isinstance(src, bytes):
             src = bytes(src)
-        parts = _verify_members(_dispatch_members(src,
-                                                  resolve_device(device)))
+        members, err = _zt_checked(*_walk(src))
         if array:
-            return parts
-        with profiling.span("framing"):
-            return b"".join([idev._fetch(buf) for buf, _ in parts])
+            return list(_decode(src, members, err, device))
+        return _fetched(src, members, err, device)

@@ -23,14 +23,17 @@ The index-based tiled decode of the reference, on a CUDA card:
    for a CFG_L one). Tiles chain through a 32 KiB halo of decoded bytes,
    device to device.
 4. Every tile's bytes land in one output buffer, whose adler32 (kernel K1)
-   must equal the scan's, and for gzip whose crc32 (K2 + K3) must equal the
-   trailer: a corrupt stream that passes the scan cannot return silent
-   garbage. The reference folds the checksums tile by tile
-   (`_combine_checksums`, `_crc_shift_device`); one pass over the whole
-   output gives the same values with fewer launches, so those two are not
-   ported. `inflate_device_array_acc` leaves the sums asked for on the
-   card, so the members of a stream dispatch back to back and verify with
-   one fetch.
+   must equal the scan's, and whose crc32 (K2 + K3), where the container
+   asks for it, the container checks against its own record: a corrupt
+   stream that passes the scan cannot return silent garbage. The reference
+   folds the checksums tile by tile (`_combine_checksums`,
+   `_crc_shift_device`); one pass over the whole output gives the same
+   values with fewer launches, so those two are not ported.
+   `inflate_streams` is every decode's one dispatch and verify: it
+   dispatches several streams back to back with their sums left on the
+   card and brings every sum back in one fetch. This module knows DEFLATE
+   only; the gzip, zlib and zip framing is in gzip_format, api and
+   ziparchives.
 
 The reference's `mesh=` is `devices=` here (`lane_shares`): each batch's
 busy lanes are split over a list of devices, K4 runs on each share, and the
@@ -47,7 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import gzip_format, profiling
+from .. import profiling
 from ..common import ZippyError, resolve_device, resolve_devices
 from . import checksums, inflate_kernels, resolve_kernels
 from .inflate_scan import inflate_scan
@@ -469,23 +472,6 @@ def _run_tiles(data, index, device: torch.device, stages=None, devices=None,
     return buf, keep
 
 
-def check_sums(total: int, got_adler: int, got_crc, want_adler: int,
-               want_crc=None, want_isize=None) -> None:
-    """The decode's gates on fetched sums: a non-empty output's adler32
-    against the scan's, then for a gzip member (want_crc given) its crc32
-    against the trailer and its length against ISIZE mod 2^32."""
-    if total and got_adler != want_adler:
-        raise ZippyError(
-            "Device decode verification failed (output checksum does not "
-            "match the scan)")
-    if want_crc is None:
-        return
-    if got_crc != want_crc:
-        raise ZippyError("Checksum verification failed")
-    if want_isize != total & 0xFFFFFFFF:
-        raise ZippyError("Size verification failed")
-
-
 def _placement(device, devices):
     """(the device that resolves and holds the output, the extraction
     devices or None). With `devices` the output is on the first of them;
@@ -498,67 +484,124 @@ def _placement(device, devices):
     return devices[0], devices
 
 
-def inflate_device_array_acc(data: bytes, index, device=None, stages=None, *,
-                             adler: bool = True, crc: bool = True,
-                             devices=None, out=None):
-    """Decode a raw DEFLATE stream into a uint8 tensor on `device` (None:
-    the CUDA card; "cpu" runs the plain versions) and leave the checksums
-    asked for there: nothing is fetched and the host does not wait for the
-    card. `index` is the result of build_decode_index; its offsets are
-    absolute in `data`. With `devices` (a list; a device may repeat), each
-    batch's token extraction is split over them, balanced by busy lanes,
-    and the output, the LZ resolution and the checksums are on the first:
-    the bytes are those of the one-device decode.
 
-    Returns (buf, total, adler_t, crc_t, keep): buf holds exactly the total
-    decoded bytes (a zero-length tensor for an empty stream); adler_t is
-    the (1,) int64 adler32 (K1) and crc_t the (1,) int32 raw CRC (K2 + K3,
-    finished on the host by checksums.crc32_finish), each None unless asked
-    for; keep holds the pinned upload buffers, for the caller to hold until
-    it next synchronizes. With a `stages` dict, each stage's synchronized
-    seconds are added to it. `out`, if given, is the uint8 tensor of
-    exactly total_out bytes on the output's device that buf is: the
-    decode writes into it and allocates no output of its own."""
+
+# The decoded bytes that one call of inflate_streams holds on the card
+# before its one fetch of the sums: callers cut many streams into `passes`.
+_PASS_BYTES = 1 << 30
+
+
+def passes(items: list, size) -> list:
+    """`items` cut into runs in order, each of at most _PASS_BYTES by
+    `size(item)` (an item larger than that makes a run of its own)."""
+    out, run, held = [], [], 0
+    for item in items:
+        n = size(item)
+        if run and held + n > _PASS_BYTES:
+            out.append(run)
+            run, held = [], 0
+        run.append(item)
+        held += n
+    return out + [run] if run else out
+
+
+def _dispatch(data, index, out: torch.Tensor, keep: list, *,
+              adler: bool = True, crc: bool = True, stages=None,
+              devices=None):
+    """Dispatch one stream's tiled decode into `out` (uint8, its exact
+    total_out bytes) with no host sync, the pinned uploads appended to
+    `keep`. Returns the sums asked for, left on the card: the (1,) int64
+    adler32 (K1) and the (1,) int32 raw CRC (K2 + K3), or None."""
+    if out.numel():
+        keep += _run_tiles(data, index, out.device, stages, devices, out)[1]
+    with profiling.span("checksums", stages, out.device):
+        return (checksums.adler32_tensor(out) if adler else None,
+                checksums.crc32_raw_tensor(out) if crc else None)
+
+
+class _Inflated(NamedTuple):
+    buf: torch.Tensor   # exactly `total` decoded bytes on the output device
+    total: int
+    crc: int | None     # the output's crc32, where it was asked for
+
+
+def inflate_streams(streams: list, device=None, *, crc: bool, sums=(),
+                    stages=None, devices=None):
+    """Decode raw DEFLATE streams [(data, index)] (each index from
+    build_decode_index, offsets absolute in its data) on `device` (None:
+    the CUDA card; "cpu" runs the plain versions): every decode's one
+    dispatch and verify. Every output is allocated first, then the streams
+    are dispatched back to back with no host sync, each with its adler32
+    and, with `crc`, its raw CRC left on the card; one fetch
+    (`checksum.wait`) brings every sum, and the values of `sums` ((1,)
+    integer tensors on the output's device), while the pinned uploads are
+    held. `devices` and `stages` as inflate_device_array takes them.
+
+    Returns (outs, err, got): the _Inflated (buf, total, crc32 or None) of
+    each stream in order up to the first whose non-empty output's adler32
+    differs from its scan's, that failure as a ZippyError or None, and the
+    values of `sums`. The caller checks the outputs' crc32s before it
+    raises err, and cuts many streams into `passes` first."""
     dev, devices = _placement(device, devices)
-    total = int(index["total_out"])
-    if total:
-        buf, keep = _run_tiles(data, index, dev, stages, devices, out)
-    elif out is not None:
-        buf, keep = out, []
-    else:
-        buf, keep = torch.empty(0, dtype=torch.uint8, device=dev), []
-    with profiling.span("checksums", stages, dev):
-        adler_t = checksums.adler32_tensor(buf) if adler else None
-        crc_t = checksums.crc32_raw_tensor(buf) if crc else None
-    return buf, total, adler_t, crc_t, keep
+    outs = [torch.empty(int(index["total_out"]), dtype=torch.uint8,
+                        device=dev) for _, index in streams]
+    keep: list = []
+    sent = [t for (data, index), out in zip(streams, outs)
+            for t in _dispatch(data, index, out, keep, crc=crc,
+                               stages=stages, devices=devices)
+            if t is not None] + list(sums)
+    got = []
+    if sent:
+        sent = torch.cat(sent)
+        with profiling.span("checksum.wait"):
+            got = sent.tolist()
+    del keep
+    step = 2 if crc else 1
+    done = []
+    for i, ((_, index), out) in enumerate(zip(streams, outs)):
+        if out.numel() and got[step * i] != int(index["adler"]):
+            return done, ZippyError(
+                "Device decode verification failed (output checksum does "
+                "not match the scan)"), got[step * len(streams):]
+        done.append(_Inflated(out, out.numel(), checksums.crc32_finish(
+            got[step * i + 1], out.numel()) if crc else None))
+    return done, None, got[step * len(streams):]
 
 
 def inflate_device_array(data: bytes, index=None, start_bit: int = 0,
                          verify: bool = True, device=None, stages=None,
                          devices=None):
     """Decode a raw DEFLATE stream into a uint8 tensor on `device`, as
-    inflate_device_array_acc does, scanning it first when `index` is
+    inflate_streams decodes one, scanning it first when `index` is
     omitted. Returns (tensor, total): the tensor holds exactly the
-    total_out decoded bytes.
+    total_out decoded bytes. With `devices` (a list; a device may repeat),
+    each batch's token extraction is split over them, balanced by busy
+    lanes, and the output is on the first: the bytes are those of the
+    one-device decode. With a `stages` dict, each stage's synchronized
+    seconds are added to it.
 
     verify=True fetches the output's adler32 (K1) and raises ZippyError if
     it differs from the scan's: the integrity gate of raw DEFLATE, which
-    has no checksum of its own. Neither sum is computed otherwise."""
+    has no checksum of its own. Otherwise no sum is computed and the host
+    does not wait for the card."""
     dev, devices = _placement(device, devices)
     if index is None:
         with profiling.span("scan", stages, dev):
             index = build_decode_index(data, start_bit)
-    buf, total, adler_t, _, keep = inflate_device_array_acc(
-        data, index, dev, stages, adler=verify, crc=False, devices=devices)
     if verify:
-        with profiling.span("checksums", stages, dev):
-            with profiling.span("checksum.wait"):
-                got_adler = int(adler_t)
-            check_sums(total, got_adler, None, int(index["adler"]))
-    # Held to here; without the gate's sync, torch's pinned-memory cache
-    # keeps a freed upload buffer until its copy has run.
+        outs, err, _ = inflate_streams([(data, index)], dev, crc=False,
+                                       stages=stages, devices=devices)
+        if err is not None:
+            raise err
+        return outs[0].buf, outs[0].total
+    buf = torch.empty(int(index["total_out"]), dtype=torch.uint8, device=dev)
+    keep: list = []
+    _dispatch(data, index, buf, keep, adler=False, crc=False, stages=stages,
+              devices=devices)
+    # Held to here; without a sync, torch's pinned-memory cache keeps a
+    # freed upload buffer until its copy has run.
     del keep
-    return buf, total
+    return buf, buf.numel()
 
 
 def _fetch(buf: torch.Tensor, stages=None) -> bytes:
@@ -577,55 +620,3 @@ def inflate_device(data: bytes, index=None, start_bit: int = 0,
     buf, _ = inflate_device_array(data, index, start_bit, verify, device,
                                   stages, devices)
     return _fetch(buf, stages)
-
-
-def uncompress_zlib_device(blob: bytes, index=None, device=None) -> bytes:
-    """Decode one zlib stream on the card. The trailer's adler32 is checked
-    against the scan's (on the host), and the device output against the
-    same value."""
-    if len(blob) < 6:
-        raise ZippyError("Invalid compressed data")
-    cmf, flg = blob[0], blob[1]
-    if (cmf & 0x0F) != 8:
-        raise ZippyError("Unsupported compression method")
-    if (cmf >> 4) > 7:
-        raise ZippyError("Invalid compression info")
-    if (cmf * 256 + flg) % 31 != 0:
-        raise ZippyError("Invalid header")
-    if flg & 0b0010_0000:
-        raise ZippyError("Preset dictionary is not yet supported")
-    if index is None:
-        index = build_decode_index(blob, 16)
-    tpos = (int(index["end_bit"]) + 7) // 8
-    if tpos + 4 > len(blob):
-        raise ZippyError("Invalid compressed data")
-    want = int.from_bytes(blob[tpos : tpos + 4], "big")
-    if int(index["adler"]) != want:
-        raise ZippyError("Checksum verification failed")
-    return inflate_device(blob, index, verify=True, device=device)
-
-
-def uncompress_gzip_device(blob: bytes, index=None, device=None,
-                           pos: int = 0) -> bytes:
-    """Decode the gzip member at byte `pos` of `blob` on the card. The
-    output's adler32 and crc32 come back in one fetch: the adler32 gate,
-    then the crc32 against the trailer and the length against ISIZE mod
-    2^32; the bytes are fetched once the gates pass."""
-    with profiling.span("framing"):
-        hdr = gzip_format.parse_header(blob, pos)
-    if index is None:
-        index = build_decode_index(blob, hdr["data_offset"] * 8)
-    with profiling.span("framing"):
-        tpos = (int(index["end_bit"]) + 7) // 8
-        if tpos + 8 > len(blob):
-            raise ZippyError("Invalid gzip data")
-        want_crc = int.from_bytes(blob[tpos:tpos + 4], "little")
-        want_isize = int.from_bytes(blob[tpos + 4:tpos + 8], "little")
-    buf, total, adler_t, crc_t, keep = inflate_device_array_acc(
-        blob, index, device)
-    with profiling.span("checksum.wait"):
-        got_adler, raw_crc = torch.cat([adler_t, crc_t]).tolist()
-    del keep
-    check_sums(total, got_adler, checksums.crc32_finish(raw_crc, total),
-               int(index["adler"]), want_crc, want_isize)
-    return _fetch(buf)

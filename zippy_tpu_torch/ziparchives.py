@@ -18,12 +18,12 @@ GIL). Here one host thread issues all CUDA work:
   of many entries (a device encode costs about the same per group whatever
   it holds), and computes every entry's crc32 with K2 + K3 from one upload,
   with one fetch (checksums.crc32_many).
-* extract_all scans each deflated entry on the host and dispatches its
-  decode (inflate_device_array_acc) back to back with no host sync, in
-  passes of at most _PASS_BYTES of output on the card; stored entries get
-  their crc32 on the card too. One fetch brings every adler32 and raw CRC
-  of a pass; each is checked against its scan and its central-directory
-  record before any of the pass's files is written.
+* extract_all scans each deflated entry on the host, then decodes them
+  together (inflate_device.inflate_streams, in passes of at most 1 GiB of
+  output on the card); stored entries get their crc32 on the card too.
+  One fetch brings every adler32 and raw CRC of a pass; each is checked
+  against its scan and its central-directory record before any of the
+  pass's files is written.
 """
 
 from __future__ import annotations
@@ -52,10 +52,6 @@ ZIP64_EOCD_LOCATOR_SIG = 0x07064B50
 ZIP64_EXTRA_FIELD_ID = 1
 
 S_IFDIR = 0o040000
-
-# The decoded bytes one dispatch pass of extract_all (and of the v1
-# ZipArchive.open) holds on the card before its one fetch.
-_PASS_BYTES = 1 << 30
 
 
 def verify_path_is_safe_to_extract(path: str) -> None:
@@ -116,40 +112,19 @@ class Entry(NamedTuple):
     size: int               # uncompressed
 
 
-def passes(items: list, size) -> list:
-    """`items` cut into runs in order, each of at most _PASS_BYTES by
-    `size(item)` (an item larger than that makes a run of its own)."""
-    out, run, held = [], [], 0
-    for item in items:
-        n = size(item)
-        if run and held + n > _PASS_BYTES:
-            out.append(run)
-            run, held = [], 0
-        run.append(item)
-        held += n
-    return out + [run] if run else out
-
-
 def decode_entries(entries: list, device) -> list[bytes]:
     """The uncompressed bytes of each Entry, checked, from one dispatch pass
     on `device` (a torch.device) and one fetch of every checksum.
 
-    A deflated entry is scanned on the host (its output length must be its
-    record's size before anything is dispatched) and its decode dispatched
-    with its adler32 (K1) and raw CRC (K2 + K3) left on the card, back to
-    back with no host sync; the stored entries go up in one upload for
-    their raw CRCs. Then every sum comes back in one copy: a decode's
-    adler32 must equal its scan's, every entry's crc32 its record's. The
-    decoded bytes come back in one more copy once every check has passed.
-    Malformed or corrupt entries raise ZippyError."""
-    sums = [[None, None] for _ in entries]   # adler32, raw CRC tensors
-    want_adler = {}
-    decoded = []            # (entry number, uint8 tensor on the card)
-    stored = [i for i, e in enumerate(entries) if e.method == 0 and e.payload]
-    views, keep = checksums.upload_packed(
-        [entries[i].payload for i in stored], device)
-    for i, view in zip(stored, views):
-        sums[i][1] = checksums.crc32_raw_tensor(view)
+    Every deflated entry is scanned on the host, and its output length must
+    be its record's size, before anything is dispatched; so must a stored
+    entry's length. Then the deflated entries decode in one call of
+    inflate_streams, whose one fetch also brings the raw CRCs of the stored
+    entries, uploaded together: a decode's adler32 must equal its scan's,
+    every entry's crc32 its record's. The decoded bytes come back in one
+    more copy once every check has passed. Malformed or corrupt entries
+    raise ZippyError."""
+    streams, deflated = [], {}
     for i, e in enumerate(entries):
         if e.method == 0:
             if len(e.payload) != e.size:
@@ -160,28 +135,30 @@ def decode_entries(entries: list, device) -> list[bytes]:
         index = idev.build_decode_index(e.payload)
         if index["total_out"] != e.size:
             raise ZippyError(f"Size verification of {e.name} failed")
-        buf, _, adler_t, crc_t, kept = idev.inflate_device_array_acc(
-            e.payload, index, device)
-        keep += kept
-        sums[i] = [adler_t, crc_t]
-        want_adler[i] = int(index["adler"])
-        decoded.append((i, buf))
-    flat = [t for pair in sums for t in pair if t is not None]
-    got = iter(torch.cat(flat).tolist() if flat else [])
+        deflated[i] = len(streams)
+        streams.append((e.payload, index))
+    stored = [i for i, e in enumerate(entries) if e.method == 0 and e.payload]
+    views, keep = checksums.upload_packed(
+        [entries[i].payload for i in stored], device)
+    outs, err, raws = idev.inflate_streams(
+        streams, device, crc=True,
+        sums=[checksums.crc32_raw_tensor(view) for view in views])
     del keep
-    for i, (e, (adler_t, crc_t)) in enumerate(zip(entries, sums)):
-        if adler_t is not None:
-            idev.check_sums(e.size, next(got), None, want_adler[i])
-        raw = next(got) if crc_t is not None else 0
-        if checksums.crc32_finish(raw, e.size) != e.crc32:
+    raw = dict(zip(stored, raws))
+    for i, e in enumerate(entries):
+        if i in deflated and deflated[i] >= len(outs):
+            raise err
+        crc = (outs[deflated[i]].crc if i in deflated
+               else checksums.crc32_finish(raw.get(i, 0), e.size))
+        if crc != e.crc32:
             raise ZippyError(f"Verifying crc32 of {e.name} failed")
     out = [e.payload if e.method == 0 else b"" for e in entries]
-    if decoded:
-        host = torch.cat([buf for _, buf in decoded]).cpu().numpy()
+    if outs:
+        host = torch.cat([o.buf for o in outs]).cpu().numpy()
         off = 0
-        for i, _ in decoded:
-            out[i] = host[off:off + entries[i].size].tobytes()
-            off += entries[i].size
+        for i, o in zip(deflated, outs):
+            out[i] = host[off:off + o.total].tobytes()
+            off += o.total
     return out
 
 
@@ -467,7 +444,8 @@ def extract_all(zip_path: str | os.PathLike, dest: str | os.PathLike,
                 else:
                     os.makedirs(os.path.dirname(target) or dest, exist_ok=True)
                     files.append((record, target))
-            for run in passes(files, lambda f: f[0].uncompressed_size):
+            for run in idev.passes(files,
+                                   lambda f: f[0].uncompressed_size):
                 datas = decode_entries([reader._entry(r) for r, _ in run],
                                        device)
                 for (record, target), data in zip(run, datas):

@@ -23,11 +23,11 @@ import time as _time
 
 from .common import ZippyError, resolve_device
 from .ops import checksums, deflate_device
+from .ops.inflate_device import passes
 from .ziparchives import (
     Entry,
     decode_entries,
     parse_ms_dos_datetime,
-    passes,
     to_ms_dos,
     verify_path_is_safe_to_extract,
 )
