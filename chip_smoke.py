@@ -8,8 +8,9 @@ non-zero exit and no result line):
 
 1. the card (nvidia-smi's name and power limit, torch's device name);
 2. the build of every native library, with its seconds: csrc/checksums.cu,
-   csrc/inflate.cu, csrc/huffman.cu, csrc/resolve.cu, csrc/match.cu and
-   csrc/pack.cu with nvcc (started together), and the host engine with
+   csrc/inflate.cu, csrc/huffman.cu, csrc/resolve.cu, csrc/match.cu,
+   csrc/pack.cu and csrc/join.cu with nvcc (started together), and the
+   host engine with
    the decode's host scan, csrc/zippy_native.cpp, with c++;
    and what `nvcc -Xptxas -v` said of each kernel (registers, shared
    memory, spills);
@@ -30,7 +31,7 @@ non-zero exit and no result line):
    payload to gzip at level 6, from host bytes and from a CUDA tensor, and
    of 8 MiB to zlib at levels 1 and 9; every stream decodes with CPython's
    gzip/zlib; the kernels' launch counts are zeroed before and read after
-   (K5 and K8 exactly once per encode group, K7 exactly
+   (K5, K8 and K10 exactly once per encode group, K7 exactly
    launches_per_group times a group); K7 (match_tokens) against its plain
    version on every output
    of every group of the host-bytes encodes (inputs kept as its wrapper
@@ -61,8 +62,13 @@ non-zero exit and no result line):
    `pack_edge_inputs` (level -2, the fixed tables, stored rows, n < N,
    n = 1 and n = 0, 15-bit codes, 256-byte blocks, 65,521-byte blocks),
    every int32 word and bit count (`pack_tokens_vs_plain`); traces of one
-   K8 launch and one plain pack of the first level-6 group; the traced
-   64 MiB level-6 compress's device operations a group;
+   K8 launch and one plain pack of the first level-6 group; K10
+   (join_rows) against its plain version on every group of the 64 MiB
+   level-6 encode from host bytes (inputs kept as its wrapper got them,
+   `JoinWatch`: the piece's bytes up to its last bit and the state row),
+   and one K10 launch over the first level-6 group timed beside its bound
+   (`join_work`); the traced 64 MiB level-6 compress's device operations
+   a group;
 5. the decode path: uncompress() of phase 4's 64 MiB gzip and 8 MiB zlib
    streams, of CPython's zlib level 6 of the 64 MiB payload, of a stored
    (level 0) stream and of a two-member gzip, each equal to its input, with
@@ -516,12 +522,14 @@ def encode_groups(nbytes: int, level: int, shares: int = 1,
 
 def encode_launches(nbytes: int, level: int, shares: int = 1,
                     block_size: int = 1 << 16) -> dict:
-    """K5's, K7's and K8's launches of one encode (encode_groups' groups):
-    K5 and K8 once a group, K7 match_kernels.launches_per_group a group."""
+    """K5's, K7's, K8's and K10's launches of one encode (encode_groups'
+    groups): K5, K8 and K10 once a group, K7
+    match_kernels.launches_per_group a group."""
     from zippy_tpu_torch.ops import match_kernels as mk
 
     groups = encode_groups(nbytes, level, shares, block_size)
     return {"huffman_tables": groups, "pack_tokens": groups,
+            "join_rows": groups,
             "match_tokens": groups * mk.launches_per_group(level == -2)}
 
 
@@ -657,6 +665,118 @@ class PackWatch:
     def good(line) -> bool:
         return (line["groups"] > 0 and line["differing_words"] == 0
                 and line["differing_total_bits"] == 0
+                and line["max_abs_err"] == 0
+                and line["launches"] == line["groups"])
+
+
+def join_work(state_row, res: dict, lens: torch.Tensor) -> tuple:
+    """(bytes, operations) K10 must move and do on a group: each row's bits
+    read once (a stored row's bytes), the piece written once, four int64
+    values a row read and the state row written; a few operations a word."""
+    from zippy_tpu_torch.ops import join_kernels as jk
+
+    mode, nbits, hdr = (res[key].cpu() for key in ("mode", "nbits",
+                                                   "hdr_bits"))
+    read = int(torch.where(mode == 0, lens.cpu(),
+                           (3 + hdr + nbits + 7) // 8).sum())
+    out = (int(state_row[jk.BITS]) + 7) // 8
+    return read + out + 32 * len(mode) + 32, 8 * (read + out) // 4
+
+
+class JoinWatch:
+    """K10 (join_rows): the inputs its wrapper gets inside `keeping`, K10
+    against its plain version on kept inputs (`vs_plain`), and, for the
+    whole run, a count of the plain version's calls on CUDA tensors, which
+    no encode path may make."""
+
+    def __init__(self, jk):
+        self.jk = jk
+        self.plain = jk.join_rows_plain
+        self.wrapper = jk.join_rows
+        self.plain_cuda_calls = 0
+        jk.join_rows_plain = self._counted_plain
+
+    def _counted_plain(self, res, lens, *args):
+        self.plain_cuda_calls += lens.is_cuda
+        return self.plain(res, lens, *args)
+
+    @contextlib.contextmanager
+    def keeping(self, kept: list):
+        """Appends (res, lens, raw, offset, block_size, last, the state,
+        group) of every call, the tensors cloned as the call finds them on
+        its stream (the state's start row written by the join before)."""
+        def keep(res, lens, raw, offset, block_size, last, state, group):
+            kept.append(({key: res[key].clone() for key in (
+                "mode", "nbits", "hdr_bits", "hdr_words", "words")},
+                lens.clone(), raw.clone(), offset, block_size, last,
+                state.clone(), group))
+            return self.wrapper(res, lens, raw, offset, block_size, last,
+                                state, group)
+
+        self.jk.join_rows = keep
+        try:
+            yield kept
+        finally:
+            self.jk.join_rows = self.wrapper
+
+    @staticmethod
+    def cpu(inputs) -> tuple:
+        """A kept call's inputs copied to the CPU, the plain version's."""
+        res, lens, raw, offset, block_size, last, state, group = inputs
+        return ({key: v.cpu() for key, v in res.items()}, lens.cpu(),
+                raw.cpu(), offset, block_size, last, state.cpu(), group)
+
+    def run(self, inputs, plain: bool):
+        """(the piece's bytes up to its last bit, the state row) of one
+        kept call, by K10 or by the plain version on CPU copies."""
+        if plain:
+            inputs = self.cpu(inputs)
+        res, lens, raw, offset, block_size, last, state, group = inputs
+        if plain:
+            piece = self.plain(res, lens, raw, offset, block_size, last,
+                               state, group)
+        else:
+            state = state.clone()
+            piece = self.wrapper(res, lens, raw, offset, block_size, last,
+                                 state, group)
+        row = state[group + 1].cpu()
+        nbytes = (int(state[group, self.jk.PHASE]) + int(row[
+            self.jk.BITS]) + 7) // 8
+        return piece[:nbytes].cpu(), row
+
+    def vs_plain(self, inputs) -> dict:
+        """K10 against its plain version on each kept call: groups, rows,
+        K10's launches (one a group), differing piece bytes and state
+        values, the groups' bits and stored rows."""
+        from zippy_tpu_torch.ops import kernel_build as kb
+
+        line = {"groups": 0, "rows": 0, "launches": 0, "differing_bytes": 0,
+                "differing_state": 0, "max_abs_err": 0, "bits": 0,
+                "stored_rows": 0, "odd_phases": 0}
+        for kept in inputs:
+            before = kb.LAUNCHES["join_rows"]
+            got, row = self.run(kept, False)
+            line["launches"] += kb.LAUNCHES["join_rows"] - before
+            want, want_row = self.run(kept, True)
+            same = got.shape == want.shape
+            line["differing_bytes"] += (int((got != want).sum()) if same
+                                        else max(len(got), len(want)))
+            line["differing_state"] += int((row != want_row).sum())
+            line["max_abs_err"] = max(
+                line["max_abs_err"], int((row - want_row).abs().max()),
+                int((got.int() - want.int()).abs().max()) if same
+                and len(got) else 0)
+            line["groups"] += 1
+            line["rows"] += kept[1].shape[0]
+            line["bits"] += int(want_row[self.jk.BITS])
+            line["stored_rows"] += int((kept[0]["mode"] == 0).sum())
+            line["odd_phases"] += int(kept[6][kept[7], self.jk.PHASE]) % 2
+        return line
+
+    @staticmethod
+    def good(line) -> bool:
+        return (line["groups"] > 0 and line["differing_bytes"] == 0
+                and line["differing_state"] == 0
                 and line["max_abs_err"] == 0
                 and line["launches"] == line["groups"])
 
@@ -1575,7 +1695,8 @@ def decode_phase(dev, data: bytes, gz6: bytes, zl1: bytes, zl9: bytes,
     check(all(launches[k] > 0 for k in DECODE_KERNELS)
           and launches["huffman_tables"] == 0
           and launches["match_tokens"] == 0
-          and launches["pack_tokens"] == 0, launches)
+          and launches["pack_tokens"] == 0
+          and launches["join_rows"] == 0, launches)
 
     # Outside the counted run: the scan alone, the decode given its index
     # (twice) and CPython's decompress, per stream.
@@ -1839,9 +1960,11 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
         compress_k5 = kb.LAUNCHES["huffman_tables"]
         compress_k7 = kb.LAUNCHES["match_tokens"]
         compress_k8 = kb.LAUNCHES["pack_tokens"]
+        compress_k10 = kb.LAUNCHES["join_rows"]
         total["huffman_tables"] += compress_k5
         total["match_tokens"] += compress_k7
         total["pack_tokens"] += compress_k8
+        total["join_rows"] += compress_k10
         want_k5, want_k7 = (sum(
             encode_launches(min(member_size, len(data) - i), 6)[key]
             for i in range(0, len(data), member_size))
@@ -1908,6 +2031,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
                 "block_tables": sum(_k4_launches(idev, index)
                                     for index in given),
                 "huffman_tables": 0, "match_tokens": 0, "pack_tokens": 0,
+                "join_rows": 0,
                 "lz_resolve": sum(_k6_launches(idev, watch.rk, index)
                                   for index in given)}
         line["launches"] = launches
@@ -1916,6 +2040,7 @@ def indexed_phase(dev, data: bytes, gz6: bytes, single_compress_s: float,
             total[key] += launches[key]
         check(launches == want and compress_k5 == want_k5
               and compress_k7 == want_k7 and compress_k8 == want_k5
+              and compress_k10 == want_k5
               and all(launches[k] for k in DECODE_KERNELS), line)
 
         # K4 against its plain version on every batch of that decode, at
@@ -2464,6 +2589,7 @@ def archive_phase(dev, data: bytes, watch: ResolveWatch,
                                   "block_tables": 0,
                                   "huffman_tables": groups,
                                   "pack_tokens": groups,
+                                  "join_rows": 0,
                                   "lz_resolve": 0,
                                   "match_tokens": groups
                                   * mk.launches_per_group(False)},
@@ -2712,6 +2838,7 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
     check(all(line["equal_cpu"]) and line["zlib_decodes_block"]
           and step_launches["huffman_tables"] == 0
           and step_launches["pack_tokens"] == 1
+          and step_launches["join_rows"] == 0
           and step_launches["match_tokens"] == mk.launches_per_group(False),
           line)
 
@@ -2721,7 +2848,7 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
         runs.append(("default_devices()", n, None))
     # The step's K7 and K8 launches count here too.
     streams, want_k5, want_k7 = [], 0, mk.launches_per_group(False)
-    want_k8 = 1
+    want_k8, want_k10 = 1, 0
     for label, n, devices in runs:
         t0 = time.perf_counter()
         data, blob = ze.dryrun_multichip(n, devices)
@@ -2736,18 +2863,21 @@ def driver_hooks_phase(dev) -> tuple[dict, int, int]:
             want_k5 += counts["huffman_tables"]
             want_k7 += counts["match_tokens"]
             want_k8 += counts["pack_tokens"]
+            want_k10 += counts["join_rows"]
     torch.cuda.synchronize()
     launches = dict(kb.LAUNCHES)
     emit({"phase": "driver_hooks", "run": "launches", **launches,
           "huffman_tables_expected": want_k5,
           "match_tokens_expected": want_k7,
-          "pack_tokens_expected": want_k8})
+          "pack_tokens_expected": want_k8,
+          "join_rows_expected": want_k10})
     # The decode's adler32 gate (K1), its tables (K9), its extraction (K4,
     # a share) and its resolution (K6).
     check(launches["adler_chunks"] > 0 and launches["inflate_extract"] > 0
           and launches["block_tables"] > 0 and launches["lz_resolve"] > 0
           and launches["huffman_tables"] == want_k5
           and launches["pack_tokens"] == want_k8
+          and launches["join_rows"] == want_k10
           and launches["match_tokens"] == want_k7, launches)
 
     k4_lines, k4_err, k13_err = [], 0, 0
@@ -2917,6 +3047,7 @@ def main() -> int:
     from zippy_tpu_torch.ops import kernel_build as kb
     from zippy_tpu_torch.ops import inflate_device as idev
     from zippy_tpu_torch.ops import inflate_kernels as ik
+    from zippy_tpu_torch.ops import join_kernels as jk
     from zippy_tpu_torch.ops import match_kernels as mk
     from zippy_tpu_torch.ops import pack_kernels as pk
     from zippy_tpu_torch.ops import resolve_kernels as rk
@@ -2925,6 +3056,7 @@ def main() -> int:
     watch = ResolveWatch(rk)
     k7_watch = MatchWatch(mk)
     k8_watch = PackWatch(pk)
+    k10_watch = JoinWatch(jk)
     k9_watch = TablesWatch(ik)
     card = card_line()
     # Phase 1: the card.
@@ -3030,10 +3162,11 @@ def main() -> int:
     data = mixed_text(MAIN_BYTES, SEED)
     small = data[:ZLIB_BYTES]
     x_dev = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
-    # K5's, K7's and K8's inputs are kept as the encodes from host bytes
-    # hand them to their wrappers (the cuda tensor's groups are the same),
-    # for phase 4's checks.
+    # K5's, K7's, K8's and K10's inputs are kept as the encodes from host
+    # bytes hand them to their wrappers (the cuda tensor's groups are the
+    # same), for phase 4's checks.
     wrapper, k5_inputs, k7_inputs, k8_inputs = hk.huffman_tables, {}, {}, {}
+    k10_inputs: dict = {}
 
     def keeping(label):
         def tables(ll, d, n):
@@ -3052,14 +3185,15 @@ def main() -> int:
             ("zlib L1 host bytes", small, 1, common.dfZlib, small),
             ("zlib L9 host bytes", small, 9, common.dfZlib, small)):
         torch.cuda.reset_peak_memory_stats()
-        keep_k7 = keep_k8 = contextlib.nullcontext()
+        keep_k7 = keep_k8 = keep_k10 = contextlib.nullcontext()
         if isinstance(src, bytes):
             hk.huffman_tables = keeping(label)
             keep_k7 = k7_watch.keeping(k7_inputs.setdefault(label, []))
             keep_k8 = k8_watch.keeping(k8_inputs.setdefault(label, []))
+            keep_k10 = k10_watch.keeping(k10_inputs.setdefault(label, []))
         t0 = time.perf_counter()
         try:
-            with keep_k7, keep_k8:
+            with keep_k7, keep_k8, keep_k10:
                 blob = api.compress(src, level, fmt)
         finally:
             hk.huffman_tables = wrapper
@@ -3076,33 +3210,40 @@ def main() -> int:
         check(back == want, label)
         blobs[label] = blob
     compress_kernels = ("adler_chunks", "crc_rows", "crc_combine",
-                        "huffman_tables", "match_tokens", "pack_tokens")
+                        "huffman_tables", "match_tokens", "pack_tokens",
+                        "join_rows")
     launches = {key: kb.LAUNCHES[key] for key in compress_kernels}
-    # K5 and K8 once a group and K7 launches_per_group times a group:
+    # K5, K8 and K10 once a group and K7 launches_per_group times a group:
     # 64 MiB at L6 twice, 8 MiB at L1 and at L9.
     want = {key: sum(encode_launches(nbytes, level)[key]
                      for nbytes, level in ((MAIN_BYTES, 6), (MAIN_BYTES, 6),
                                            (ZLIB_BYTES, 1), (ZLIB_BYTES, 9)))
-            for key in ("huffman_tables", "match_tokens", "pack_tokens")}
+            for key in ("huffman_tables", "match_tokens", "pack_tokens",
+                        "join_rows")}
     want_k5 = want["huffman_tables"]
     emit({"phase": "main_path_launches", **launches,
           "huffman_tables_expected": want_k5,
           "match_tokens_expected": want["match_tokens"],
           "pack_tokens_expected": want["pack_tokens"],
+          "join_rows_expected": want["join_rows"],
           "huffman_tables_groups_kept": {k: len(v)
                                          for k, v in k5_inputs.items()},
           "match_tokens_groups_kept": {k: len(v)
                                        for k, v in k7_inputs.items()},
           "pack_tokens_groups_kept": {k: len(v)
-                                      for k, v in k8_inputs.items()}})
+                                      for k, v in k8_inputs.items()},
+          "join_rows_groups_kept": {k: len(v)
+                                    for k, v in k10_inputs.items()}})
     kept_groups = want_k5 - encode_groups(MAIN_BYTES, 6)
     check(all(v > 0 for v in launches.values())
           and launches["huffman_tables"] == want_k5
           and launches["match_tokens"] == want["match_tokens"]
           and launches["pack_tokens"] == want["pack_tokens"] == want_k5
+          and launches["join_rows"] == want["join_rows"] == want_k5
           and sum(map(len, k5_inputs.values())) == kept_groups
           and sum(map(len, k7_inputs.values())) == kept_groups
-          and sum(map(len, k8_inputs.values())) == kept_groups, launches)
+          and sum(map(len, k8_inputs.values())) == kept_groups
+          and sum(map(len, k10_inputs.values())) == kept_groups, launches)
 
     # K7 against its plain version on every group of those encodes and on
     # seeded rows at every level of MATCH_LEVELS; one group issued with no
@@ -3204,6 +3345,21 @@ def main() -> int:
     emit({"phase": "trace", "run": f"pack_tokens_plain ({g8} rows)",
           **device_trace(lambda: k8_watch.plain(*pack_group[:1],
                                                 *pack_group[1]))})
+
+    # K10 against its plain version on every group of those encodes (the
+    # piece's bytes up to its last bit and the state row); one K10 launch
+    # over the first L6 group traced.
+    k10_lines = {label: k10_watch.vs_plain(inputs)
+                 for label, inputs in k10_inputs.items()}
+    emit({"phase": "join_rows_vs_plain", "runs": k10_lines})
+    check(all(JoinWatch.good(line) for line in k10_lines.values())
+          and k10_lines["gzip L6 host bytes"]["groups"]
+          == encode_groups(MAIN_BYTES, 6), k10_lines)
+    join_group = k10_inputs["gzip L6 host bytes"][0]
+    g10 = join_group[1].shape[0]
+    check(g10 == g, f"first L6 join group of {g10} rows")
+    emit({"phase": "trace", "run": f"join_rows, K10 ({g10} rows)",
+          **device_trace(lambda: jk.join_rows(*join_group))})
 
     stages: dict = {}
     t0 = time.perf_counter()
@@ -3321,18 +3477,40 @@ def main() -> int:
     k8["bound_share"] = bound_ms / k8["ms"]
     calls["pack_tokens_call_ms"] = call_ms(
         lambda: pk.pack_tokens(tok8, *tables8), 100)
+    # K10 at the first full group of the 64 MiB level-6 encode; its plain
+    # version on CPU copies (the only tensors it takes), on the card's host.
+    _, want_row = k10_watch.run(join_group, True)
+    bound_ms, bound_by = bound(join_work(want_row, join_group[0],
+                                         join_group[1]))
+    cpu_group = k10_watch.cpu(join_group)
+    k10 = {"name": "join_rows", "route": "cuda",
+           "source": "zippy_tpu_torch/csrc/join.cu",
+           "replaces": "none: the host splice, _assemble_block",
+           "launches": launches["join_rows"],
+           "max_abs_err": max(line["max_abs_err"]
+                              for line in k10_lines.values()),
+           "ms": kernel_ms(lambda: jk.join_rows(*join_group), 100),
+           "plain_ms": call_ms(lambda: k10_watch.plain(*cpu_group), 3),
+           "plain_on": "the card's host CPU",
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "rows": g10, "stream_bytes": (int(want_row[jk.BITS]) + 7) // 8,
+           "launch_floor_ms": floor_ms}
+    k10["bound_share"] = bound_ms / k10["ms"]
+    calls["join_rows_call_ms"] = call_ms(lambda: jk.join_rows(*join_group),
+                                         100)
     emit({"phase": "kernel_calls", **calls})
-    check(all(k["max_abs_err"] == 0 for k in kernels + [k5, k7, k8])
+    check(all(k["max_abs_err"] == 0 for k in kernels + [k5, k7, k8, k10])
           and k7["ms"] is not None, kernels)
     del x_dev, chunks, rows, row_crcs, k5_inputs, group, k7_inputs
-    del k8_inputs, pack_group, tok8, tables8
+    del k8_inputs, pack_group, tok8, tables8, k10_inputs, join_group
+    del cpu_group
     torch.cuda.empty_cache()
 
     # Phase 5: the decode path.
     decode_launches, k4, k6, k9, decode_s = decode_phase(
         dev, data, blobs["gzip L6 host bytes"], blobs["zlib L1 host bytes"],
         blobs["zlib L9 host bytes"], watch, k9_watch)
-    for row in kernels + [k8]:
+    for row in kernels + [k8, k10]:
         row["launches"] += decode_launches[row["name"]]
     kernels += [k4, k6, k9]
     check(k4["max_abs_err"] == 0 and k6["max_abs_err"] == 0
@@ -3342,7 +3520,7 @@ def main() -> int:
         """A phase's counted launches into every kernel's row, and its
         largest differences from the plain versions (by kernel name) into
         the rows of the kernels it checked."""
-        for row in kernels + [k5, k7, k8]:
+        for row in kernels + [k5, k7, k8, k10]:
             row["launches"] += launches[row["name"]]
             if row["name"] in errs:
                 row["max_abs_err"] = max(row["max_abs_err"],
@@ -3413,12 +3591,13 @@ def main() -> int:
     # No decode path ran K6's or K9's plain version on the card, and no
     # encode path K7's or K8's.
     for name, w in (("lz_resolve", watch), ("match_tokens", k7_watch),
-                    ("pack_tokens", k8_watch), ("block_tables", k9_watch)):
+                    ("pack_tokens", k8_watch), ("block_tables", k9_watch),
+                    ("join_rows", k10_watch)):
         emit({"phase": f"{name}_plain", "cuda_calls": w.plain_cuda_calls})
         check(w.plain_cuda_calls == 0,
               f"{name}'s plain version ran on the card")
 
-    emit({"kernels": kernels + [k5, k7, k8]})
+    emit({"kernels": kernels + [k5, k7, k8, k10]})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

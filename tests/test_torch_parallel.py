@@ -58,6 +58,50 @@ def test_sharded_equals_single_device(one_thread, level, ndev):
     assert zlib.decompress(got, wbits=-15) == DATA
 
 
+# 24 blocks of 1 KiB: random (stored) blocks at STORED, text elsewhere, its
+# seeds chosen so that every run over 2, 3 or 8 devices but the first
+# starts at an odd bit of the stream; a run holds a stored block first
+# (blocks 3, 6, 9, 12, 16, 21) or after its first row (blocks 9, 16 and 19
+# for the runs from 8, 15 and 18).
+RUN_BS, STORED = 1024, (3, 6, 9, 12, 16, 19, 21)
+TEXT_SEEDS = {2: 302, 7: 257, 14: 314, 20: 170}
+RUNS = b"".join(
+    np.random.default_rng(1000 + i).integers(0, 256, RUN_BS, dtype=np.uint8)
+    .tobytes() if i in STORED
+    else mixed_payload(RUN_BS, TEXT_SEEDS.get(i, 100 + i)) for i in range(24))
+
+
+@functools.cache
+def _single_runs() -> bytes:
+    return td.deflate(RUNS, 6, RUN_BS, device="cpu")
+
+
+@pytest.mark.parametrize("ndev", [2, 3, 8])
+def test_runs_at_odd_phases_with_stored_blocks(one_thread, monkeypatch,
+                                               ndev):
+    """Each run is joined as if it started at bit 0 and appended by the host
+    (deflate_device._append_run); each after the first lands at an odd
+    bit and is realigned past its first stored block's 3 block bits: the
+    one-device stream."""
+    seen, append = [], td._append_run
+
+    def append_run(out, data, bits, cut):
+        seen.append((out.bitpos % 8, cut))
+        return append(out, data, bits, cut)
+
+    monkeypatch.setattr(td, "_append_run", append_run)
+    got = parallel.deflate_sharded(RUNS, 6, cpus(ndev), block_size=RUN_BS)
+    assert got == _single_runs()
+    assert zlib.decompress(got, wbits=-15) == RUNS
+    assert len(seen) == ndev and seen[0][0] == 0       # the first run
+    later = seen[1:]
+    assert all(phase % 2 and cut >= 3 for phase, cut in later), seen
+    # A stored block first (its LEN just past the run's first 3 bits), or
+    # after the first row.
+    assert {cut == 3 for _, cut in later} == ({True} if ndev == 2
+                                              else {True, False}), seen
+
+
 def test_more_devices_than_blocks(one_thread):
     data = DATA[:3 * BS + 5]
     got = parallel.deflate_sharded(data, 1, cpus(7), block_size=BS)

@@ -80,10 +80,12 @@ def _reference_stream(data: bytes, level: int, bs: int) -> bytes:
 @pytest.mark.parametrize("level", [-2, 1, 6, 9])
 def test_encoder_splices_the_tables_headers(shared_depth, monkeypatch,
                                             level):
-    """The splice appends the header words that K5 (on the CPU, its plain
+    """The stream takes the header words that K5 (on the CPU, its plain
     version) wrote: with make_dynamic_header refusing every caller but the
     plain version, deflate and deflate_entries still give the reference's
-    bytes, and splice.header_rows counts every dynamic row."""
+    bytes. deflate's join (K10's plain version) takes every row, join.rows
+    counts them, and the host splice takes none; deflate_entries' splice
+    counts every dynamic row in splice.header_rows."""
     bs = 2048
     payloads = _payloads(bs)[:2] + [b"the header of one short block"]
     want = [_reference_stream(p, level, bs) for p in payloads]
@@ -104,12 +106,16 @@ def test_encoder_splices_the_tables_headers(shared_depth, monkeypatch,
     monkeypatch.setattr(td, "make_dynamic_header", refuse)
     profiling.enable()
     try:
+        joined_dynamic = 0
         for p, w in zip(payloads, want):
             with profiling.call("compress"):
                 assert td.deflate(p, level, bs, device="cpu") == w
             (rec,) = profiling.recent(1)
-            assert rec.counters.get("splice.header_rows", 0) == sum(dynamic)
+            assert rec.counters["join.rows"] == -(-len(p) // bs)
+            assert "splice.header_rows" not in rec.counters
+            joined_dynamic += sum(dynamic)
             dynamic.clear()
+        assert joined_dynamic > 0
         with profiling.call("compress"):
             assert td.deflate_entries(payloads, level, bs, "cpu") == want
         (rec,) = profiling.recent(1)

@@ -68,7 +68,9 @@ EXPECTED = {
 }
 # Readers whose reading is 0 in their own cell: the indexed decode scans no
 # member.
-ZERO = {"scan_passes_per_call.indexed"}
+# Since the compress joins its rows on the card, its host splice builds no
+# header: splice_header_share.compress reads 0 there.
+ZERO = {"scan_passes_per_call.indexed", "splice_header_share.compress"}
 
 
 @pytest.fixture(autouse=True)

@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import zippy_tpu_torch as zt  # noqa: E402
-from zippy_tpu_torch import gzip_format, profiling  # noqa: E402
+from zippy_tpu_torch import gzip_format, parallel, profiling  # noqa: E402
 from zippy_tpu_torch.ops import deflate_device as dd  # noqa: E402
 from zippy_tpu_torch.ops import inflate_device as idev  # noqa: E402
 from _torch_parity import mixed_payload, one_thread  # noqa: E402,F401
@@ -26,8 +26,7 @@ MORE = mixed_payload(30_000, 62)
 # The spans a call on the CPU makes (PERF.md, section 3); "encode.wait"
 # waits on a card's event and needs a card.
 COMPRESS_SPANS = {"framing", "encode.issue", "find_tokens", "kraft", "pack",
-                  "fetch", "splice", "splice.header", "splice.append",
-                  "checksums", "checksum.wait"}
+                  "join", "fetch", "checksums", "checksum.wait"}
 UNCOMPRESS_SPANS = {"framing", "scan", "plan_pack", "upload", "tables",
                     "extract", "resolve", "checksums", "checksum.wait",
                     "fetch"}
@@ -164,20 +163,19 @@ def test_scan_passes(stream, passes):
 def test_copy_counters_are_the_bytes_copied(monkeypatch, direction):
     seen = {"fetch": 0, "used": 0, "upload": 0}
     if direction == "compress":
-        start, finish = dd._start_fetch, dd._finish_fetch
+        fetch_piece = dd._fetch_piece
 
-        def start_fetch(res):
-            fetch = start(res)
-            seen["fetch"] += fetch[0].nbytes + fetch[1].nbytes
-            return fetch
+        def fetch(piece, state):
+            # A group's two state rows and its piece's bytes are copied; the
+            # stream holds each piece's bytes but the first of one that
+            # starts inside its predecessor's last byte.
+            phase, bits, cut, data = fetch_piece(piece, state)
+            seen["fetch"] += state.nbytes + data.nbytes
+            seen["used"] += data.nbytes - (phase > 0)
+            return phase, bits, cut, data
 
-        def finish_fetch(fetch):
-            meta, words = finish(fetch)
-            seen["used"] += int(sum(-(-int(b) // 8) for b in meta[:, 1]))
-            return meta, words
-
-        monkeypatch.setattr(dd, "_start_fetch", start_fetch)
-        monkeypatch.setattr(dd, "_finish_fetch", finish_fetch)
+        monkeypatch.setattr(dd, "_fetch_piece", fetch)
+        monkeypatch.setattr(dd, "_group_size", lambda k, block_size: 1)
         blob, rec = _traced(zt.compress, TEXT + MORE, 6, device="cpu")
         assert gzip.decompress(blob) == TEXT + MORE
         assert "upload.bytes" not in rec.counters
@@ -301,6 +299,9 @@ def test_spans_label_the_profiler_under_trace(tmp_path, label):
     with profiling.trace(str(tmp_path)) as prof:
         blob = zt.compress(TEXT, 1, device="cpu")
         assert zt.uncompress(blob, device="cpu") == TEXT
+        # The host splice now joins a run that does not start the stream.
+        two_runs = parallel.deflate_sharded(TEXT + MORE, 1, ["cpu"] * 2)
+        assert zlib.decompress(two_runs, -15) == TEXT + MORE
     assert not profiling.enabled()              # on for the block alone
     assert label in {e.name for e in prof.events()}
 
@@ -334,7 +335,7 @@ def test_the_inflate_stages_keep_their_names():
     x = torch.from_numpy(np.frombuffer(TEXT + MORE, np.uint8).copy())
     assert zlib.decompress(dd.deflate_array(x, 6, stages=stages),
                            -15) == TEXT + MORE
-    assert set(stages) == {"find_tokens", "kraft", "pack", "fetch", "splice"}
+    assert set(stages) == {"find_tokens", "kraft", "pack", "join", "fetch"}
 
 
 def test_laps_charge_each_step_and_reach_the_record_once_closed():

@@ -24,8 +24,16 @@ reference's vmap, written out as a leading group dimension G):
    that meet by decoupled look-back; `pack_kernels.pack_tokens_plain`,
    per-token bit lengths, their prefix sum and a scatter-add of the
    shifted code words, is its plain version and the CPU path.
-4. The host splice (`_assemble_block`) of each block's 3 header bits, its
-   dynamic header's bits and its payload bits, the last two as fetched.
+4. `join_rows` (ops/join_kernels.py) — each row's 3 block bits, its dynamic
+   header's bits and its payload bits (or a stored row's chunks) joined
+   into one piece of the stream a group, at the group's start phase. On a
+   CUDA tensor it is one launch of the Hopper kernel K10 (csrc/join.cu);
+   `join_kernels.join_rows_plain` is its plain version and the CPU path.
+   The host fetches each piece's bytes and ORs the byte where two pieces
+   meet (`deflate_runs`). The host splice (`_assemble_block` over a
+   `_ByteBitAppender`) joins `deflate_entries`' rows, whose groups hold
+   many streams, and a run that did not start at stream bit 0 onto the
+   stream (`_append_run`).
 
 Every device stage is a hand-written kernel on a CUDA tensor. The output
 bytes are
@@ -44,7 +52,7 @@ import torch
 
 from .. import profiling, tables
 from ..common import ZippyError, check_level, resolve_devices
-from . import huffman_kernels, match_kernels, pack_kernels
+from . import huffman_kernels, join_kernels, match_kernels, pack_kernels
 from .device_tables import const
 # The matcher's constants and word helpers live with K7.
 from .match_kernels import EXTW, NRANK, NWIN, PAD
@@ -723,22 +731,34 @@ def deflate_array(x: torch.Tensor, level: int, block_size: int = BLOCK, *,
 
 
 def _encode_run(buf: torch.Tensor, b0: int, nrows: int, n: int,
-                block_size: int, hist: int, params: dict,
+                block_size: int, hist: int, params: dict, last: int,
                 stages: dict | None = None):
     """Encode blocks b0 .. b0 + nrows - 1 of an n-byte payload on buf's
-    device, a group of _group_size blocks at a time. `buf` holds their
-    rows: from `hist` bytes before block b0 (zeros before the payload) to
-    PAD bytes past the last block (zeros past the payload). A generator:
-    each step issues one group, with no host sync, and yields (its first
-    block, its result tensors) unfetched."""
+    device, a group of _group_size blocks at a time, and join each group's
+    rows into a piece of the run's stream (join_kernels.join_rows), the
+    run's first group at bit 0. `buf` holds their rows: from `hist` bytes
+    before block b0 (zeros before the payload) to PAD bytes past the last
+    block (zeros past the payload); `last` is the payload's last block. A
+    generator: each step issues one group and its join, with no host sync,
+    and yields (the piece, the run's state rows of the group's start and of
+    its join) unfetched. A group's encode results are freed once its join
+    is issued."""
     gmax = _group_size(params["k"], block_size)
-    for i in range(0, nrows, gmax):
+    state = join_kernels.new_state(-(-nrows // gmax), buf.device)
+    for gi, i in enumerate(range(0, nrows, gmax)):
+        g = min(gmax, nrows - i)
         with profiling.span("encode.issue"):
-            res = _encode_group(
-                *_group_inputs(buf, b0, i, min(gmax, nrows - i), n,
-                               block_size, hist),
-                hist=hist, stages=stages, **params)
-        yield b0 + i, res
+            blocks, lens, hist_lens = _group_inputs(buf, b0, i, g, n,
+                                                    block_size, hist)
+            res = _encode_group(blocks, lens, hist_lens, hist=hist,
+                                stages=stages, **params)
+            with profiling.span("join", stages, buf.device):
+                piece = join_kernels.join_rows(
+                    res, lens, blocks, hist, block_size,
+                    last - b0 - i if last < b0 + i + g else -1, state, gi)
+        profiling.count("join.rows", g)
+        del blocks, lens, hist_lens, res
+        yield piece, state[gi:gi + 2]
 
 
 def _group_inputs(buf: torch.Tensor, b0: int, i: int, g: int, n: int,
@@ -776,19 +796,23 @@ def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
     parallel.deflate_sharded. The blocks of `x` (a 1-D uint8 tensor on any
     device) go to `devices` in contiguous runs, one a device (a device may
     repeat); each run gets one copy of its bytes, with the HIST bytes before
-    it and PAD after it, on its device. Every run's next group is issued
-    before any is fetched, then the host splices the blocks in block order,
-    so the stream is the same at every device count. `level` sets the block
-    format (0 stored, -2 literals only), `matcher_level` the matcher;
-    `stages` (one device) gets each stage's wall seconds."""
+    it and PAD after it, on its device. Every run's next group is issued,
+    with its join, before any is fetched, and the host fetches only each
+    group's piece of the stream (_fetch_piece). The first run's pieces join
+    into the stream by an OR of the byte where two pieces meet; each later
+    run, joined on its device as if it started at stream bit 0, is
+    realigned onto the stream (_append_run), so the stream is the same at
+    every device count. `level` sets the block format (0 stored, -2
+    literals only), `matcher_level` the matcher; `stages` (one device) gets
+    each stage's wall seconds."""
     if not MIN_BLOCK <= block_size <= (1 << 17) - HIST:
         raise ZippyError(f"block_size must lie in [{MIN_BLOCK}, "
                          f"{(1 << 17) - HIST}]")
     n = int(x.shape[0])
     if n == 0:
         return _empty_stream()
-    out = _ByteBitAppender()
     if level == 0:
+        out = _ByteBitAppender()
         _append_block(out, "stored", None, None, 0, x.cpu().numpy(), n, True)
         return bytes(out.out)
     lits_only = level == -2
@@ -804,22 +828,97 @@ def deflate_runs(x: torch.Tensor, level: int, matcher_level: int,
         with profiling.span("encode.issue"):
             buf = _run_buffer(x, b0, b1, block_size, hist, dev)
         runs.append(_encode_run(buf, b0, b1 - b0, n, block_size, hist,
-                                params, stages))
-    fetched = []
+                                params, nblocks - 1, stages))
+    pieces: list = [[] for _ in runs]
     for issued in itertools.zip_longest(*runs):
-        for b0, res in filter(None, issued):
-            with profiling.span("fetch", stages, devices[0]):
-                fetched.append((b0, *_finish_fetch(_start_fetch(res))))
-    for b0, meta, words in sorted(fetched, key=lambda f: f[0]):
-        bs = range(b0, b0 + meta.shape[0])
-        # A stored block fetches only its own bytes.
+        for run, joined in zip(pieces, issued):
+            if joined is not None:
+                with profiling.span("fetch", stages, devices[0]):
+                    run.append(_fetch_piece(*joined))
+        # The fetched groups' pieces go before the next groups are issued.
+        del issued, joined
+    if len(pieces) == 1:
+        views, _, _ = _join_pieces(pieces[0])
+        with profiling.span("framing"):
+            stream = b"".join(views)
+    else:
+        out = _ByteBitAppender()
         with profiling.span("splice", stages, devices[0]):
-            _splice_group(meta, words, [
-                (out, min(block_size, n - b * block_size), b == nblocks - 1)
-                for b in bs], lambda j: x[bs[j] * block_size:][:block_size]
-                .cpu().numpy())
-    with profiling.span("framing"):
-        return bytes(out.out)
+            for run in pieces:
+                views, bits, cut = _join_pieces(run)
+                _append_run(out, np.frombuffer(b"".join(views), np.uint8),
+                            bits, cut)
+        with profiling.span("framing"):
+            stream = bytes(out.out)
+    profiling.count("fetch.used_bytes", len(stream))
+    return stream
+
+
+def _copy_to_host(t: torch.Tensor) -> np.ndarray:
+    """`t` as a numpy array: a CPU tensor's own memory; a CUDA tensor
+    copied to pinned memory on its device's stream, after what that
+    stream holds, the host waiting for an event behind the copy."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+        t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    with profiling.span("encode.wait"):
+        event.synchronize()
+    return host.numpy()
+
+
+def _fetch_piece(piece: torch.Tensor, state: torch.Tensor) -> tuple:
+    """Wait for a group's join (join_kernels.join_rows: its `piece` and its
+    run's state rows of the group's start and of its join, as _encode_run
+    yields them) and copy exactly its piece's bytes to the host. Returns
+    (the group's start phase, its bits, its cut, the piece's bytes as a
+    numpy uint8 array); ZippyError for a group the join refused."""
+    head = _copy_to_host(state)
+    phase = int(head[0, join_kernels.PHASE])
+    _, bits, cut, err = head[1].tolist()
+    if err:
+        raise ZippyError("the stream join refused a group: " + "; ".join(
+            why for bit, why in join_kernels.ERRORS.items() if err & bit))
+    nbytes = (phase + bits + 7) // 8
+    profiling.count("fetch.bytes", head.nbytes + nbytes)
+    return phase, bits, cut, _copy_to_host(piece[:nbytes])
+
+
+def _join_pieces(pieces: list) -> tuple[list, int, int]:
+    """A run's fetched pieces (_fetch_piece's, in order) as (byte views
+    that b"".join joins into the run's stream, its bits, its cut: the bit
+    just past the block bits of its first stored block with a byte, -1 for
+    none). Each piece's first byte takes the previous piece's last bits,
+    ORed in place, and the previous view drops that byte."""
+    views, bits, cut = [], 0, -1
+    for phase, nbits, piece_cut, data in pieces:
+        if cut < 0 and piece_cut >= 0:
+            cut = bits - phase + piece_cut
+        if phase:
+            data[0] |= views[-1][-1]
+            views[-1] = views[-1][:-1]
+        views.append(data)
+        bits += nbits
+    return views, bits, cut
+
+
+def _append_run(out: _ByteBitAppender, data: np.ndarray, bits: int,
+                cut: int) -> None:
+    """Append a run's stream, joined as if it started at stream bit 0
+    (`bits` bits of `data`; `cut` as _join_pieces gives it), at out's bit
+    position. Its blocks before that first stored block take the same bits
+    at any start; the stored block's LEN, and all after it, start on a
+    byte boundary in both placements, so from there on its bytes are
+    copied as they are."""
+    if cut < 0 or out.bitpos % 8 == 0:
+        out.append_bits(data, bits)
+        return
+    out.append_bits(data, cut)
+    out.bitpos = -(-out.bitpos // 8) * 8
+    aligned = -(-cut // 8) * 8
+    out.append_bits(data[aligned // 8:], bits - aligned)
 
 
 def _start_fetch(res: dict):
@@ -828,7 +927,7 @@ def _start_fetch(res: dict):
     header words (meta, int64: the HDR_WORDS int32 words two a column), and
     the packed words. On a card the copies go to pinned memory on the
     results' device's stream, followed by an event. Returns what
-    _finish_fetch takes."""
+    _finish_fetch takes (deflate_entries' fetch)."""
     meta = torch.cat([res["mode"][:, None], res["nbits"][:, None],
                       res["hdr_bits"][:, None],
                       res["hdr_words"].view(torch.int64)], dim=1)

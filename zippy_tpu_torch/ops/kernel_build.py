@@ -1,7 +1,8 @@
 """Build the port's native libraries and count its kernel launches.
 
 * csrc/checksums.cu (K1-K3), csrc/inflate.cu (K4 and K9), csrc/huffman.cu
-  (K5), csrc/resolve.cu (K6), csrc/match.cu (K7) and csrc/pack.cu (K8):
+  (K5), csrc/resolve.cu (K6), csrc/match.cu (K7), csrc/pack.cu (K8) and
+  csrc/join.cu (K10):
   nvcc for sm_90a, never with --use_fast_math; each includes
   csrc/device_scope.cuh.
 * csrc/zippy_native.cpp (the host engine, native.py, and the decode's host
@@ -31,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 CUDA_SOURCES = ("checksums.cu", "inflate.cu", "huffman.cu", "resolve.cu",
-                "match.cu", "pack.cu")
+                "match.cu", "pack.cu", "join.cu")
 CUDA_HEADERS = ("device_scope.cuh",)
 HOST_SOURCES = ("zippy_native.cpp",)
 # The host compiler's flags: zippy_tpu's (zippy_tpu/native/build.py), since
@@ -42,7 +43,8 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fno-exceptions",
 # Kernel launches per wrapper: one per launch, counted nowhere else.
 LAUNCHES = {"adler_chunks": 0, "crc_rows": 0, "crc_combine": 0,
             "inflate_extract": 0, "huffman_tables": 0, "lz_resolve": 0,
-            "match_tokens": 0, "pack_tokens": 0, "block_tables": 0}
+            "match_tokens": 0, "pack_tokens": 0, "block_tables": 0,
+            "join_rows": 0}
 
 
 def _find(names, what: str) -> str:

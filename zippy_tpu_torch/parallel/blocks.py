@@ -5,11 +5,13 @@ The reference runs its encoder under shard_map over a Mesh. Here each device
 of a list (CUDA cards, or "cpu" for the plain versions; a device may repeat)
 takes one contiguous run of blocks, gets one upload of that run with the
 32 KiB history before it and PAD after it, and encodes it a group of
-`_group_size` blocks at a time. Every device's next group is issued before
-any is fetched, so cards work at once; the host then splices every block in
-block order. That driver is `deflate_device.deflate_runs`, the one behind
-`deflate_device.deflate` too, so the stream is byte-identical to it at any
-device count.
+`_group_size` blocks at a time, each group's rows joined into a piece of
+the run's stream on the device (kernel K10) as if the run started at bit 0.
+Every device's next group is issued before any is fetched, so cards work at
+once; the host fetches the pieces' bytes and realigns each run after the
+first onto the stream. That function is `deflate_device.deflate_runs`, the
+one behind `deflate_device.deflate` too, so the stream is byte-identical to
+it at any device count.
 
 The container checksums run on each device's contiguous share of whole
 `block`-byte rows (kernels K2 + K3 for crc32, K1 for adler32); the host
