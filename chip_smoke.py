@@ -2516,11 +2516,12 @@ def _read_tree(root: pathlib.Path) -> dict:
 
 
 def archive_phase(dev, data: bytes, watch: ResolveWatch,
-                  tables_watch: TablesWatch) -> tuple[dict, int, int, int,
-                                                      int]:
+                  tables_watch: TablesWatch,
+                  join_watch: JoinWatch) -> tuple[dict, int, int, int, int]:
     """Phase 9, the archive layer. Returns the kernel launches of its
     counted run and the largest differences of K1-K3, of K4, of K6 and of
-    K9 from their plain versions on its sampled entries."""
+    K9 from their plain versions on its sampled entries; K10's joins of
+    the writer's runs of rows are held to its plain version here."""
     import io
     import tarfile
     import zipfile
@@ -2548,6 +2549,12 @@ def archive_phase(dev, data: bytes, watch: ResolveWatch,
     rows = {h: sum(1 for _ in td._entry_rows(payloads, td.BLOCK, h))
             for h in (0, td.HIST)}
     groups = sum(-(-r // gmax) for r in rows.values())
+    # K10 joins each payload's run of rows in a group: one launch a run.
+    runs = 0
+    for h in (0, td.HIST):
+        owner = [p for p, _, _, _ in td._entry_rows(payloads, td.BLOCK, h)]
+        runs += sum(len(set(owner[i:i + gmax]))
+                    for i in range(0, len(owner), gmax))
     torch.cuda.synchronize()
     launches = dict.fromkeys(kb.LAUNCHES, 0)
 
@@ -2589,13 +2596,32 @@ def archive_phase(dev, data: bytes, watch: ResolveWatch,
                                   "block_tables": 0,
                                   "huffman_tables": groups,
                                   "pack_tokens": groups,
-                                  "join_rows": 0,
+                                  "join_rows": runs,
                                   "lz_resolve": 0,
                                   "match_tokens": groups
                                   * mk.launches_per_group(False)},
             "zipfile_equal": zipfile_equal}
     emit(line)
     check(zipfile_equal and create_l == line["launches_expected"], line)
+
+    # The writer's joins against K10's plain version, on a second call
+    # whose joins are kept (untimed): the random files' stored rows among
+    # them, runs that continue a stream from the group before, and a
+    # group's later runs, each at bit 0 of its own stream.
+    kept_joins: list = []
+    with join_watch.keeping(kept_joins):
+        again = zt.create_zip_archive(tree)
+    joins = join_watch.vs_plain(kept_joins)
+    joins["continued_runs"] = sum(int(k[7] == 0 and bool(k[6][0].any()))
+                                  for k in kept_joins)
+    del kept_joins
+    with zipfile.ZipFile(io.BytesIO(again)) as zf:
+        joins["zipfile_equal"] = all(zf.read(n) == tree[n] for n in names)
+    emit({"phase": "archives", "run": "create_zip_archive joins vs plain",
+          "runs_expected": runs, **joins})
+    check(JoinWatch.good(joins) and joins["groups"] == runs
+          and joins["stored_rows"] > 0 and joins["continued_runs"] > 0
+          and joins["zipfile_equal"], joins)
 
     # 16 sampled entries, each encoded alone: the smallest, multi-block
     # ones across the sizes (the largest included) and random ones.
@@ -3577,7 +3603,8 @@ def main() -> int:
     add_phase(parallel_launches, kernel_errs(*errs))
 
     # Phase 9: the archive layer.
-    archive_launches, *errs = archive_phase(dev, data, watch, k9_watch)
+    archive_launches, *errs = archive_phase(dev, data, watch, k9_watch,
+                                            k10_watch)
     add_phase(archive_launches, kernel_errs(*errs))
 
     # Phase 10: the driver hooks.

@@ -7,10 +7,12 @@ profiling.recent(); and the cases where a reader has nothing to read."""
 import functools
 import gzip
 import importlib.util
+import io
 import itertools
 import json
 import pathlib
 import types
+import zipfile
 
 import pytest
 
@@ -65,12 +67,27 @@ EXPECTED = {
         rs, "scan.passes") / len(rs),
     "upload_MB_per_MB.indexed": lambda rs, run: _sum(
         rs, "upload.bytes") / run.bytes_out,
+    "splice_share.zip": lambda rs, run: 100 * sum(
+        r.spans.get("splice", (0, 0, 0))[2] for r in rs) / 1e9
+    / run.window_s,
+    "framing_share.zip": lambda rs, run: 100 * _self_s(
+        rs, lambda n: n == "framing") / run.window_s,
+    "crc_share.zip": lambda rs, run: 100 * _self_s(
+        rs, lambda n: n in ("checksums", "checksum.wait")) / run.window_s,
+    "host_wait_share.zip": lambda rs, run: 100 * _self_s(
+        rs, lambda n: n.endswith(".wait")) / run.window_s,
+    "upload_MB_per_MB.zip": lambda rs, run: _sum(
+        rs, "upload.bytes") / run.bytes_in,
+    "fetch_used_pct.zip": lambda rs, run: 100 * _sum(
+        rs, "fetch.used_bytes") / _sum(rs, "fetch.bytes"),
 }
 # Readers whose reading is 0 in their own cell: the indexed decode scans no
 # member.
 # Since the compress joins its rows on the card, its host splice builds no
-# header: splice_header_share.compress reads 0 there.
-ZERO = {"scan_passes_per_call.indexed", "splice_header_share.compress"}
+# header: splice_header_share.compress reads 0 there. The archive writer
+# joins its rows on the card too: splice_share.zip reads 0.
+ZERO = {"scan_passes_per_call.indexed", "splice_header_share.compress",
+        "splice_share.zip"}
 
 
 @pytest.fixture(autouse=True)
@@ -104,6 +121,15 @@ def _call(name: str):
         blob = zt.compress(TEXT, 6, device="cpu")
         assert gzip.decompress(blob) == TEXT
         return len(TEXT), len(blob)
+    if name.endswith(".zip"):
+        # The tables as the caller's tensors, as the zip cell holds them.
+        tables = {"a.tbl": TEXT, "b.tbl": TEXT[:5000]}
+        blob = zt.create_zip_archive({
+            k: torch.frombuffer(bytearray(v), dtype=torch.uint8)
+            for k, v in tables.items()}, device="cpu")
+        with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+            assert {k: zf.read(k) for k in tables} == tables
+        return sum(map(len, tables.values())), len(blob)
     if name.endswith(".indexed"):
         blob = _indexed_stream()
         parts = zt.uncompress_device(blob, array=True, device="cpu")
@@ -142,7 +168,8 @@ def test_a_reader_sums_the_window_of_calls(name):
         call_s.append(0.5)
     run = _run((profiling._clock() - t0) / 1e9, call_s, sizes)
     records = profiling.recent(CALLS)
-    kind = "compress" if name.endswith(".compress") else "uncompress"
+    kind = "compress" if name.endswith((".compress", ".zip")) \
+        else "uncompress"
     assert [r.name for r in records] == [kind] * CALLS
     want = EXPECTED[name](records, run)
     if name in ZERO:

@@ -12,6 +12,8 @@ import enum
 import numpy as np
 import torch
 
+from . import profiling
+
 
 class ZippyError(Exception):
     """The single exception type raised by every zippy_tpu_torch entry point.
@@ -106,3 +108,53 @@ def as_u8_tensor(data, device=None) -> torch.Tensor:
     # one upload.
     arr = np.frombuffer(data, dtype=np.uint8).copy()
     return torch.from_numpy(arr).to(resolve_device(device))
+
+
+def upload_packed(payloads, device) -> tuple[list, list]:
+    """Each payload (bytes-like) as a 1-D uint8 tensor on `device`, all from
+    one upload with no host sync, counted in `upload.bytes`. The payloads
+    lie at 16-byte aligned offsets of one host buffer, so that K2 reads each
+    in place; for a card the buffer is pinned and returned in keep, to hold
+    until the caller next synchronizes. Returns (tensors, keep)."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    offs, total = [], 0
+    for p in payloads:
+        offs.append(total)
+        total += -(-len(p) // 16) * 16
+    host = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=cuda)
+    h = host.numpy()
+    for off, p in zip(offs, payloads):
+        h[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    profiling.count("upload.bytes", total)
+    buf = host.to(dev, non_blocking=True)
+    return [buf[off:off + len(p)] for off, p in zip(offs, payloads)], (
+        [host] if cuda else [])
+
+
+def payload_tensors(payloads, device) -> tuple[list, list]:
+    """Each payload as a 1-D uint8 tensor on `device` (a torch.device with
+    its index, as resolve_devices gives it). A tensor there is read
+    where it lies; a tensor elsewhere is copied there once, counted in
+    `upload.bytes` when it comes from the host; the bytes-like and str
+    (UTF-8) payloads go together in one upload (upload_packed). A tensor
+    that is not 1-D uint8 raises ZippyError before any copy. Returns
+    (tensors, keep), keep as upload_packed's."""
+    payloads = [p.encode("utf-8") if isinstance(p, str) else p
+                for p in payloads]
+    for p in payloads:
+        if isinstance(p, torch.Tensor):
+            as_u8_tensor(p)             # the dtype and rank, checked
+    hosted = [i for i, p in enumerate(payloads)
+              if not isinstance(p, torch.Tensor)]
+    views, keep = (upload_packed([payloads[i] for i in hosted], device)
+                   if hosted else ([], []))
+    out = list(payloads)
+    for i, view in zip(hosted, views):
+        out[i] = view
+    for i, p in enumerate(out):
+        if p.device != device:
+            if p.device.type == "cpu":
+                profiling.count("upload.bytes", p.nbytes)
+            out[i] = p.to(device)
+    return out, keep

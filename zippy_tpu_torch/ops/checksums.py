@@ -18,6 +18,9 @@ the result there too, as a (1,) int64 tensor, so callers can batch their
 fetches. `crc32_raw_tensor` leaves K3's raw CRC, with no work after K3:
 `crc32_finish` turns its fetched value into the crc32 on the host, as
 `crc32_device` does; `adler32_device` fetches adler32_tensor.
+`crc32_many` takes many payloads, card-resident tensors read in place
+beside host bytes uploaded together (common.payload_tensors), with one
+fetch.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import profiling
-from ..common import as_u8_tensor, resolve_device
+from ..common import as_u8_tensor, payload_tensors, resolve_devices
 
 ADLER_MOD = 65521
 CRC32_POLY = 0xEDB88320  # reflected polynomial
@@ -220,36 +223,21 @@ def crc32_raw_tensor(data, device=None) -> torch.Tensor:
     return ck.crc_combine(ck.crc_rows(rows, tail), n - full * row or row)
 
 
-def upload_packed(payloads, device) -> tuple[list, list]:
-    """Each payload (bytes-like) as a 1-D uint8 tensor on `device`, all from
-    one upload with no host sync. The payloads lie at 16-byte aligned
-    offsets of one host buffer, so that K2 reads each in place; for a card
-    the buffer is pinned and returned in keep, to hold until the caller
-    next synchronizes. Returns (tensors, keep)."""
-    dev = resolve_device(device)
-    cuda = dev.type == "cuda"
-    offs, total = [], 0
-    for p in payloads:
-        offs.append(total)
-        total += -(-len(p) // 16) * 16
-    host = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=cuda)
-    h = host.numpy()
-    for off, p in zip(offs, payloads):
-        h[off:off + len(p)] = np.frombuffer(p, np.uint8)
-    buf = host.to(dev, non_blocking=True)
-    return [buf[off:off + len(p)] for off, p in zip(offs, payloads)], (
-        [host] if cuda else [])
-
-
 def crc32_many(payloads, device=None) -> list[int]:
-    """The crc32 of each payload (bytes-like) on `device` (None: the CUDA
-    card): the non-empty ones from one upload (upload_packed), K2 + K3 a
-    payload with no host sync between them, and one fetch of every raw CRC.
-    An empty payload's crc32 is 0, with no device work."""
-    sizes = [len(p) for p in payloads]
-    views, keep = upload_packed([p for p in payloads if len(p)], device)
-    raws = iter(torch.cat([crc32_raw_tensor(v) for v in views]).tolist()
-                if views else [])
+    """The crc32 of each payload on `device` (None: the CUDA card). A
+    payload is bytes-like, str or a 1-D uint8 tensor: a tensor on `device`
+    is read in place (copied on the card where K2 needs an alignment its
+    view lacks), bytes go there in one upload (common.payload_tensors: a
+    caller that holds tensors on `device` passes them through). K2 + K3 a
+    non-empty payload with no host sync between them, then one fetch of
+    every raw CRC. An empty payload's crc32 is 0, with no device work."""
+    tensors, keep = payload_tensors(payloads,
+                                    resolve_devices([device])[0])
+    sizes = [int(t.numel()) for t in tensors]
+    with profiling.span("checksums"):
+        raws = [crc32_raw_tensor(t) for t in tensors if t.numel()]
+    with profiling.span("checksum.wait"):
+        raws = iter(torch.cat(raws).tolist() if raws else [])
     del keep
     return [crc32_finish(next(raws), n) if n else 0 for n in sizes]
 

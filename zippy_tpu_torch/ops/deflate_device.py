@@ -30,10 +30,13 @@ reference's vmap, written out as a leading group dimension G):
    CUDA tensor it is one launch of the Hopper kernel K10 (csrc/join.cu);
    `join_kernels.join_rows_plain` is its plain version and the CPU path.
    The host fetches each piece's bytes and ORs the byte where two pieces
-   meet (`deflate_runs`). The host splice (`_assemble_block` over a
-   `_ByteBitAppender`) joins `deflate_entries`' rows, whose groups hold
-   many streams, and a run that did not start at stream bit 0 onto the
-   stream (`_append_run`).
+   meet (`deflate_runs`). `deflate_entries`, whose groups hold many
+   streams (their rows gathered on the card from the payloads' tensors),
+   joins each stream's run of rows in a group into a piece of its own.
+   A run that did not start at stream bit 0 (the multi-card encode) is
+   realigned onto the stream on the host (`_append_run`). The host splice
+   (`_splice_group`: `_assemble_block` over a `_ByteBitAppender`) runs on
+   no encode path; the tests hold the join to it.
 
 Every device stage is a hand-written kernel on a CUDA tensor. The output
 bytes are
@@ -51,7 +54,8 @@ import numpy as np
 import torch
 
 from .. import profiling, tables
-from ..common import ZippyError, check_level, resolve_devices
+from ..common import (ZippyError, as_u8_tensor, check_level, host_bytes,
+                      payload_tensors, resolve_devices)
 from . import huffman_kernels, join_kernels, match_kernels, pack_kernels
 from .device_tables import const
 # The matcher's constants and word helpers live with K7.
@@ -878,12 +882,18 @@ def _fetch_piece(piece: torch.Tensor, state: torch.Tensor) -> tuple:
     head = _copy_to_host(state)
     phase = int(head[0, join_kernels.PHASE])
     _, bits, cut, err = head[1].tolist()
-    if err:
-        raise ZippyError("the stream join refused a group: " + "; ".join(
-            why for bit, why in join_kernels.ERRORS.items() if err & bit))
+    _check_join(err)
     nbytes = (phase + bits + 7) // 8
     profiling.count("fetch.bytes", head.nbytes + nbytes)
     return phase, bits, cut, _copy_to_host(piece[:nbytes])
+
+
+def _check_join(err: int) -> None:
+    """ZippyError for a join's error word (join_kernels.ERRORS) that is not
+    0."""
+    if err:
+        raise ZippyError("the stream join refused a group: " + "; ".join(
+            why for bit, why in join_kernels.ERRORS.items() if err & bit))
 
 
 def _join_pieces(pieces: list) -> tuple[list, int, int]:
@@ -993,36 +1003,156 @@ def _entry_rows(payloads: list, block_size: int, hist: int):
             yield p, s, min(block_size, n - s), b == nblocks - 1
 
 
+# The encode results join_rows reads, row for row.
+_JOINED = ("mode", "nbits", "hdr_bits", "hdr_words", "words")
+
+
 def _issue_entry_group(payloads: list, rows: list, block_size: int,
                        hist: int, params: dict, dev: torch.device,
-                       keep: list) -> dict:
-    """Build one group's rows on the host, as deflate_runs' buffer lays
-    them out (the `hist` bytes before the block, zeros before the payload;
-    the block; PAD bytes after it, zeros past the payload), upload them
-    without a host sync (from pinned memory for CUDA, appended to `keep`
-    until the next sync) and issue the group's encode."""
-    cuda = dev.type == "cuda"
+                       keep: list, carry: torch.Tensor | None):
+    """Issue one group of deflate_entries with no host sync, and the copy
+    of its results to the host.
+
+    The group's rows are built on the card from the payload tensors, as
+    deflate_runs' buffer lays them out (the `hist` bytes before the block,
+    zeros before the payload; the block; PAD bytes after it, zeros past the
+    payload): each payload's run of rows in the group is a _run_buffer,
+    whose overlapping windows are gathered into the group's rows. Only the
+    rows' lengths are uploaded (from pinned memory for CUDA, appended to
+    `keep` until the next sync). After the encode, each run is joined into
+    one piece of its payload's stream (join_kernels.join_rows, one launch a
+    run) in a state of two rows a run: the first run starts where `carry`,
+    the state row the group before left, says when it continues a stream;
+    every other run starts a stream at bit 0. The state and the pieces go
+    to the host in one copy. Returns (the runs, each (payload, its rows),
+    the state row the next group continues from, what
+    _finish_entry_group takes)."""
     width = hist + block_size + PAD
-    host = torch.zeros(len(rows), width, dtype=torch.uint8, pin_memory=cuda)
-    lens = torch.empty(2, len(rows), dtype=torch.int64, pin_memory=cuda)
-    h, ln = host.numpy(), lens.numpy()
-    for i, (p, s, blen, _) in enumerate(rows):
-        data = payloads[p]
-        lo = max(s - hist, 0)
-        src = data[lo:s + block_size + PAD]
-        h[i, lo - (s - hist):lo - (s - hist) + len(src)] = src
-        ln[0, i], ln[1, i] = blen, min(s, hist)
-    if cuda:
-        keep += [host, lens]
-    profiling.count("upload.bytes", host.nbytes + lens.nbytes)
-    host = host.to(dev, non_blocking=True)
+    runs, parts = [], []
+    for p, run in itertools.groupby(rows, key=lambda row: row[0]):
+        run = list(run)
+        b0 = run[0][1] // block_size
+        buf = _run_buffer(payloads[p], b0, b0 + len(run), block_size, hist,
+                          dev)
+        parts.append(buf.unfold(0, width, block_size))
+        runs.append((p, run))
+    blocks = torch.cat(parts)
+    lens = torch.tensor([[blen for _, _, blen, _ in rows],
+                         [min(s, hist) for _, s, _, _ in rows]],
+                        dtype=torch.int64)
+    profiling.count("upload.bytes", lens.nbytes)
+    if dev.type == "cuda":
+        lens = lens.pin_memory()
+        keep.append(lens)
     lens = lens.to(dev, non_blocking=True)
-    return _encode_group(host, lens[0], lens[1], hist=hist, **params)
+    res = _encode_group(blocks, lens[0], lens[1], hist=hist, **params)
+    state = join_kernels.new_state(2 * len(runs) - 1, dev)
+    if rows[0][1]:
+        state[0] = carry
+    out, j = [state.view(torch.uint8).view(-1)], 0
+    with profiling.span("join"):
+        for t, (_, run) in enumerate(runs):
+            g = len(run)
+            out.append(join_kernels.join_rows(
+                {key: res[key][j:j + g] for key in _JOINED},
+                lens[0][j:j + g], blocks[j:j + g], hist, block_size,
+                g - 1 if run[-1][3] else -1, state, 2 * t))
+            j += g
+    profiling.count("join.rows", len(rows))
+    out = torch.cat(out)
+    profiling.count("fetch.bytes", out.nbytes)
+    if dev.type != "cuda":
+        return runs, state[-1], (out, None)
+    host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True).copy_(
+        out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return runs, state[-1], (host, event)
+
+
+def _finish_entry_group(runs: list, fetch, block_size: int,
+                        pieces: list) -> None:
+    """Wait for a group's copy (_issue_entry_group) and append each run's
+    piece to its payload's list in `pieces`, as _fetch_piece gives it: (its
+    start phase, its bits, its cut, its bytes as a numpy view of the copy).
+    ZippyError for a run the join refused."""
+    host, event = fetch
+    if event is not None:
+        with profiling.span("encode.wait"):
+            event.synchronize()
+    host = host.numpy()
+    state = host[:64 * len(runs)].view(np.int64).reshape(-1, 4)
+    at = state.nbytes
+    for t, (p, run) in enumerate(runs):
+        phase = int(state[2 * t, join_kernels.PHASE])
+        _, bits, cut, err = state[2 * t + 1].tolist()
+        _check_join(err)
+        pieces[p].append((phase, bits, cut,
+                          host[at:at + (phase + bits + 7) // 8]))
+        at += 4 * join_kernels.piece_words(len(run), block_size)
+
+
+def _stored_stream(data) -> bytes:
+    """The level-0 stream of a payload, read where it lies: a tensor is
+    fetched, host bytes are not uploaded."""
+    data = (as_u8_tensor(data).cpu().numpy() if isinstance(data, torch.Tensor)
+            else np.frombuffer(host_bytes(data), np.uint8))
+    if not len(data):
+        return _empty_stream()
+    out = _ByteBitAppender()
+    _append_block(out, "stored", None, None, 0, data, len(data), True)
+    return bytes(out.out)
+
+
+def _entry_views(payloads, level: int, block_size: int,
+                 device) -> list[list]:
+    """deflate_entries' streams, each as a list of byte views (numpy uint8
+    arrays, or bytes) that b"".join joins into it."""
+    if not MIN_BLOCK <= block_size <= (1 << 17) - HIST:
+        raise ZippyError(f"block_size must lie in [{MIN_BLOCK}, "
+                         f"{(1 << 17) - HIST}]")
+    if level == 0:
+        return [[_stored_stream(p)] for p in payloads]
+    dev = resolve_devices([device])[0]
+    payloads, held = payload_tensors(payloads, dev)
+    lits_only = level == -2
+    k, lazy, min3 = _level_params(1 if lits_only else level)
+    params = {"k": k, "lazy": lazy, "min3": min3, "lits_only": lits_only}
+    gmax = _group_size(k, block_size)
+    groups = []
+    for hist in (0, HIST):
+        rows = list(_entry_rows(payloads, block_size, hist))
+        groups += [(hist, rows[i:i + gmax])
+                   for i in range(0, len(rows), gmax)]
+    pieces: list = [[] for _ in payloads]
+    keep: list = []
+    carry = pending = None
+    for group in groups + [None]:
+        issued = None
+        if group is not None:
+            hist, rows = group
+            with profiling.span("encode.issue"):
+                runs, carry, fetch = _issue_entry_group(
+                    payloads, rows, block_size, hist, params, dev, keep,
+                    carry)
+            issued = runs, fetch
+        if pending is not None:
+            # The next group runs on the card while this one is fetched.
+            with profiling.span("fetch"):
+                _finish_entry_group(*pending, block_size, pieces)
+            del keep[:-1]           # all but the next group's upload
+        pending = issued
+    del held
+    views = [_join_pieces(run)[0] if run else [_empty_stream()]
+             for run in pieces]
+    profiling.count("fetch.used_bytes", sum(
+        len(v) for stream, run in zip(views, pieces) if run for v in stream))
+    return views
 
 
 def deflate_entries(payloads, level: int, block_size: int = BLOCK,
-                    device=None) -> list[bytes]:
-    """One raw DEFLATE stream per payload (bytes-like), each the stream of
+                    device=None, *, views: bool = False) -> list:
+    """One raw DEFLATE stream per payload, each the stream of
     `deflate(payload, level, block_size, device)`, with the payloads' blocks
     encoded together: every block of every non-empty payload is a row of
     shared groups of _group_size rows, so many small payloads take a few
@@ -1032,59 +1162,29 @@ def deflate_entries(payloads, level: int, block_size: int = BLOCK,
     grouping. A single-block payload's rows take no history and a longer
     payload's take HIST: the two kinds go in separate groups.
 
-    Each group's rows are built on the host and uploaded as it is issued,
-    and its results are copied back with no host sync; the next group is
-    issued before the host waits for a group's results, so the card holds
-    about one group's intermediates at a time and encodes the next group
-    while the host splices. The host splices each payload's blocks in
-    order, a stored block from the host payload."""
+    A payload is bytes-like, str or a 1-D uint8 tensor. Tensors on
+    `device` (None: the CUDA card) are read where they lie; host bytes go
+    there in one upload first (common.payload_tensors), so the streams are
+    the same whichever form a payload comes in. Each group's rows are
+    gathered on the card as it is issued, and each payload's run of rows in
+    it is joined on the card into one piece of that payload's stream (K10,
+    as deflate_runs joins a group), a stored row from the group's own
+    bytes; the pieces come back in one copy a group, with no host sync, and
+    the next group is issued before the host waits for a group's copy, so
+    the card holds about one group's intermediates at a time. The host
+    only ORs the byte where two pieces of a stream meet. Level 0 frames
+    each payload as stored blocks where it lies: a tensor is fetched, host
+    bytes stay on the host.
+
+    Returns each stream as bytes; with `views`, as a list of byte views
+    that b"".join joins into it, for a writer that joins them into its own
+    output once."""
     check_level(level)
-    if not MIN_BLOCK <= block_size <= (1 << 17) - HIST:
-        raise ZippyError(f"block_size must lie in [{MIN_BLOCK}, "
-                         f"{(1 << 17) - HIST}]")
-    dev = resolve_devices([device])[0]
-    payloads = [np.frombuffer(p.encode("utf-8") if isinstance(p, str) else p,
-                              dtype=np.uint8) for p in payloads]
-    outs = [_ByteBitAppender() for _ in payloads]
-    if level == 0:
-        for out, data in zip(outs, payloads):
-            if len(data):
-                _append_block(out, "stored", None, None, 0, data, len(data),
-                              True)
-    else:
-        lits_only = level == -2
-        k, lazy, min3 = _level_params(1 if lits_only else level)
-        params = {"k": k, "lazy": lazy, "min3": min3, "lits_only": lits_only}
-        gmax = _group_size(k, block_size)
-        groups = []
-        for hist in (0, HIST):
-            rows = list(_entry_rows(payloads, block_size, hist))
-            groups += [(hist, rows[i:i + gmax])
-                       for i in range(0, len(rows), gmax)]
-        keep: list = []
-        pending = None
-        for group in groups + [None]:
-            issued = None
-            if group is not None:
-                hist, rows = group
-                with profiling.span("encode.issue"):
-                    issued = (rows, _start_fetch(_issue_entry_group(
-                        payloads, rows, block_size, hist, params, dev,
-                        keep)))
-            if pending is not None:
-                # The next group runs on the card while this one splices.
-                rows, fetch = pending
-                with profiling.span("fetch"):
-                    meta, words = _finish_fetch(fetch)
-                del keep[:-2]       # all but the next group's uploads
-                with profiling.span("splice"):
-                    _splice_group(meta, words, [
-                        (outs[p], blen, last) for p, _, blen, last in rows],
-                        lambda j: payloads[rows[j][0]][rows[j][1]:]
-                        [:rows[j][2]])
-            pending = issued
-    return [bytes(out.out) if len(data) else _empty_stream()
-            for out, data in zip(outs, payloads)]
+    streams = _entry_views(payloads, level, block_size, device)
+    if views:
+        return streams
+    with profiling.span("framing"):
+        return [b"".join(stream) for stream in streams]
 
 
 def deflate(data, level: int, block_size: int = BLOCK,

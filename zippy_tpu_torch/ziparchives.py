@@ -13,10 +13,13 @@ What differs is how the entries reach the codec. The reference compresses
 and extracts entry by entry on a thread pool (its native codec releases the
 GIL). Here one host thread issues all CUDA work:
 
-* create_zip_archive encodes every non-empty entry in one
-  deflate_device.deflate_entries call, whose shared groups hold the blocks
-  of many entries (a device encode costs about the same per group whatever
-  it holds), and computes every entry's crc32 with K2 + K3 from one upload,
+* create_zip_archive takes each entry as bytes, str or a 1-D uint8 tensor
+  on the card: tables a pipeline made on the card are read where they lie,
+  and host bytes go there in one upload. It encodes every non-empty entry
+  in one deflate_device.deflate_entries call, whose shared groups hold
+  the blocks of many entries (a device encode costs about the same per
+  group whatever it holds), gathered and joined into each entry's stream
+  on the card, and computes every entry's crc32 with K2 + K3 in place,
   with one fetch (checksums.crc32_many).
 * extract_all scans each deflated entry on the host, then decodes them
   together (inflate_device.inflate_streams, in passes of at most 1 GiB of
@@ -33,13 +36,15 @@ import os
 import shutil
 import struct
 import time as _time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from datetime import datetime
 from typing import NamedTuple
 
 import torch
 
-from .common import ZippyError, resolve_device
+from . import profiling
+from .common import (ZippyError, payload_tensors, resolve_device,
+                     resolve_devices, upload_packed)
 from .ops import checksums, deflate_device
 from .ops import inflate_device as idev
 
@@ -138,7 +143,7 @@ def decode_entries(entries: list, device) -> list[bytes]:
         deflated[i] = len(streams)
         streams.append((e.payload, index))
     stored = [i for i, e in enumerate(entries) if e.method == 0 and e.payload]
-    views, keep = checksums.upload_packed(
+    views, keep = upload_packed(
         [entries[i].payload for i in stored], device)
     outs, err, raws = idev.inflate_streams(
         streams, device, crc=True,
@@ -469,81 +474,75 @@ def extract_all(zip_path: str | os.PathLike, dest: str | os.PathLike,
 # ---------------------------------------------------------------------------
 
 
-@dataclass
-class _WrittenEntry:
-    file_header_offset: int
-    uncompressed_len: int
-    compressed_len: int
-    compression_method: int
-    uncompressed_crc32: int
-    name: bytes = field(default=b"")
-
-
-def create_zip_archive(entries: dict[str, bytes | str],
+def create_zip_archive(entries: dict[str, bytes | str | torch.Tensor],
                        device=None) -> bytes:
     """In-memory zip from {path: contents}; always zip64, entries compressed
     at BestSpeed (reference ziparchives.nim:455-634), on `device` (None: the
-    CUDA card; "cpu" runs the plain versions): every non-empty entry in one
-    deflate_entries call, every crc32 from one upload and one fetch. Empty
-    entries are stored, with no device work."""
-    device = resolve_device(device)
-    lm_time, lm_date = to_ms_dos(_time.time())
+    CUDA card; "cpu" runs the plain versions). Contents are bytes, str
+    (UTF-8) or 1-D uint8 tensors, mixed as the caller holds them; another
+    tensor raises ZippyError. A tensor on `device` is read where it lies, a
+    tensor elsewhere is copied there once, and the bytes go there in one
+    upload (common.payload_tensors, here only); the archive is the same
+    whichever form the contents come in. Every non-empty entry is encoded
+    in one deflate_entries call (each stream joined on the card a group at
+    a time, fetched as pieces that the archive's one join takes as they
+    are), every crc32 from one fetch (crc32_many).
+    Empty entries are stored, with no device work. One profiling record
+    ("compress") covers the call."""
+    device = resolve_devices([device])[0]
+    with profiling.call("compress"):
+        lm_time, lm_date = to_ms_dos(_time.time())
+        names = []
+        for file_name in entries:
+            if file_name == "":
+                raise ZippyError("Invalid empty file name")
+            if file_name[0] == "/":
+                raise ZippyError("File paths must be relative")
+            name_b = file_name.encode("utf-8")
+            if len(name_b) > 0xFFFF:
+                raise ZippyError("File name len > uint16.high")
+            names.append(name_b)
+        datas, keep = payload_tensors(list(entries.values()), device)
+        sizes = [int(d.numel()) for d in datas]
+        profiling.count("zip.entries", len(datas))
+        profiling.count("zip.bytes", sum(sizes))
+        crcs = checksums.crc32_many(datas, device)
+        streams = iter(deflate_device.deflate_entries(
+            [d for d in datas if len(d)], 1, device=device, views=True))
+        del keep, datas
+        with profiling.span("framing"):
+            return _write_zip(names, sizes, crcs, streams, lm_time, lm_date)
 
-    items: list[tuple[str, bytes]] = []
-    for file_name, contents in entries.items():
-        if file_name == "":
-            raise ZippyError("Invalid empty file name")
-        if file_name[0] == "/":
-            raise ZippyError("File paths must be relative")
-        if len(file_name.encode()) > 0xFFFF:
-            raise ZippyError("File name len > uint16.high")
-        if isinstance(contents, str):
-            contents = contents.encode("utf-8")
-        items.append((file_name, contents))
 
-    crcs = checksums.crc32_many([c for _, c in items], device)
-    streams = iter(deflate_device.deflate_entries(
-        [c for _, c in items if c], 1, device=device))
-    compressed = [(next(streams), 8, crc) if contents else (b"", 0, crc)
-                  for (_, contents), crc in zip(items, crcs)]
-
-    out = bytearray()
-    records: list[_WrittenEntry] = []
-    for (file_name, contents), (comp, method, crc) in zip(items, compressed):
-        name_b = file_name.encode("utf-8")
-        records.append(_WrittenEntry(
-            file_header_offset=len(out),
-            uncompressed_len=len(contents),
-            compressed_len=len(comp),
-            compression_method=method,
-            uncompressed_crc32=crc,
-            name=name_b,
-        ))
-        out += struct.pack(
+def _write_zip(names: list, sizes: list, crcs: list, streams, lm_time: int,
+               lm_date: int) -> bytes:
+    """The archive's bytes, joined once: each entry's local header (zip64
+    extra field) and data, a deflated stream from `streams` (a list of byte
+    views, as deflate_entries(views=True) gives it) for each non-empty
+    entry, an empty stored one for each empty entry; the central directory,
+    the zip64 EOCD, its locator and the EOCD."""
+    parts, central, offset = [], [], 0
+    for name_b, size, crc in zip(names, sizes, crcs):
+        comp, method = (next(streams), 8) if size else ([], 0)
+        clen = sum(map(len, comp))
+        parts += [struct.pack(
             "<IHHHHHIIIHH", FILE_HEADER_SIG, 45, 1 << 11, method,
             lm_time, lm_date, crc, 0xFFFFFFFF, 0xFFFFFFFF, len(name_b), 20,
-        )
-        out += name_b
-        out += struct.pack("<HHQQ", ZIP64_EXTRA_FIELD_ID, 16,
-                           len(contents), len(comp))
-        out += comp
-
-    cd_start = len(out)
-    for r in records:
-        out += struct.pack(
-            "<IHHHHHHIIIHHHHHII", CENTRAL_DIR_SIG, 45, 45, 1 << 11,
-            r.compression_method, lm_time, lm_date, r.uncompressed_crc32,
-            0xFFFFFFFF, 0xFFFFFFFF, len(r.name), 28, 0, 0, 0, 0, 0xFFFFFFFF,
-        )
-        out += r.name
-        out += struct.pack("<HHQQQ", ZIP64_EXTRA_FIELD_ID, 24,
-                           r.uncompressed_len, r.compressed_len,
-                           r.file_header_offset)
-    cd_end = len(out)
-
-    out += struct.pack("<IQHHIIQQQQ", ZIP64_EOCD_SIG, 44, 45, 45, 0, 0,
-                       len(records), len(records), cd_end - cd_start, cd_start)
-    out += struct.pack("<IIQI", ZIP64_EOCD_LOCATOR_SIG, 0, cd_end, 1)
-    out += struct.pack("<IHHHHIIH", EOCD_SIG, 0, 0, 0xFFFF, 0xFFFF,
-                       0xFFFFFFFF, 0xFFFFFFFF, 0)
-    return bytes(out)
+        ), name_b, struct.pack("<HHQQ", ZIP64_EXTRA_FIELD_ID, 16, size,
+                               clen), *comp]
+        central += [struct.pack(
+            "<IHHHHHHIIIHHHHHII", CENTRAL_DIR_SIG, 45, 45, 1 << 11, method,
+            lm_time, lm_date, crc, 0xFFFFFFFF, 0xFFFFFFFF, len(name_b), 28,
+            0, 0, 0, 0, 0xFFFFFFFF,
+        ), name_b, struct.pack("<HHQQQ", ZIP64_EXTRA_FIELD_ID, 24, size,
+                               clen, offset)]
+        offset += FILE_HEADER_LEN + len(name_b) + 20 + clen
+    cd_size = sum(map(len, central))
+    end = offset + cd_size
+    parts += central
+    parts.append(struct.pack("<IQHHIIQQQQ", ZIP64_EOCD_SIG, 44, 45, 45, 0,
+                             0, len(names), len(names), cd_size, offset))
+    parts.append(struct.pack("<IIQI", ZIP64_EOCD_LOCATOR_SIG, 0, end, 1))
+    parts.append(struct.pack("<IHHHHIIH", EOCD_SIG, 0, 0, 0xFFFF, 0xFFFF,
+                             0xFFFFFFFF, 0xFFFFFFFF, 0))
+    return b"".join(parts)

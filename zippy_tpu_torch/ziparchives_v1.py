@@ -21,7 +21,8 @@ import shutil
 import struct
 import time as _time
 
-from .common import ZippyError, resolve_device
+from .common import (ZippyError, payload_tensors, resolve_device,
+                     resolve_devices)
 from .ops import checksums, deflate_device
 from .ops.inflate_device import passes
 from .ziparchives import (
@@ -201,8 +202,9 @@ class ZipArchive:
     def write_zip_archive(self, path: str, device=None) -> None:
         """Non-zip64 writer (reference ziparchives_v1.nim:371-486), the
         codec on `device` (None: the CUDA card; "cpu" runs the plain
-        versions): every deflated entry in one deflate_entries call, every
-        crc32 from one fetch."""
+        versions): the contents uploaded once (common.payload_tensors),
+        every deflated entry in one deflate_entries call, every crc32 from
+        one fetch."""
         device = resolve_device(device)
         if not self.contents:
             raise ZippyError("Zip archive has no contents")
@@ -212,10 +214,12 @@ class ZipArchive:
         items = list(self.contents.items())
         deflated = [bool(os.path.basename(p)) and len(e.contents) > 0
                     for p, e in items]
-        crcs = checksums.crc32_many([e.contents for _, e in items], device)
+        tensors, keep = payload_tensors([e.contents for _, e in items],
+                                        resolve_devices([device])[0])
+        crcs = checksums.crc32_many(tensors, device)
         streams = iter(deflate_device.deflate_entries(
-            [e.contents for (_, e), d in zip(items, deflated) if d], 1,
-            device=device))
+            [t for t, d in zip(tensors, deflated) if d], 1, device=device))
+        del keep, tensors
 
         data = bytearray()
         values: dict[str, tuple[int, int, int, int, int]] = {}
